@@ -1,0 +1,1 @@
+"""Port of ``cfd_with_cuda_tpu/mesh``."""

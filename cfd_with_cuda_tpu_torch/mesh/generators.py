@@ -1,0 +1,173 @@
+"""Structured hexahedral mesh generators (cube / cavity).
+
+Rebuilds the reference's MATLAB tooling
+(``oldFiles/meshGenerators&Converters/cavityMeshGenerator.m``,
+``HexaMeshGeneratorInACube_GeneratesCornerNodes.m``,
+``HexaMeshGeneratorInAChannel...m``) as numpy functions producing the same
+deck data: corner coordinates, 8-node connectivity, face-based velocity BC
+tables, zero-pressure node, monitor point.  The sinh() wall clustering of
+``cavityMeshGenerator.m:48-60`` is reproduced exactly.  Port of the cube
+and cavity part of ``cfd_with_cuda_tpu/mesh/generators.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from cfd_with_cuda_tpu_torch.io.deck import Deck
+
+__all__ = ["clustered_axis", "cube_hex_mesh", "cavity_deck"]
+
+
+def clustered_axis(n_nodes: int, length: float = 1.0, cluster: float = 0.0) -> np.ndarray:
+    """1D node coordinates on [0, L], sinh-clustered toward both ends.
+
+    Mirrors ``cavityMeshGenerator.m:42-60``: for cluster == 0 the spacing is
+    uniform; otherwise the first half follows L/2 * sinh(c*x)/sinh(c) and the
+    second half is its mirror image (requires odd n_nodes for an exact
+    mirror, like the MATLAB tool's prompt).
+    """
+    if cluster == 0.0:
+        return np.linspace(0.0, length, n_nodes)
+    half = (n_nodes + 1) // 2
+    xx = np.arange(half) / ((n_nodes - 1) / 2.0)
+    coord = np.empty(n_nodes)
+    coord[:half] = length / 2.0 / np.sinh(cluster) * np.sinh(cluster * xx)
+    coord[half:] = length - coord[: n_nodes - half][::-1]
+    return coord
+
+
+def cube_hex_mesh(
+    nx: int,
+    ny: int | None = None,
+    nz: int | None = None,
+    *,
+    lengths=(1.0, 1.0, 1.0),
+    cluster: float = 0.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Structured hex mesh of a box: returns (coords (NCN,3), conn (NE,8)).
+
+    ``nx/ny/nz`` are *node* counts per direction.  Node numbering is
+    x-fastest, then y, then z (the ordering the reference decks use); the
+    element corner ordering matches the reference hexahedron (bottom face
+    counter-clockwise, then top face).
+    """
+    ny = ny or nx
+    nz = nz or nx
+    xs = clustered_axis(nx, lengths[0], cluster)
+    ys = clustered_axis(ny, lengths[1], cluster)
+    zs = clustered_axis(nz, lengths[2], cluster)
+
+    Z, Y, X = np.meshgrid(zs, ys, xs, indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=-1)
+
+    def nid(i, j, k):  # node id at (x-index i, y-index j, z-index k)
+        return (k * ny + j) * nx + i
+
+    ex, ey, ez = nx - 1, ny - 1, nz - 1
+    I, J, K = np.meshgrid(
+        np.arange(ex), np.arange(ey), np.arange(ez), indexing="ij"
+    )
+    i, j, k = I.ravel(order="F"), J.ravel(order="F"), K.ravel(order="F")
+    # order="F" on the (ex, ey, ez) meshgrid gives x-fastest element order.
+    conn = np.stack(
+        [
+            nid(i, j, k),
+            nid(i + 1, j, k),
+            nid(i + 1, j + 1, k),
+            nid(i, j + 1, k),
+            nid(i, j, k + 1),
+            nid(i + 1, j, k + 1),
+            nid(i + 1, j + 1, k + 1),
+            nid(i, j + 1, k + 1),
+        ],
+        axis=-1,
+    ).astype(np.int64)
+    return coords, conn
+
+
+def _boundary_faces(ne_xyz: tuple[int, int, int]) -> dict[str, np.ndarray]:
+    """(elem, face) pairs for each of the 6 box boundaries.
+
+    Face numbering follows ``HEX_FACE_CORNERS``: 0 bottom (z-), 1 front
+    (y-), 2 right (x+), 3 back (y+), 4 left (x-), 5 top (z+).
+    """
+    ex, ey, ez = ne_xyz
+
+    def eid(i, j, k):
+        return (k * ey + j) * ex + i
+
+    J, K = np.meshgrid(np.arange(ey), np.arange(ez), indexing="ij")
+    I2, K2 = np.meshgrid(np.arange(ex), np.arange(ez), indexing="ij")
+    I3, J3 = np.meshgrid(np.arange(ex), np.arange(ey), indexing="ij")
+    return {
+        "xmin": np.stack([eid(0, J, K).ravel(), np.full(ey * ez, 4)], -1),
+        "xmax": np.stack([eid(ex - 1, J, K).ravel(), np.full(ey * ez, 2)], -1),
+        "ymin": np.stack([eid(I2, 0, K2).ravel(), np.full(ex * ez, 1)], -1),
+        "ymax": np.stack([eid(I2, ey - 1, K2).ravel(), np.full(ex * ez, 3)], -1),
+        "zmin": np.stack([eid(I3, J3, 0).ravel(), np.full(ex * ey, 0)], -1),
+        "zmax": np.stack([eid(I3, J3, ez - 1).ravel(), np.full(ex * ey, 5)], -1),
+    }
+
+
+def cavity_deck(
+    n_elem: int,
+    *,
+    cluster: float = 0.0,
+    lid_velocity=(1.0, 0.0, 0.0),
+    dt: float = 0.001,
+    t_final: float = 1.0,
+    max_iter: int = 4,
+    tolerance: float = 1e-3,
+    convergence: float = 1e-6,
+    density: float = 1.0,
+    viscosity: float = 0.01,
+    ngp: int = 8,
+) -> Deck:
+    """3D lid-driven cavity deck: n_elem^3 hexes, lid at z=zmax moving in +x.
+
+    Matches the canonical ``lidDrivenCavity_NE27000.inp`` setup: BC 1 is the
+    no-slip walls, BC 2 the moving lid; the zero-pressure node sits at the
+    center of the bottom face; monitor point at the cavity center.
+    """
+    nx = n_elem + 1
+    coords, conn = cube_hex_mesh(nx, cluster=cluster)
+    fb = _boundary_faces((n_elem, n_elem, n_elem))
+    walls = np.concatenate([fb[k] for k in ("zmin", "ymin", "xmax", "ymax", "xmin")])
+    lid = fb["zmax"]
+    vel_faces = np.concatenate(
+        [
+            np.column_stack([walls, np.zeros(len(walls), dtype=np.int64)]),
+            np.column_stack([lid, np.ones(len(lid), dtype=np.int64)]),
+        ]
+    ).astype(np.int64)
+
+    # Zero-pressure node: corner node nearest the bottom-face center,
+    # matching the NE27000 deck's node 481 (0.5, 0.5, 0).
+    target = np.array([0.5, 0.5, 0.0])
+    zp = int(np.argmin(((coords - target) ** 2).sum(axis=1)))
+
+    deck = Deck(dialect="fractional", title=f"3D Lid-driven cavity {n_elem}^3")
+    deck.etype = 1
+    deck.ne = n_elem**3
+    deck.ncn = nx**3
+    deck.nenv, deck.nenp, deck.ngp = 27, 8, ngp
+    deck.alpha = 1.0
+    deck.dt = dt
+    deck.t_ini = 0.0
+    deck.t_final = t_final
+    deck.max_iter = max_iter
+    deck.tolerance = tolerance
+    deck.convergence_criteria = convergence
+    deck.density = density
+    deck.viscosity = viscosity
+    deck.coords = coords
+    deck.conn = conn
+    deck.bc_type = np.array([1.0, 1.0])
+    deck.bc_str = np.array([[0.0, 0.0, 0.0], list(lid_velocity)])
+    deck.bc_vel_faces = vel_faces
+    deck.zero_pressure_node = zp
+    deck.monitor_xyz = np.array([0.5, 0.5, 0.5])
+    return deck
+
+

@@ -1,0 +1,117 @@
+"""Shared chunked time-loop runner for the fractional-step solvers.
+
+Port of ``cfd_with_cuda_tpu/solvers/base.py``.  A solver provides one time
+step ``state -> (state, StepStats)``; this base runs ``steps_per_chunk`` of
+them per chunk, packs each chunk's monitor scalars into ONE device matrix
+that the host pulls once, and reproduces the reference's monitor table /
+steady-stop behaviour (``blascoCodinaHuerta.cpp:2859-3118``).
+
+The JAX package fuses a chunk into one ``lax.scan`` with an in-graph steady
+flag.  PyTorch runs eagerly, so here the chunk is a Python loop and the
+steady flag (``max_acc > convergence_criteria``) is read on the host once
+per step; the solver's sub-iteration loop reads its convergence flag once
+per sub-iteration too.  The history rows and the flag carried across
+chunks are the same as the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["StepStats", "ChunkedTimeLoop", "unpack_chunk_stats"]
+
+
+class StepStats(NamedTuple):
+    u_mon: torch.Tensor
+    v_mon: torch.Tensor
+    w_mon: torch.Tensor
+    p_mon: torch.Tensor
+    max_acc: torch.Tensor
+    iters: torch.Tensor | int       # nonlinear sub-iterations used
+    cg_iters: torch.Tensor | int    # pressure-solver iterations
+    mom_iters: torch.Tensor | int   # momentum-solver iterations (0 for explicit)
+
+
+def unpack_chunk_stats(packed) -> tuple[StepStats, bool]:
+    """(StepStats of (n_steps,) arrays, done flag) from a chunk's packed
+    monitor matrix (rows: the StepStats fields, then the done flag)."""
+    mat = packed.cpu().numpy()
+    return StepStats(*mat[:-1]), bool(mat[-1, -1])
+
+
+class ChunkedTimeLoop:
+    """Mixin: subclasses provide ``_time_step``, ``_monitor_only``,
+    ``initial_state``, ``deck``, ``config``, ``device``; get ``run()``."""
+
+    def _time_step(self, params, state):
+        raise NotImplementedError
+
+    def _monitor_only(self, state) -> StepStats:
+        raise NotImplementedError
+
+    def resolve_initial_state(self):
+        if getattr(self.deck, "is_restart", False):
+            raise NotImplementedError(
+                "restart decks need the Tecplot restart reader "
+                "(ROADMAP.md queue 1 item 8)"
+            )
+        return self.initial_state()
+
+    def chunk(self, state, n_steps: int, done: bool = False):
+        """Run ``n_steps`` steps (monitor-only once steady).  Returns
+        ``(state, packed)``: ``packed`` is a ``(9, n_steps)`` device matrix
+        in the state dtype, the 8 StepStats rows and the final steady flag,
+        as the JAX package's chunk returns it."""
+        conv_crit = self.deck.convergence_criteria
+        rows = []
+        for _ in range(n_steps):
+            if done:
+                stats = self._monitor_only(state)
+            else:
+                state, stats = self._time_step(self.d, state)
+            # reference steady test: maxAcc > criteria -> keep going
+            done = done or not bool(stats.max_acc > conv_crit)
+            rows.append(stats)
+        dt = self.config.torch_dtype()
+        packed = torch.stack(
+            [torch.stack([torch.as_tensor(getattr(s, f), dtype=dt, device=self.device)
+                          for s in rows]) for f in StepStats._fields]
+            + [torch.full((n_steps,), float(done), dtype=dt, device=self.device)]
+        )
+        return state, packed
+
+    def run(self, state=None, *, n_steps: int | None = None):
+        """Run until t_final or steady.  Returns (state, history rows)."""
+        deck = self.deck
+        state = state if state is not None else self.resolve_initial_state()
+        total = n_steps if n_steps is not None else int(
+            round((deck.t_final - deck.t_ini) / deck.dt)
+        )
+        chunk_len = max(1, min(self.config.steps_per_chunk, total))
+        history = []
+        done_steps = 0
+        done = False
+        t = deck.t_ini
+        while done_steps < total and not done:
+            this_len = min(chunk_len, total - done_steps)
+            state, packed = self.chunk(state, this_len, done)
+            stats, done = unpack_chunk_stats(packed)
+            for k in range(this_len):
+                if stats.iters[k] == 0:      # skipped (already steady)
+                    break
+                t += deck.dt
+                row = {f: float(getattr(stats, f)[k]) for f in StepStats._fields}
+                row["time"] = t
+                row["step"] = done_steps + k + 1
+                history.append(row)
+                if self.config.verbose:
+                    print(
+                        f"{row['step']:6d} {int(row['iters']):4d} {t:10.5f}"
+                        f" {row['u_mon']:13.5f} {row['v_mon']:13.5f}"
+                        f" {row['w_mon']:13.5f} {row['p_mon']:13.5f}"
+                        f" {row['max_acc']:12.5f}"
+                    )
+            done_steps += this_len
+        return state, history

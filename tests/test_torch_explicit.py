@@ -1,0 +1,139 @@
+"""PyTorch port: the explicit BCH solver on the parity path reproduces the
+JAX solver over 3 time steps on ``cavity_deck(4)``.
+
+The JAX solver runs its Pallas kernels in interpret mode; the port runs the
+plain PyTorch versions of its kernels (CPU tensors).  Tolerances are those
+of ``tests/test_parity_stencil.py:285-290`` (two f32 implementations of one
+algorithm): u 5e-6, p 5e-5, monitors 5e-6, and equal CG and sub-iteration
+counts.  The port runs once with its own setup and once with the JAX
+solver's tables carried across by ``interop.tables_from_jax``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from cfd_with_cuda_tpu.mesh.generators import cavity_deck as jax_cavity_deck
+from cfd_with_cuda_tpu.solvers.explicit_bch import ExplicitBCHSolver as JaxSolver
+from cfd_with_cuda_tpu.utils.config import DTypePolicy as JaxPolicy
+from cfd_with_cuda_tpu.utils.config import SolverConfig as JaxConfig
+from cfd_with_cuda_tpu_torch.interop import state_from_jax, tables_from_jax
+from cfd_with_cuda_tpu_torch.mesh.generators import cavity_deck
+from cfd_with_cuda_tpu_torch.ops import cuda_lib
+from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
+from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
+
+pytestmark = pytest.mark.pallas  # the JAX side runs Pallas in interpret mode
+
+torch.set_num_threads(1)
+
+RUNG1 = dict(pressure_cg_tol=1e-6, pressure_cg_fuse_loop=True,
+             pressure_warm_start=True, steps_per_chunk=1)
+N_STEPS = 3
+STAT_FIELDS = ("u_mon", "v_mon", "w_mon", "p_mon", "max_acc", "iters", "cg_iters")
+
+
+def _deck():
+    return cavity_deck(4, viscosity=0.01, dt=0.001)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The JAX solver and its 3-step run: (solver, per-step stats, final state)."""
+    js = JaxSolver(
+        jax_cavity_deck(4, viscosity=0.01, dt=0.001),
+        JaxConfig(dtype_policy=JaxPolicy.F32, pressure_backend="pallas",
+                  structured_layout="parity", setup_cache="off", **RUNG1),
+    )
+    # the step function itself: the JAX chunk's steady-flag lax.cond
+    # rejects the fused CG's int32 iteration count under jax x64 (the
+    # monitor-only branch yields int64)
+    step = jax.jit(js._time_step)
+    st = js.initial_state()
+    rows = []
+    for _ in range(N_STEPS):
+        st, stats = step(js.d, st)
+        rows.append([float(getattr(stats, f)) for f in STAT_FIELDS])
+    return js, np.asarray(rows), st
+
+
+def _run_port(ts):
+    st = ts.initial_state()
+    state, hist = ts.run(st, n_steps=N_STEPS)
+    return state, np.asarray([[h[f] for f in STAT_FIELDS] for h in hist])
+
+
+def _compare(js, ref_rows, ref_state, ts, state, rows):
+    assert rows.shape == ref_rows.shape
+    np.testing.assert_array_equal(rows[:, 5], ref_rows[:, 5])          # sub-iterations
+    np.testing.assert_array_equal(rows[:, 6], ref_rows[:, 6])          # CG iterations
+    np.testing.assert_allclose(rows[:, :5], ref_rows[:, :5], rtol=0, atol=5e-6)
+    u_j, p_j = js.fields(ref_state)
+    u_t, p_t = ts.fields(state)
+    np.testing.assert_allclose(u_t, u_j, rtol=0, atol=5e-6)
+    np.testing.assert_allclose(p_t, p_j, rtol=0, atol=5e-5)
+
+
+def test_steps_match_jax_own_setup(reference):
+    js, ref_rows, ref_state = reference
+    ts = ExplicitBCHSolver(_deck(), SolverConfig(dtype_policy=DTypePolicy.F32, **RUNG1),
+                           device="cpu")
+    cuda_lib.reset_launch_counts()
+    state, rows = _run_port(ts)
+    assert all(v == 0 for v in cuda_lib.launch_counts.values())   # plain path on CPU
+    assert (rows[:, 5] >= 2).all()          # spin-up: K acc applied between sub-iterations
+    _compare(js, ref_rows, ref_state, ts, state, rows)
+
+
+def test_steps_match_jax_carried_tables(reference):
+    js, ref_rows, ref_state = reference
+    attrs = {k: getattr(js, k) for k in ExplicitBCHSolver.STATIC_ATTRS}
+    tables = tables_from_jax({k: np.asarray(v) for k, v in js.d.items()}, attrs)
+    ts = ExplicitBCHSolver.from_tables(
+        _deck(), SolverConfig(dtype_policy=DTypePolicy.F32, **RUNG1), tables, attrs,
+        device="cpu",
+    )
+    state, rows = _run_port(ts)
+    _compare(js, ref_rows, ref_state, ts, state, rows)
+
+
+def test_state_from_jax_continues_the_run(reference):
+    """A JAX state carried across and stepped once by the port equals the
+    port's own state stepped once (same tables)."""
+    js, _, ref_state = reference
+    ts = ExplicitBCHSolver(_deck(), SolverConfig(dtype_policy=DTypePolicy.F32, **RUNG1),
+                           device="cpu")
+    carried = state_from_jax([np.asarray(a) for a in ref_state])
+    assert [a.shape for a in carried] == [tuple(np.shape(a)) for a in ref_state]
+    st1, stats = ts._time_step(ts.d, carried)
+    assert np.isfinite(st1.un.numpy()).all() and int(stats.iters) >= 1
+
+
+@pytest.mark.parametrize("override", [
+    dict(dtype_policy=DTypePolicy.F64),
+    dict(dtype_policy=DTypePolicy.MIXED),
+    dict(pressure_cg_fuse_loop=False),
+    dict(pressure_cg_sym=True),
+    dict(structured_layout="interleaved"),
+    dict(conv_mode="matrix-free"),
+    dict(spmd_devices=2),
+    dict(setup_cache="auto"),
+    dict(pressure_backend="xla"),
+])
+def test_other_branches_raise_with_roadmap_item(override):
+    cfg = dict(dtype_policy=DTypePolicy.F32, **RUNG1) | override
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ExplicitBCHSolver(_deck(), SolverConfig(**cfg), device="cpu")
+
+
+def test_steady_flag_carries_across_chunks():
+    """Once max_acc drops to the convergence criterion the run stops: the
+    flag carries across chunk boundaries (no extra real step)."""
+    deck = _deck()
+    deck.convergence_criteria = 10.0          # steady after the first step
+    ts = ExplicitBCHSolver(deck, SolverConfig(dtype_policy=DTypePolicy.F32, **RUNG1),
+                           device="cpu")
+    _, hist = ts.run(n_steps=4)
+    assert len(hist) == 1 and hist[0]["max_acc"] <= 10.0
