@@ -13,9 +13,12 @@ matrices are formed for *all* elements at once as batched einsums over
 and scattered into CSR value arrays through the precomputed scatter maps
 (no mesh coloring; deterministic ``bincount``).
 
-The explicit solver's pressure-Poisson operator is the product
-``Z = G^T Md^{-1} G`` (CSparse product, :3385-3451); the implicit solver's
-direct FEM assembly of Z and its consistent mass are not ported yet.
+Two independent pressure-Poisson operators exist in the reference and both
+are provided:
+
+* explicit solver:  ``Z = G^T Md^{-1} G``   (CSparse product, :3385-3451)
+* implicit solver:  ``Z = -int grad Sp . grad Sp``  (direct FEM assembly,
+  ``guermondQuartapelle.cpp:3604-3623``)
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ __all__ = [
     "elemental_mass",
     "elemental_stiffness",
     "elemental_gradient",
+    "elemental_pressure_laplacian",
     "AssembledOperators",
     "assemble_operators",
 ]
@@ -56,6 +60,14 @@ def elemental_gradient(tab: ElementTables, density: float) -> np.ndarray:
     )
 
 
+def elemental_pressure_laplacian(tab: ElementTables) -> np.ndarray:
+    """Ze (NE, NENp, NENp) = -int grad Sp_i . grad Sp_j (implicit-solver
+    sign convention, guermondQuartapelle.cpp:3609-3611)."""
+    return -np.einsum(
+        "ekid,ekjd,ek->eij", tab.gDSp, tab.gDSp, tab.gq_factor, optimize=True
+    )
+
+
 @dataclass
 class AssembledOperators:
     """Host-side (numpy/scipy) assembled constant operators."""
@@ -66,6 +78,10 @@ class AssembledOperators:
     G: np.ndarray                  # (3, nnzG) CSR values on pattern_g
     Md: np.ndarray                 # (NN,) lumped mass (no BCs)
     Z: sp.csr_matrix               # pressure-Poisson operator (NNp x NNp)
+    M: np.ndarray | None = None    # consistent-mass CSR values (implicit: M/dt)
+
+    def K_csr(self) -> sp.csr_matrix:
+        return self.pattern_m.to_scipy(self.K)
 
     def G_csr(self, d: int) -> sp.csr_matrix:
         return self.pattern_g.to_scipy(self.G[d])
@@ -79,9 +95,16 @@ def assemble_operators(
     *,
     viscosity: float,
     density: float,
+    z_mode: str = "product",
+    mass_scale: float = 1.0,
+    keep_consistent_mass: bool = False,
 ) -> AssembledOperators:
-    """Assemble the constant operators once (the reference's ``step0``),
-    with Z = G^T Md^{-1} G (the JAX package's ``z_mode="product"``)."""
+    """Assemble the constant operators once (the reference's ``step0``).
+
+    ``z_mode``: "product" -> Z = G^T Md^{-1} G (explicit solver);
+    "direct" -> Z = -int grad Sp . grad Sp (implicit solver).
+    ``mass_scale``: multiply the consistent mass values (implicit uses 1/dt).
+    """
     ltog_p = ltog_node[:, : tab.Sp.shape[1]]
 
     pat_m = build_csr_pattern(ltog_node, ltog_node, nn, nn)
@@ -91,6 +114,7 @@ def assemble_operators(
     Ke = elemental_stiffness(tab, viscosity)
     Ge = elemental_gradient(tab, density)
 
+    Mv = pat_m.assemble(Me) * mass_scale
     Kv = pat_m.assemble(Ke)
     Gv = np.stack([pat_g.assemble(Ge[d]) for d in range(3)])
 
@@ -99,11 +123,27 @@ def assemble_operators(
     row_ids = np.repeat(np.arange(nn), np.diff(pat_m.indptr))
     Md = np.bincount(row_ids, weights=pat_m.assemble(Me), minlength=nn)
 
-    Gs = [pat_g.to_scipy(Gv[d]) for d in range(3)]
-    Dinv = sp.diags(1.0 / Md)
-    Z = (Gs[0].T @ (Dinv @ Gs[0])
-         + Gs[1].T @ (Dinv @ Gs[1])
-         + Gs[2].T @ (Dinv @ Gs[2])).tocsr()
-    Z.sort_indices()
+    if z_mode == "product":
+        Gs = [pat_g.to_scipy(Gv[d]) for d in range(3)]
+        Dinv = sp.diags(1.0 / Md)
+        Z = (Gs[0].T @ (Dinv @ Gs[0])
+             + Gs[1].T @ (Dinv @ Gs[1])
+             + Gs[2].T @ (Dinv @ Gs[2])).tocsr()
+        Z.sort_indices()
+    elif z_mode == "direct":
+        pat_z = build_csr_pattern(ltog_p, ltog_p, nnp, nnp)
+        Ze = elemental_pressure_laplacian(tab)
+        Z = pat_z.to_scipy(pat_z.assemble(Ze))
+        Z.sort_indices()
+    else:
+        raise ValueError(f"unknown z_mode {z_mode!r}")
 
-    return AssembledOperators(pattern_m=pat_m, pattern_g=pat_g, K=Kv, G=Gv, Md=Md, Z=Z)
+    return AssembledOperators(
+        pattern_m=pat_m,
+        pattern_g=pat_g,
+        K=Kv,
+        G=Gv,
+        Md=Md,
+        Z=Z,
+        M=Mv if keep_consistent_mass else None,
+    )

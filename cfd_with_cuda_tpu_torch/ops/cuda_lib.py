@@ -4,9 +4,9 @@ Each source in ``cfd_with_cuda_tpu_torch/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  The libraries are built at first use into ``_build/`` next to
-the package, named by a hash of the source and the flags so an edited
-source never loads a stale library; all sources compile in parallel, one
-``nvcc`` each.
+the package, named by a hash of the source, the headers (``csrc/*.cuh``)
+and the flags so an edited source or header never loads a stale library;
+all sources compile in parallel, one ``nvcc`` each.
 
 Every wrapper adds one to :data:`launch_counts` where it launches its
 kernel, and nowhere else, so a run can show that its path went through
@@ -31,16 +31,21 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("parity_apply", "div_compact", "cg_solve")
+SOURCES = ("parity_apply", "div_compact", "cg_solve", "cg_iter")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# launch-count names: one per kernel launch form on the main path
+# launch-count names: one per kernel launch form on the main paths.
+# "comp_dot" counts every launch whose reductions are the compensated dot
+# (comp_dot_f32 alone, or cg_init / cg_iter / cg_solve in that mode) and
+# "sym_apply" every launch that applies the symmetric half window
+# (window_apply_sym alone, or a CG kernel in that mode), beside the
+# launch's own name.
 KERNELS = (
     "parity_apply_k", "parity_apply_g", "parity_apply_k_plus_a",
-    "div_compact", "cg_solve",
+    "div_compact", "cg_solve", "cg_init", "cg_iter", "comp_dot", "sym_apply",
 )
 launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -50,8 +55,13 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "parity_apply_f32": ("parity_apply", [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P]),
     "div_compact_f32": ("div_compact", [_P, _I, _P, _P, _P, _I, _P]),
-    "cg_solve_f32": ("cg_solve", [_P, _P, _I] + [_P] * 10 + [_I, _I, _D, _P]),
+    "cg_solve_f32": ("cg_solve", [_P, _P, _I] + [_P] * 10 + [_I, _I, _D, _I, _I, _P]),
     "cg_solve_max_blocks": ("cg_solve", []),
+    "cg_init_f32": ("cg_iter", [_P, _P, _I] + [_P] * 8 + [_I, _I, _I, _P]),
+    "cg_iter_f32": ("cg_iter", [_P, _P, _I] + [_P] * 7 + [_I, _I, _I, _P]),
+    "cg_iter_max_blocks": ("cg_iter", []),
+    "comp_dot_f32": ("cg_iter", [_P, _P, _P, _P, _I, _P]),
+    "window_apply_sym_f32": ("cg_iter", [_P, _P, _I, _P, _P, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -76,6 +86,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

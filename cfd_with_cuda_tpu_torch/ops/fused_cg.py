@@ -1,21 +1,39 @@
-"""The whole-solve Jacobi-preconditioned CG on a window operator.
+"""Jacobi-preconditioned CG of the pressure solve on a window operator.
 
-Port of ``cfd_with_cuda_tpu/ops/pallas_cg.py::fused_cg`` with the
-``fuse_loop=True`` contract (the entire solve, init and convergence loop
-included, is ONE launch: ``csrc/cg_solve.cu``) and ``dot_mode="plain"``.
-The operator is a plain ``(W^3, n)`` window, ``(Z v)[i] = sum_w win[w, i]
-* v[i + off_w]`` with v zero outside [0, n); the TPU kernel's DMA-block
-weight layout (``cg_weight_layout``, ``pick_kp``) has no counterpart here.
+Port of ``cfd_with_cuda_tpu/ops/pallas_cg.py::fused_cg`` with its
+signature less ``offs`` and ``_skip_loop``.  The operator is a plain
+``(W^3, n)`` window, ``(Z v)[i] = sum_w win[w, i] * v[i + off_w]`` with v
+zero outside [0, n); the TPU kernel's DMA-block weight layout
+(``cg_weight_layout``, ``pick_kp``) has no counterpart here.
 
-Math (same as the TPU kernel): warm r0 = b - Z x0 (cold r0 = b); stop when
-||r|| <= max(tol * ||b||, 0) or k = maxiter; alpha and beta through
+Math (same as the TPU kernels): warm r0 = b - Z x0 (cold r0 = b); stop when
+||r|| <= max(tol * ||b||, 0) or the iteration cap; alpha and beta through
 ``_safe_div`` (0 when |den| <= 1e-35); returns x, k and ||r||.
+
+Two loop forms, as in the JAX package:
+
+* ``fuse_loop=False`` (the ``SolverConfig`` default): ``csrc/cg_iter.cu``,
+  one ``cg_init`` launch, then one ``cg_iter`` launch per iteration.  The
+  vectors and r.z, ||r||, ||b|| stay on the device; the host reads ||r||
+  once per group of ``unroll`` iterations.  The loop contract is the JAX
+  ``lax.while_loop``'s: ``maxiter`` rounds UP to a multiple of ``unroll``,
+  convergence is looked at only between groups, and the reported count is a
+  multiple of ``unroll``.
+* ``fuse_loop=True``: ``csrc/cg_solve.cu``, the whole solve in ONE launch
+  with convergence looked at every iteration (``unroll`` is ignored).
+
+``dot_mode="compensated"`` (the MIXED policy) makes every inner product
+the f64 dot of its f32 inputs, rounded to f32 once (:func:`comp_dot_f32`).
+``sym=True`` applies only the dq >= 0 half of a symmetric window, each
+positive offset both ways (:func:`window_apply_sym`); ``win`` is then the
+full table (its last ``W^3 // 2 + 1`` rows are taken) or that half.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -23,7 +41,10 @@ from cfd_with_cuda_tpu_torch.ops import cuda_lib
 from cfd_with_cuda_tpu_torch.ops.krylov import KrylovResult
 from cfd_with_cuda_tpu_torch.ops.window_stencil import window_offsets
 
-__all__ = ["fused_cg", "fused_cg_plain", "window_apply_plain"]
+__all__ = [
+    "fused_cg", "fused_cg_plain", "window_apply_plain", "window_apply_sym",
+    "comp_dot_f32", "comp_dot_plain", "half_window",
+]
 
 _DIV_FLOOR = 1e-35
 
@@ -33,24 +54,81 @@ def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, a / torch.where(ok, b, torch.ones_like(b)), torch.zeros_like(a))
 
 
-def window_apply_plain(win: torch.Tensor, v: torch.Tensor, offs) -> torch.Tensor:
-    """``(Z v)[i] = sum_w win[w, i] * v[i + offs[w]]``, slots in order."""
+def _sym_offsets(offs) -> tuple[int, ...]:
+    """The dq >= 0 half of a mirror-symmetric offset set (centre first)."""
+    c = len(offs) // 2
+    if [-o for o in offs[:c]] != list(reversed(offs[c + 1:])) or offs[c] != 0:
+        raise ValueError("sym needs a mirror-symmetric offset set")
+    return tuple(offs[c:])
+
+
+def half_window(win: np.ndarray, dims, radius: int) -> np.ndarray:
+    """Host, setup-time: the dq >= 0 half ``(W^3 // 2 + 1, n)`` of a
+    SYMMETRIC window table, for ``fused_cg(..., sym=True)``.  Checks the
+    symmetry as the JAX package's ``cg_weight_layout(sym=True)`` does:
+    ``win[c - m][q] = Z[q, q - dq]`` must equal ``win[c + m][q - dq]``."""
+    win = np.asarray(win)
+    offs = window_offsets(dims, radius)
+    half = _sym_offsets(offs)
+    c, s = len(offs) // 2, win.shape[-1]
+    for m in range(1, c + 1):
+        dq = half[m]
+        if not np.allclose(win[c - m, dq:], win[c + m, : s - dq], rtol=1e-6, atol=1e-8):
+            raise ValueError(
+                f"operator not symmetric at offset {dq}; "
+                "sym weight layout needs a symmetric window"
+            )
+    return np.ascontiguousarray(win[c:])
+
+
+def window_apply_plain(win: torch.Tensor, v: torch.Tensor, offs, sym: bool = False) -> torch.Tensor:
+    """``(Z v)[i] = sum_w win[w, i] * v[i + offs[w]]``, slots in order.
+    ``sym``: ``win``/``offs`` are the dq >= 0 half and every positive
+    offset is also applied backwards, ``ap[i + dq] += win[m, i] * v[i]``
+    (the forward sum in slot order, the back sum in slot order, then their
+    sum)."""
     n = v.shape[0]
     halo = max(abs(o) for o in offs)
     v_ext = F.pad(v, (halo, halo))
     ap = torch.zeros_like(v)
+    back = torch.zeros_like(v)
     for w, o in enumerate(offs):
         ap = ap + win[w] * v_ext[halo + o: halo + o + n]
-    return ap
+        if sym and o > 0:
+            back = back + F.pad(win[w] * v, (o, 0))[:n]
+    return ap + back if sym else ap
 
 
-def fused_cg_plain(win, b, dinv, *, dims, radius, tol, maxiter, x0=None) -> KrylovResult:
-    """Plain PyTorch version of :func:`fused_cg` (the loop decision is read
-    on the host every iteration)."""
+def comp_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`comp_dot_f32`."""
+    return (a.double() * b.double()).sum().to(a.dtype)
+
+
+def _resolve_window(win, dims, radius, sym):
+    """(offsets, window) as the kernels take them: under ``sym`` the half
+    offsets and the ``(W^3 // 2 + 1, n)`` half of ``win``."""
     offs = window_offsets(dims, radius)
-    dot = lambda u, v: torch.sum(u * v)
+    if not sym:
+        return offs, win
+    half = _sym_offsets(offs)
+    if win.shape[0] == len(offs):
+        win = win[-len(half):]
+    return half, win
+
+
+def fused_cg_plain(win, b, dinv, *, dims, radius, tol, maxiter, x0=None, unroll=1,
+                   dot_mode="plain", sym=False, fuse_loop=False) -> KrylovResult:
+    """Plain PyTorch version of :func:`fused_cg`, every mode (the loop
+    decision is read on the host once per group of ``unroll`` iterations)."""
+    offs, win = _resolve_window(win, dims, radius, sym)
+    if dot_mode == "compensated":
+        dot = comp_dot_plain
+    else:
+        dot = lambda u, v: torch.sum(u * v)
+    if fuse_loop:
+        unroll = 1
     if x0 is not None:
-        r = b - window_apply_plain(win, x0, offs)
+        r = b - window_apply_plain(win, x0, offs, sym)
         x = x0.clone()
     else:
         r = b.clone()
@@ -61,18 +139,20 @@ def fused_cg_plain(win, b, dinv, *, dims, radius, tol, maxiter, x0=None) -> Kryl
     rn = torch.sqrt(dot(r, r))
     bound = tol * torch.sqrt(dot(b, b))
     bound = torch.where(bound < 0, torch.zeros_like(bound), bound)
+    maxiter_eff = -(-int(maxiter) // unroll) * unroll
     k = 0
-    while k < maxiter and bool(rn > bound):
-        ap = window_apply_plain(win, p, offs)
-        alpha = _safe_div(rz, dot(p, ap))
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = r * dinv
-        rz_new = dot(r, z)
-        beta = _safe_div(rz_new, rz)
-        p = z + beta * p
-        k += 1
-        rz = rz_new
+    while k < maxiter_eff and bool(rn > bound):
+        for _ in range(unroll):
+            ap = window_apply_plain(win, p, offs, sym)
+            alpha = _safe_div(rz, dot(p, ap))
+            x = x + alpha * p
+            r = r - alpha * ap
+            z = r * dinv
+            rz_new = dot(r, z)
+            beta = _safe_div(rz_new, rz)
+            p = z + beta * p
+            rz = rz_new
+        k += unroll
         rn = torch.sqrt(dot(r, r))
     return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rn)
 
@@ -82,42 +162,134 @@ def _offs_table(offs, device: torch.device) -> torch.Tensor:
     return torch.tensor(offs, dtype=torch.int32, device=device)
 
 
-def fused_cg(win, b, dinv, *, dims, radius, tol, maxiter, x0=None) -> KrylovResult:
+def _check_f32_cuda(what: str, *tensors) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"{what}: operands must be f32")
+    if any(t.device != dev or not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: operands must be contiguous on one device")
+
+
+def comp_dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """0-d f32: the dot of two f32 vectors equal to the f64 dot of the same
+    inputs rounded to f32 once (the reduction of the CG kernels'
+    ``dot_mode="compensated"``).  A CPU tensor runs :func:`comp_dot_plain`;
+    a CUDA tensor launches ``comp_dot_f32`` of ``csrc/cg_iter.cu``."""
+    if a.device.type == "cpu":
+        return comp_dot_plain(a, b)
+    _check_f32_cuda("comp_dot_f32", a, b)
+    if a.ndim != 1 or a.shape != b.shape:
+        raise ValueError(f"comp_dot_f32: shapes {tuple(a.shape)}, {tuple(b.shape)}")
+    part = torch.empty(cuda_lib.function("cg_iter_max_blocks")(), dtype=torch.float64,
+                       device=a.device)
+    out = torch.empty((), dtype=torch.float32, device=a.device)
+    err = cuda_lib.function("comp_dot_f32")(
+        cuda_lib.ptr(a), cuda_lib.ptr(b), cuda_lib.ptr(part), cuda_lib.ptr(out),
+        a.shape[0], cuda_lib.stream_ptr(a.device),
+    )
+    cuda_lib.check(err, "comp_dot_f32")
+    cuda_lib.launch_counts["comp_dot"] += 1
+    return out
+
+
+def window_apply_sym(win, v, *, dims, radius) -> torch.Tensor:
+    """``Z v`` from the dq >= 0 half of a symmetric window (``win`` the full
+    ``(W^3, n)`` table or its half): the apply of the CG kernels'
+    ``sym=True``, alone.  A CPU tensor runs ``window_apply_plain(...,
+    sym=True)``; a CUDA tensor launches ``window_apply_sym_f32`` of
+    ``csrc/cg_iter.cu``."""
+    offs, win = _resolve_window(win, dims, radius, True)
+    if v.device.type == "cpu":
+        return window_apply_plain(win, v, offs, True)
+    _check_f32_cuda("window_apply_sym", win, v)
+    n = v.shape[0]
+    if win.shape != (len(offs), n):
+        raise ValueError(f"window_apply_sym: shapes win {tuple(win.shape)}, v {tuple(v.shape)}")
+    y = torch.empty_like(v)
+    err = cuda_lib.function("window_apply_sym_f32")(
+        cuda_lib.ptr(win), cuda_lib.ptr(_offs_table(offs, v.device)), len(offs),
+        cuda_lib.ptr(v), cuda_lib.ptr(y), n, cuda_lib.stream_ptr(v.device),
+    )
+    cuda_lib.check(err, "window_apply_sym")
+    cuda_lib.launch_counts["sym_apply"] += 1
+    return y
+
+
+def fused_cg(win, b, dinv, *, dims, radius, tol, maxiter, x0=None, unroll=1,
+             dot_mode="plain", sym=False, fuse_loop=False) -> KrylovResult:
     """Jacobi-PCG solve of Z x = b for the window operator ``win (W^3, n)``
     (W = 2 radius + 1, z-major window scan over the grid ``dims``), ``b``
-    and ``dinv (n,)``, optional warm start ``x0 (n,)``.  Returns
-    :class:`KrylovResult` with 0-d ``iters`` and ``residual`` left on the
-    device.  A CPU tensor runs :func:`fused_cg_plain`; a CUDA tensor
-    launches ``csrc/cg_solve.cu`` once."""
+    and ``dinv (n,)``, optional warm start ``x0 (n,)``; modes in the module
+    docstring.  Returns :class:`KrylovResult` with 0-d ``iters`` and
+    ``residual`` on the device.  A CPU tensor runs :func:`fused_cg_plain`;
+    a CUDA tensor launches the kernels of ``csrc/cg_iter.cu`` or
+    ``csrc/cg_solve.cu``."""
+    if dot_mode not in ("plain", "compensated"):
+        raise ValueError(f"fused_cg: unknown dot_mode {dot_mode!r}")
     if b.device.type == "cpu":
         return fused_cg_plain(win, b, dinv, dims=dims, radius=radius, tol=tol,
-                              maxiter=maxiter, x0=x0)
-    if b.device.type != "cuda":
-        raise ValueError(f"fused_cg: unsupported device {b.device}")
-    offs = window_offsets(dims, radius)
+                              maxiter=maxiter, x0=x0, unroll=unroll, dot_mode=dot_mode,
+                              sym=sym, fuse_loop=fuse_loop)
+    offs, win = _resolve_window(win, dims, radius, sym)
     n = b.shape[0]
     if win.shape != (len(offs), n) or dinv.shape != (n,) or b.shape != (n,):
         raise ValueError(f"fused_cg: shapes win {tuple(win.shape)}, b {tuple(b.shape)}, dinv {tuple(dinv.shape)}")
     if x0 is not None and x0.shape != (n,):
         raise ValueError(f"fused_cg: x0 shape {tuple(x0.shape)}")
-    ops = [win, b, dinv] + ([x0] if x0 is not None else [])
-    if any(t.dtype != torch.float32 for t in ops):
-        raise ValueError("fused_cg: operands must be f32")
-    if any(t.device != b.device or not t.is_contiguous() for t in ops):
-        raise ValueError("fused_cg: operands must be contiguous on one device")
+    _check_f32_cuda("fused_cg", b, win, dinv, *([x0] if x0 is not None else []))
+    comp = dot_mode == "compensated"
+    dev = b.device
+    ptr, fn = cuda_lib.ptr, cuda_lib.function
+    part_dtype = torch.float64 if comp else torch.float32
+    offs_t = _offs_table(offs, dev)
     x = torch.empty_like(b)
-    work = torch.empty((3, n), dtype=b.dtype, device=b.device)          # r, p, q
-    part = torch.empty(6 * cuda_lib.function("cg_solve_max_blocks")(),
-                       dtype=b.dtype, device=b.device)
-    k = torch.empty((), dtype=torch.int32, device=b.device)
-    rn = torch.empty((), dtype=b.dtype, device=b.device)
-    err = cuda_lib.function("cg_solve_f32")(
-        cuda_lib.ptr(win), cuda_lib.ptr(_offs_table(offs, b.device)), len(offs),
-        cuda_lib.ptr(b), cuda_lib.ptr(dinv), cuda_lib.ptr(x0), cuda_lib.ptr(x),
-        cuda_lib.ptr(work[0]), cuda_lib.ptr(work[1]), cuda_lib.ptr(work[2]),
-        cuda_lib.ptr(part), cuda_lib.ptr(k), cuda_lib.ptr(rn),
-        n, int(maxiter), float(tol), cuda_lib.stream_ptr(b.device),
+    work = torch.empty((3, n), dtype=b.dtype, device=dev)          # r, p, q
+    stream = cuda_lib.stream_ptr(dev)
+    mode_counts = [name for name, on in (("comp_dot", comp), ("sym_apply", sym)) if on]
+
+    def count(name: str, launches: int = 1) -> None:
+        for key in (name, *mode_counts):
+            cuda_lib.launch_counts[key] += launches
+
+    if fuse_loop:
+        part = torch.empty(6 * fn("cg_solve_max_blocks")(), dtype=part_dtype, device=dev)
+        k = torch.empty((), dtype=torch.int32, device=dev)
+        rn = torch.empty((), dtype=b.dtype, device=dev)
+        err = fn("cg_solve_f32")(
+            ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
+            ptr(work[0]), ptr(work[1]), ptr(work[2]), ptr(part), ptr(k), ptr(rn),
+            n, int(maxiter), float(tol), int(comp), int(sym), stream,
+        )
+        cuda_lib.check(err, "cg_solve")
+        count("cg_solve")
+        return KrylovResult(x, k, rn)
+
+    unroll = max(1, int(unroll))
+    part = torch.empty(3 * fn("cg_iter_max_blocks")(), dtype=part_dtype, device=dev)
+    scal = torch.empty(3, dtype=b.dtype, device=dev)     # r.z, |r|, |b|
+    err = fn("cg_init_f32")(
+        ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
+        ptr(work[0]), ptr(work[1]), ptr(part), ptr(scal), n, int(comp), int(sym), stream,
     )
-    cuda_lib.check(err, "cg_solve")
-    cuda_lib.launch_counts["cg_solve"] += 1
-    return KrylovResult(x, k, rn)
+    cuda_lib.check(err, "cg_init")
+    count("cg_init")
+    # the JAX loop: bound = max(tol * |b|, 0) in f32; NaN compares False
+    rn_h, bn_h = scal[1:3].cpu().numpy()
+    bound = np.maximum(np.float32(tol) * bn_h, np.float32(0.0))
+    maxiter_eff = -(-int(maxiter) // unroll) * unroll
+    iter_fn = fn("cg_iter_f32")
+    iter_args = (
+        ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work[0]), ptr(work[1]),
+        ptr(work[2]), ptr(part), ptr(scal), n, int(comp), int(sym), stream,
+    )
+    rn_dev = scal[1]
+    k = 0
+    while k < maxiter_eff and rn_h > bound:
+        for _ in range(unroll):
+            cuda_lib.check(iter_fn(*iter_args), "cg_iter")
+        count("cg_iter", unroll)
+        k += unroll
+        rn_h = np.float32(rn_dev.item())
+    return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=dev), rn_dev)

@@ -1,7 +1,7 @@
 """Parity-split (class-major) field layout and its window apply kernel.
 
-Port of ``cfd_with_cuda_tpu/ops/parity_stencil.py`` (the explicit main
-path's part).  Fine-grid fields are stored CLASS-MAJOR:
+Port of ``cfd_with_cuda_tpu/ops/parity_stencil.py`` (the explicit and
+implicit main paths' part).  Fine-grid fields are stored CLASS-MAJOR:
 
     fine node s at (x, y, z)  ->  class p = (x&1, y&1, z&1),
                                   subgrid q = ((z>>1)*cy + (y>>1))*cx + (x>>1)
@@ -22,7 +22,6 @@ divergence kernel of ``ops/window_stencil.py``.
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -53,6 +52,8 @@ __all__ = [
     "parity_gather_elem_flat",
     "build_conv_plane_route",
     "conv_planes_from_ae",
+    "conv_plane_merge_matrix",
+    "diag_plane_indices",
 ]
 
 
@@ -227,7 +228,25 @@ def parity_apply_plain(wc, x, *, pairs, co=None, wc2=None, pairs2=None):
     return y
 
 
-@functools.lru_cache(maxsize=16)
+# the one cache of route tables, by the identity of their (static,
+# setup-time) tuples: a solver passes the same tuple objects every call, so
+# a call costs a dict lookup on a few ints, not a hash of the ~10^3-entry
+# route.  The tuples are kept with the entry so an id cannot be reused while
+# it is cached.  The weights are not part of the key.
+_routes_by_id: dict = {}
+
+
+def _route_for(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device) -> torch.Tensor:
+    key = (id(pairs), id(pairs2), m1, m2, px, device)
+    hit = _routes_by_id.get(key)
+    if hit is None:
+        if len(_routes_by_id) >= 64:
+            _routes_by_id.clear()
+        hit = (_route_table(pairs, pairs2, m1, m2, px, device), pairs, pairs2)
+        _routes_by_id[key] = hit
+    return hit[0]
+
+
 def _route_table(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device) -> torch.Tensor:
     """int32 route of csrc/parity_apply.cu: 9 class offsets, then
     (table, j, p_in, dq) per entry, each class's first-table entries
@@ -288,7 +307,7 @@ def parity_apply(wc, x, *, pairs, co=None, wc2=None, pairs2=None):
         raise ValueError(f"parity_apply: field must be contiguous f32, got {x.dtype}")
     y = torch.empty((co, 8, sp), dtype=x.dtype, device=x.device)
     cw2, m2 = (wc2.shape[0], wc2.shape[1]) if wc2 is not None else (1, 0)
-    route = _route_table(pairs, pairs2, m, m2, px, x.device)
+    route = _route_for(pairs, pairs2, m, m2, px, x.device)
     err = cuda_lib.function("parity_apply_f32")(
         cuda_lib.ptr(wc), cw, m, cuda_lib.ptr(wc2), cw2, m2,
         cuda_lib.ptr(x), c, px, cuda_lib.ptr(route), cuda_lib.ptr(y), co, sp,
@@ -421,3 +440,50 @@ def conv_planes_from_ae(ae: torch.Tensor, *, groups) -> torch.Tensor:
     ae2 = ae.reshape(ni * nj, sp)
     parts = [_shift_right(ae2[a: a + n], dqf) for (a, n, dqf) in groups]
     return torch.cat(parts, dim=0)[None]
+
+
+def conv_plane_merge_matrix(local_off, i_order, pairs, coarse_dims):
+    """Host, setup-time: 0/1 selection ``sel (n_planes, 27*27)`` merging
+    the 729 convection planes (in :func:`build_conv_plane_route` order)
+    onto a STATIC concat-slot table's planes:
+
+        merged = sel @ conv_planes    (one matmul per step)
+
+    Each conv plane (i, j) lands on the static plane with the same
+    (p_out, p_in, dq) key.  Raises ``ValueError`` when a target plane is
+    structurally absent from ``pairs`` (e.g. fully masked by Dirichlet
+    rows on a one-element-thin box)."""
+    cx, cy, _ = coarse_dims
+    cls = lambda o: ((o[2] & 1) * 2 + (o[1] & 1)) * 2 + (o[0] & 1)
+    di_of = lambda o: (o[0] >> 1, o[1] >> 1, o[2] >> 1)
+    n_planes = 1 + max(j for cls_ in pairs for (j, _, _) in cls_)
+    nj = len(local_off)
+    sel = np.zeros((n_planes, len(i_order) * nj), np.float32)
+    row = 0
+    for i in i_order:
+        oi = local_off[i]
+        di = di_of(oi)
+        p_out = cls(oi)
+        for oj in local_off:
+            dj = di_of(oj)
+            dq = ((dj[2] - di[2]) * cy + (dj[1] - di[1])) * cx + (dj[0] - di[0])
+            hits = [jj for (jj, pp, dd) in pairs[p_out] if pp == cls(oj) and dd == dq]
+            if not hits:
+                raise ValueError(
+                    f"static plane (p_out={p_out}, p_in={cls(oj)}, dq={dq}) "
+                    "absent — cannot merge the convection planes"
+                )
+            sel[hits[0], row] = 1.0
+            row += 1
+    return sel
+
+
+def diag_plane_indices(pairs):
+    """Per output class: the concat-slot plane holding the diagonal
+    (p_in == p_out, dq == 0)."""
+    out = []
+    for p in range(8):
+        hits = [jj for (jj, pp, dd) in pairs[p] if pp == p and dd == 0]
+        assert len(hits) == 1, (p, hits)
+        out.append(hits[0])
+    return tuple(out)

@@ -32,6 +32,11 @@ BLK = 2048
 
 def window_offsets(dims, radius: int) -> tuple[int, ...]:
     """Flat offsets in window-channel order (z-major window scan)."""
+    return _window_offsets(tuple(int(v) for v in dims), int(radius))
+
+
+@functools.lru_cache(maxsize=64)
+def _window_offsets(dims, radius):
     sx, sy, _ = dims
     return tuple(
         dz * sx * sy + dy * sx + dx
@@ -44,6 +49,11 @@ def window_offsets(dims, radius: int) -> tuple[int, ...]:
 def div_class_pairs(coarse_dims, radius: int = 2):
     """(class_index, coarse flat offset) per fine window slot, in the
     z-major window-scan order of ``window_offsets`` (radius 2)."""
+    return _div_class_pairs(tuple(int(v) for v in coarse_dims), int(radius))
+
+
+@functools.lru_cache(maxsize=64)
+def _div_class_pairs(coarse_dims, radius):
     cx, cy, _ = coarse_dims
     pairs = []
     for dz in range(-radius, radius + 1):

@@ -20,7 +20,10 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["StepStats", "ChunkedTimeLoop", "unpack_chunk_stats"]
+from cfd_with_cuda_tpu_torch.device import resolve_device
+from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
+
+__all__ = ["StepStats", "ChunkedTimeLoop", "unpack_chunk_stats", "unsupported_config"]
 
 
 class StepStats(NamedTuple):
@@ -34,6 +37,21 @@ class StepStats(NamedTuple):
     mom_iters: torch.Tensor | int   # momentum-solver iterations (0 for explicit)
 
 
+def unsupported_config(cfg) -> str | None:
+    """The ``ROADMAP.md`` item of the first ``SolverConfig`` choice that no
+    solver of the port runs yet (None when there is none); the solvers add
+    their own."""
+    if cfg.dtype_policy.value == "f64":
+        return "dtype_policy=F64 (the XLA Krylov/multigrid path: ROADMAP.md queue 1 item 6)"
+    if cfg.pressure_backend == "xla" or cfg.pressure_precond == "mg":
+        return "the XLA pressure CG / multigrid preconditioner (ROADMAP.md queue 1 item 6)"
+    if int(cfg.spmd_devices or 0) >= 1:
+        return "spmd_devices (multi-device: ROADMAP.md queue 1 item 11)"
+    if cfg.setup_cache not in (None, "", "off", "none", "0"):
+        return "setup_cache (ROADMAP.md queue 1 item 8)"
+    return None
+
+
 def unpack_chunk_stats(packed) -> tuple[StepStats, bool]:
     """(StepStats of (n_steps,) arrays, done flag) from a chunk's packed
     monitor matrix (rows: the StepStats fields, then the done flag)."""
@@ -42,8 +60,55 @@ def unpack_chunk_stats(packed) -> tuple[StepStats, bool]:
 
 
 class ChunkedTimeLoop:
-    """Mixin: subclasses provide ``_time_step``, ``_monitor_only``,
-    ``initial_state``, ``deck``, ``config``, ``device``; get ``run()``."""
+    """Base of the solvers: setup once from a deck, then run chunks of
+    time steps.  Subclasses provide ``STATIC_ATTRS``, ``_unsupported``,
+    ``_setup``, ``_time_step``, ``_monitor_only`` and ``initial_state``.
+
+    ``device=None`` runs on the CUDA card (raises without one);
+    ``device="cpu"`` runs every kernel's plain PyTorch version.
+    ``plain=True`` runs the plain versions on any device (the reference
+    path the kernels are held against on the card).
+    """
+
+    # static attributes that define a set-up solver besides its tables
+    # (the interop module carries the JAX solver's across)
+    STATIC_ATTRS: tuple[str, ...] = ()
+
+    def __init__(self, deck, config=None, device=None, *, plain: bool = False):
+        self._configure(deck, config or SolverConfig(), device, plain)
+        self._setup()
+
+    @classmethod
+    def from_tables(cls, deck, config, tables: dict, attrs: dict, device=None, *,
+                    plain: bool = False):
+        """A solver from ready tables (the interop module's) and the
+        :data:`STATIC_ATTRS` values, skipping the host setup."""
+        self = cls.__new__(cls)
+        self._configure(deck, config, device, plain)
+        for k in cls.STATIC_ATTRS:
+            setattr(self, k, attrs[k])
+        self.d = {k: v.to(self.device) for k, v in tables.items()}
+        return self
+
+    def _configure(self, deck, config, device, plain) -> None:
+        self.deck = deck
+        self.config = config
+        self.device = resolve_device(device)
+        self.plain = plain
+        why = self._unsupported(config)
+        if why is not None:
+            raise NotImplementedError(f"not ported yet: {why}")
+        if self.device.type == "cuda":
+            # the einsums and matmuls that build A(u) stay in full f32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+    @staticmethod
+    def _unsupported(config) -> str | None:
+        return unsupported_config(config)
+
+    def _setup(self) -> None:
+        raise NotImplementedError
 
     def _time_step(self, params, state):
         raise NotImplementedError

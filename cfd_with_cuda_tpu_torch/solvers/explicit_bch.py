@@ -10,7 +10,10 @@ predictor, pressure-Poisson solve on Z = G^T Md^-1 G, projection, with
 
 Per sub-iteration the step runs three CUDA kernels: ``parity_apply``
 ((K + A(un)) u*, G p, K acc), ``div_compact`` (G^T onto the coarse
-pressure grid) and ``cg_solve`` (the whole pressure CG in one launch).
+pressure grid) and the pressure CG: ``cg_solve`` (the whole solve in one
+launch, ``pressure_cg_fuse_loop``) or ``cg_init`` + one ``cg_iter`` per
+iteration (the default), with compensated dots under ``DTypePolicy.MIXED``
+and the half window under ``pressure_cg_sym``.
 Once per step plain torch ops build the convection planes A(un).  The
 sub-iteration convergence flag is read on the host once per
 sub-iteration.
@@ -26,11 +29,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cfd_with_cuda_tpu_torch.device import resolve_device
 from cfd_with_cuda_tpu_torch.fem.assembly import assemble_operators
 from cfd_with_cuda_tpu_torch.fem.jacobian import build_element_tables
 from cfd_with_cuda_tpu_torch.fem.structured import detect_promoted_box, dia_from_csr
-from cfd_with_cuda_tpu_torch.io.deck import Deck
 from cfd_with_cuda_tpu_torch.mesh.profiles import apply_inlet_profile
 from cfd_with_cuda_tpu_torch.mesh.topology import (
     face_bc_to_node_bc,
@@ -38,10 +39,10 @@ from cfd_with_cuda_tpu_torch.mesh.topology import (
     promote_hex_mesh,
 )
 from cfd_with_cuda_tpu_torch.ops import parity_stencil as pstl
-from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain
+from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
 from cfd_with_cuda_tpu_torch.ops.window_stencil import compact_gt_window
-from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats
-from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
+from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, unsupported_config
+from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = ["ExplicitState", "StepStats", "ExplicitBCHSolver"]
 
@@ -63,25 +64,14 @@ class ExplicitState(NamedTuple):
 
 def _unsupported(cfg: SolverConfig) -> str | None:
     """The ROADMAP item of the first config choice the port does not run."""
-    if cfg.dtype_policy is DTypePolicy.F64:
-        return "dtype_policy=F64 (the XLA Krylov/multigrid path: ROADMAP.md queue 1 item 6)"
-    if cfg.dtype_policy is DTypePolicy.MIXED:
-        return "dtype_policy=MIXED (compensated CG dots: ROADMAP.md queue 2 item 6)"
-    if cfg.pressure_backend == "xla" or cfg.pressure_precond == "mg":
-        return "the XLA pressure CG / multigrid preconditioner (ROADMAP.md queue 1 item 6)"
-    if not cfg.pressure_cg_fuse_loop:
-        return "pressure_cg_fuse_loop=False (per-iteration CG kernels: ROADMAP.md queue 2 item 5)"
-    if cfg.pressure_cg_sym:
-        return "pressure_cg_sym (half-window CG: ROADMAP.md queue 2 item 9)"
+    why = unsupported_config(cfg)
+    if why is not None:
+        return why
     if cfg.structured == "never" or cfg.structured_layout == "interleaved":
         return (f"structured={cfg.structured!r}, structured_layout={cfg.structured_layout!r} "
                 "(interleaved / ELL layouts: ROADMAP.md queue 1 item 6)")
     if cfg.conv_mode in ("matrix-free", "assemble"):
         return f"conv_mode={cfg.conv_mode!r} (ROADMAP.md queue 1 item 6)"
-    if int(cfg.spmd_devices or 0) >= 1:
-        return "spmd_devices (multi-device: ROADMAP.md queue 1 item 11)"
-    if cfg.setup_cache not in (None, "", "off", "none", "0"):
-        return "setup_cache (ROADMAP.md queue 1 item 8)"
     return None
 
 
@@ -103,35 +93,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         "conv_pairs2",
     )
 
-    def __init__(self, deck: Deck, config: SolverConfig | None = None,
-                 device=None, *, plain: bool = False):
-        self._configure(deck, config or SolverConfig(), device, plain)
-        self._setup()
-
-    @classmethod
-    def from_tables(cls, deck: Deck, config: SolverConfig, tables: dict,
-                    attrs: dict, device=None, *, plain: bool = False):
-        """A solver from ready tables (``interop.tables_from_jax``) and the
-        :data:`STATIC_ATTRS` values, skipping the host setup."""
-        self = cls.__new__(cls)
-        self._configure(deck, config, device, plain)
-        for k in cls.STATIC_ATTRS:
-            setattr(self, k, attrs[k])
-        self.d = {k: v.to(self.device) for k, v in tables.items()}
-        return self
-
-    def _configure(self, deck, config, device, plain) -> None:
-        self.deck = deck
-        self.config = config
-        self.device = resolve_device(device)
-        self.plain = plain
-        why = _unsupported(config)
-        if why is not None:
-            raise NotImplementedError(f"not ported yet: {why}")
-        if self.device.type == "cuda":
-            # the einsums that build A(un) stay in full f32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+    _unsupported = staticmethod(_unsupported)
 
     # ------------------------------------------------------------------ setup
     def _setup(self) -> None:
@@ -254,6 +216,9 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             "Z_win": dev(z_dia.window_vals(dtype=dtype)),
             "Z_dinv": dev(1.0 / z_diag),
         }
+        if cfg.pressure_cg_sym:
+            # only the dq >= 0 half is kept (symmetry checked here)
+            d["Z_win"] = half_window(d["Z_win"], box.coarse_dims, z_dia.radius)
         self.pin_grid = int(perm_p[pin]) if pin >= 0 else -1
         mon = find_monitor_node(
             deck.coords,
@@ -342,6 +307,11 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                 radius=self.z_radius, tol=cfg.pressure_cg_tol,
                 maxiter=cfg.pressure_cg_maxiter,
                 x0=x0 if cfg.pressure_warm_start else None,
+                unroll=max(1, int(cfg.pressure_cg_unroll)),
+                fuse_loop=cfg.pressure_cg_fuse_loop,
+                sym=cfg.pressure_cg_sym,
+                # MIXED policy: f64-accumulated dots inside the kernels
+                dot_mode="compensated" if cfg.krylov_dot_dtype() is not None else "plain",
             )
 
         mask = d["bc_mask_p"][None]

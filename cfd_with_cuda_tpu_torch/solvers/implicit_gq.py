@@ -1,0 +1,494 @@
+"""Implicit fractional-step solver (Guermond-Quartapelle incremental
+pressure-correction), parity path.
+
+Port of ``cfd_with_cuda_tpu/solvers/implicit_gq.py`` on its class-major
+("parity") branch — the rebuild of ``fractionalStep/implicit/Cpp/
+guermondQuartapelle.cpp``: one pass per time step (no inner iterations,
+``timeLoop`` :3308-3416),
+
+* step1 (:3906-4083): momentum LHS  A = M/dt + K + A(u^k)  re-assembled on
+  the device every step; RHS = (M/dt) u^k - G (2 p^k - p^{k-1}); Dirichlet
+  rows zeroed with unit diagonal (:4622-4632) and RHS set to the BC value
+  (:4634-4642); solved by Jacobi-BiCGStab.  The reference solves the three
+  directions sequentially (:3972-4033) — here they ride as one batched
+  (3, N) solve sharing iterations, since the LHS is identical.
+* step2 (:4090-4176): R2 = -(1/dt) G^T u; CG on the *directly assembled*
+  Z = -int grad Sp . grad Sp (:3579-3670) with the LARGE pressure pin;
+  p^{k+1} = p^k + Pdiff.
+
+Per step the CUDA kernels are ``parity_apply`` (M u^k, G p, and A x twice
+per BiCGStab iteration plus once for its r0), ``div_compact`` and the
+pressure CG (``cg_init`` + one ``cg_iter`` per iteration by default,
+``cg_solve`` with ``pressure_cg_fuse_loop``).  Plain torch ops build the
+convection planes and merge them onto the static planes with one matmul.
+
+Deliberate divergence (kept from the JAX package): the reference's steady
+check at :3347-3353 assigns ``maxAcc`` *signed* (a bug — its own explicit
+solver takes |.| at ``blascoCodinaHuerta.cpp:3049-3061``), which can
+spuriously stop the run; this rebuild uses the correct |.| semantics.
+
+Meshes and configurations that the JAX package runs on its interleaved or
+ELL steps raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import scipy.sparse as sps
+import torch
+
+from cfd_with_cuda_tpu_torch.fem.assembly import assemble_operators
+from cfd_with_cuda_tpu_torch.fem.jacobian import build_element_tables
+from cfd_with_cuda_tpu_torch.fem.shape import HEX_FACE_ALL_NODES, HEX_FACE_CORNERS
+from cfd_with_cuda_tpu_torch.fem.structured import detect_promoted_box, dia_from_csr
+from cfd_with_cuda_tpu_torch.mesh.profiles import apply_inlet_profile
+from cfd_with_cuda_tpu_torch.mesh.topology import (
+    face_bc_to_node_bc,
+    find_monitor_node,
+    promote_hex_mesh,
+)
+from cfd_with_cuda_tpu_torch.ops import parity_stencil as pstl
+from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
+from cfd_with_cuda_tpu_torch.ops.krylov import solver_by_name
+from cfd_with_cuda_tpu_torch.ops.window_stencil import compact_gt_window
+from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, unsupported_config
+from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
+
+__all__ = ["ImplicitState", "ImplicitGQSolver"]
+
+_OTHER_STEPS = "the interleaved and ELL implicit steps: ROADMAP.md queue 1 item 7"
+
+
+class ImplicitState(NamedTuple):
+    uk: torch.Tensor         # (3, 8, Sp) u^k (class-major layout)
+    pk: torch.Tensor         # (NNp,)     p^k (coarse grid order)
+    pk_prev: torch.Tensor    # (NNp,)     p^{k-1}
+
+
+def _unsupported(cfg: SolverConfig) -> str | None:
+    """The ROADMAP item of the first config choice the port does not run."""
+    why = unsupported_config(cfg)
+    if why is not None:
+        return why
+    if cfg.structured == "never" or cfg.structured_layout == "interleaved":
+        return (f"structured={cfg.structured!r}, structured_layout="
+                f"{cfg.structured_layout!r} ({_OTHER_STEPS})")
+    return None
+
+
+class ImplicitGQSolver(ChunkedTimeLoop):
+    """Setup once from a deck, then run chunks of time steps (``device`` and
+    ``plain`` as :class:`ChunkedTimeLoop`)."""
+
+    STATIC_ATTRS = (
+        "nn", "nnp", "dt", "pin_grid", "perm", "perm_p", "fine_dims",
+        "coarse_dims", "elem_dims", "z_radius", "sp_c", "a_pairs", "m_pairs",
+        "g_pairs", "diag_planes", "mon_cls", "mon_q", "monitor_node_p",
+        "conv_i_order", "conv_groups", "ppe_project",
+    )
+
+    _unsupported = staticmethod(_unsupported)
+
+    def _configure(self, deck, config, device, plain) -> None:
+        super()._configure(deck, config, device, plain)
+        self._momentum_solver = solver_by_name(config.momentum_solver)
+
+    # ------------------------------------------------------------------ setup
+    def _setup(self) -> None:
+        deck = self.deck
+        cfg = self.config
+
+        mesh = promote_hex_mesh(deck.conn, deck.coords)
+        self.mesh = mesh
+        self.nn, self.nnp = mesh.nn, deck.nnp
+        tab = build_element_tables(
+            mesh.coords, mesh.ltog_node, etype=deck.etype,
+            nenv=deck.nenv, nenp=deck.nenp, ngp=deck.ngp,
+        )
+        self.tables = tab
+
+        # M/dt + K + direct-assembly Z (step0, guermondQuartapelle.cpp:3425-3572)
+        ops = assemble_operators(
+            tab, mesh.ltog_node, mesh.nn, self.nnp,
+            viscosity=deck.viscosity, density=deck.density,
+            z_mode="direct", mass_scale=1.0 / deck.dt, keep_consistent_mass=True,
+        )
+        self.ops = ops
+
+        bc_of_node = face_bc_to_node_bc(
+            mesh.ltog_node, deck.bc_vel_faces, mesh.nn,
+            quadratic=deck.nenv != deck.nenp,
+        )
+        is_bc = bc_of_node >= 0
+        bc_vel = np.zeros((mesh.nn, 3))
+        bc_vel[is_bc] = deck.bc_str[bc_of_node[is_bc]]
+        apply_inlet_profile(deck, mesh.coords, bc_of_node, bc_vel)
+
+        Z = ops.Z.tocsr().copy()
+        pin = deck.zero_pressure_node
+        if pin >= 0:
+            Z[pin, pin] = Z[pin, pin] * cfg.pressure_pin_large
+
+        # Outflow faces -> homogeneous Dirichlet on the pressure INCREMENT
+        # at outflow pressure nodes (symmetric row/col elimination keeping
+        # the original diagonal).  The direct-assembly Z is the all-Neumann
+        # Laplacian: consistent only when the RHS sums to zero, i.e. when
+        # the flux across the whole boundary balances — always true for
+        # enclosed flows, violated during open-boundary transients (the
+        # JAX package's capability extension over the reference, which
+        # parses its outflow faces and never consumes them).
+        p_mask = np.ones(self.nnp)
+        if deck.bc_out_faces is not None and len(deck.bc_out_faces):
+            ob = face_bc_to_node_bc(
+                mesh.ltog_node, deck.bc_out_faces, mesh.nn, quadratic=False
+            )
+            out_p = np.flatnonzero(ob[: self.nnp] >= 0)
+            if out_p.size:
+                p_mask[out_p] = 0.0
+                d0 = Z.diagonal()
+                Dm = sps.diags(p_mask)
+                Z = (Dm @ Z @ Dm
+                     + sps.diags(np.where(p_mask == 0.0, d0, 0.0))).tocsr()
+                Z.sort_indices()
+
+        # All-Neumann pressure problems with flow THROUGH the boundary
+        # (every face Dirichlet with nonzero normal velocity): each step's
+        # PPE RHS carries a small inconsistent component along the constant
+        # null vector, which CG must push through the pinned near-null
+        # eigenvalue.  Gate: geometric thru-flow detection — any
+        # velocity-BC face whose mean BC velocity has a normal component.
+        # Enclosed tangential-flow decks (cavity: lid moves along its own
+        # plane) measure exactly zero and keep the reference-exact
+        # behaviour; when detected, the RHS is mean-projected every solve.
+        self.ppe_project = False
+        if (
+            p_mask.min() == 1.0           # no outflow Dirichlet rows
+            and deck.bc_vel_faces is not None
+            and len(deck.bc_vel_faces)
+        ):
+            fc = np.asarray(deck.bc_vel_faces, np.int64)
+            corners = deck.conn[fc[:, 0][:, None], HEX_FACE_CORNERS[fc[:, 1]]]
+            c = mesh.coords[corners]                     # (nf, 4, 3)
+            nrm = np.cross(c[:, 1] - c[:, 0], c[:, 2] - c[:, 0])
+            nn_ = np.linalg.norm(nrm, axis=1, keepdims=True)
+            nrm = nrm / np.maximum(nn_, 1e-300)
+            # probe the MID-FACE node (HEX_FACE_ALL_NODES[:, 8]): it
+            # belongs to exactly one boundary face, so the sequential
+            # corner-node BC overwrite (lid value leaking onto side-wall
+            # faces at shared edges) cannot fake a normal component
+            mid = mesh.ltog_node[fc[:, 0], HEX_FACE_ALL_NODES[fc[:, 1], 8]]
+            thru = float(np.abs((bc_vel[mid] * nrm).sum(axis=1)).max())
+            umax = float(np.abs(bc_vel).max()) or 1.0
+            self.ppe_project = thru > 1e-9 * umax
+
+        mk_vals = ops.M + ops.K          # M/dt + K CSR values (:3921-3923)
+        self._setup_parity(mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask)
+        self.dt = float(deck.dt)
+        self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                  for k, v in self.d.items()}
+
+    def _setup_parity(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> None:
+        """DIA operators and the per-step assembly maps of a box grid in the
+        parity layout (``_try_structured`` of the JAX package, its parity
+        branch :544-663)."""
+        deck = self.deck
+        cfg = self.config
+        dtype = cfg.np_dtype()
+        pat = ops.pattern_m
+        not_box = NotImplementedError(
+            "not ported yet: meshes that are not element-structured box grids "
+            f"({_OTHER_STEPS})"
+        )
+        box = detect_promoted_box(mesh.coords, self.nnp, mesh.ltog_node)
+        if box is None or box.elem_perm is None:
+            raise not_box
+        fx, fy, fz = box.fine_dims
+        cx, cy, cz = box.coarse_dims
+        perm, perm_p, embed = box.perm, box.perm_p, box.embed
+
+        mk_dia = dia_from_csr(pat.to_scipy(mk_vals), perm, perm, box.fine_dims)
+        m_dia = dia_from_csr(pat.to_scipy(ops.M), perm, perm, box.fine_dims)
+        z_dia = dia_from_csr(Z, perm_p, perm_p, box.coarse_dims)
+        g_dias = [dia_from_csr(ops.G_csr(d), perm, embed, box.fine_dims) for d in range(3)]
+        gt_dias = [
+            dia_from_csr(ops.G_csr(d).T.tocsr(), embed, perm, box.fine_dims)
+            for d in range(3)
+        ]
+        if any(x is None for x in [mk_dia, m_dia, z_dia, *g_dias, *gt_dias]):
+            raise not_box
+        # M and MK must share the DIA offset layout
+        if m_dia.flat_offsets != mk_dia.flat_offsets:
+            raise not_box
+
+        self.perm, self.perm_p = perm, perm_p
+        self.fine_dims, self.coarse_dims = box.fine_dims, box.coarse_dims
+        self.elem_dims = box.elem_dims
+        a_offsets = mk_dia.flat_offsets
+        a_zero_off = a_offsets.index(0)
+        self.z_radius = z_dia.radius
+        g_radius = max(g.radius for g in g_dias)
+        gt_radius = max(g.radius for g in gt_dias)
+
+        permute_vec = box.permute_vec
+        permute_vec_p = box.permute_vec_p
+        size = box.size
+
+        # element tables to element-grid order + channel-ordered locals
+        gDSv_t = np.transpose(self.tables.gDSv, (3, 2, 1, 0))
+        gq_t = self.tables.gq_factor.T
+        g2 = np.empty_like(gDSv_t)
+        g2[..., box.elem_perm] = gDSv_t
+        q2 = np.empty_like(gq_t)
+        q2[..., box.elem_perm] = gq_t
+        gDSv_t, gq_t = g2[:, box.chan_order], q2
+        sv_t = self.tables.Sv[:, box.chan_order]
+
+        dev = lambda x: np.asarray(x, dtype=dtype)
+        bc_mask = dev(permute_vec(np.where(is_bc, 0.0, 1.0)))
+        diag_add = np.zeros(size)
+        diag_add[perm[is_bc]] = 1.0
+        g_win = dev(np.stack([g.window_vals(g_radius, dtype) for g in g_dias]))
+        gt_win = dev(np.stack([g.window_vals(gt_radius, dtype) for g in gt_dias]))
+        z_win = dev(z_dia.window_vals(dtype=dtype))
+        z_diag = dev(permute_vec_p(np.asarray(Z.diagonal())))
+        if cfg.pressure_cg_sym:
+            # only the dq >= 0 half is kept (symmetry checked here)
+            z_win = half_window(z_win, box.coarse_dims, z_dia.radius)
+
+        self.pin_grid = int(perm_p[pin]) if pin >= 0 else -1
+        mon = find_monitor_node(
+            deck.coords,
+            deck.monitor_xyz if deck.monitor_xyz is not None else (0.5,) * 3,
+        )
+        monitor_node = int(perm[mon])
+        # the pressure field lives on the COARSE grid in perm_p order
+        self.monitor_node_p = int(perm_p[mon])
+
+        (pcx, pcy, pcz), sp_c = pstl.parity_dims(box.fine_dims)
+        if (pcx, pcy, pcz) != (cx, cy, cz):
+            raise not_box
+        self.sp_c = sp_c
+        offs_a = pstl.decode_offsets(a_offsets, box.fine_dims)
+        # static LHS part pre-masked (BC rows zeroed, unit diagonal there):
+        # the per-step device work is ONLY the masked convection add
+        mk_masked = dev(mk_dia.vals) * bc_mask[None]
+        mk_masked[a_zero_off] += dev(diag_add)
+        mkp, self.a_pairs = pstl.build_parity_apply_tables(mk_masked, offs_a, box.fine_dims)
+        self.diag_planes = pstl.diag_plane_indices(self.a_pairs)
+        # class-box pad slots carry no row: unit diagonal keeps the Jacobi
+        # division finite (their residuals are identically 0)
+        for p in range(8):
+            col = mkp[0, self.diag_planes[p]]
+            mkp[0, self.diag_planes[p]] = np.where(col == 0.0, 1.0, col)
+        try:
+            # scatter-free per-step LHS assembly: the 729 convection planes
+            # (8 contiguous shifts of the embedded-axis ae) merge onto the
+            # static MKp planes with ONE matmul (conv_plane_merge_matrix)
+            (self.conv_i_order, self.conv_groups,
+             _unused_pairs2) = pstl.build_conv_plane_route(box.local_off, box.coarse_dims)
+            conv_sel = pstl.conv_plane_merge_matrix(
+                box.local_off, self.conv_i_order, self.a_pairs, box.coarse_dims
+            )
+        except ValueError as e:
+            # Dirichlet masking zeroed an entire (class, offset) plane (a
+            # one-element-thin box between opposing walls): the JAX package
+            # falls back to its interleaved layout for the whole solver
+            raise NotImplementedError(
+                f"not ported yet: the parity LHS assembly cannot route ({e}); "
+                f"{_OTHER_STEPS}"
+            ) from e
+        mp, self.m_pairs = pstl.build_parity_apply_tables(
+            dev(m_dia.vals), offs_a, box.fine_dims
+        )
+        offs_g = tuple(
+            (dx, dy, dz)
+            for dz in range(-g_radius, g_radius + 1)
+            for dy in range(-g_radius, g_radius + 1)
+            for dx in range(-g_radius, g_radius + 1)
+        )
+        gp, self.g_pairs = pstl.build_parity_apply_tables(g_win, offs_g, box.fine_dims)
+        # grad reads ONLY the coarse pressure (class 0): the step passes it
+        # as a (1, 1, Sp) plane
+        if any(pp != 0 for cls_ in self.g_pairs for (_, pp, _) in cls_):
+            raise not_box
+        bc_mask_p = pstl.parity_split_table(bc_mask, box.fine_dims, sp_c)
+        # elemental Dirichlet row mask on the EMBEDDED flat axis, i channels
+        # pre-permuted to conv_i_order (it multiplies ae's i axis, which the
+        # step builds permuted); gathered ONCE at setup
+        mask_e = np.zeros((27, sp_c), dtype)
+        for c, (p_idx, dqf) in enumerate(pstl.elem_channel_shifts(box.coarse_dims)):
+            mask_e[c, : sp_c - dqf] = bc_mask_p[p_idx, dqf:]
+        bc_vel_g = dev(np.stack([permute_vec(bc_vel[:, i]) for i in range(3)]))
+        self.d = {
+            "MKp": dev(mkp),
+            "Mp": dev(mp),
+            "Gp": dev(gp),
+            "GT_cwin": dev(compact_gt_window(gt_win, box.fine_dims, box.coarse_dims)),
+            "bc_mask_p": bc_mask_p,
+            "bc_mask_e": mask_e[np.asarray(self.conv_i_order)],
+            "bc_vel_p": pstl.parity_split_table(bc_vel_g, box.fine_dims, sp_c),
+            "conv_sel": dev(conv_sel),
+            "Sv": dev(sv_t),
+            # element tables re-embedded on the coarse-flat axis
+            "gDSv_p": pstl.embed_elem_table(dev(gDSv_t), box.elem_dims, box.coarse_dims, sp_c),
+            "gq_p": pstl.embed_elem_table(dev(gq_t), box.elem_dims, box.coarse_dims, sp_c),
+            "p_mask": dev(permute_vec_p(p_mask)),
+            # the pressure CG's plain (W^3, NNp) window (its dq >= 0 half
+            # under pressure_cg_sym) and inverse diagonal
+            "Z_win": z_win,
+            "Z_dinv": dev(1.0 / z_diag),
+        }
+        fxy = fx * fy
+        mx, my, mz = monitor_node % fx, (monitor_node // fx) % fy, monitor_node // fxy
+        self.mon_cls = ((mz & 1) * 2 + (my & 1)) * 2 + (mx & 1)
+        self.mon_q = ((mz >> 1) * cy + (my >> 1)) * cx + (mx >> 1)
+
+    # ----------------------------------------------------------------- state
+    def initial_state(self) -> ImplicitState:
+        """Zero field with BC velocities imposed."""
+        uk = self.d["bc_vel_p"].clone()
+        pk = torch.zeros(self.nnp, dtype=uk.dtype, device=self.device)
+        return ImplicitState(uk=uk, pk=pk, pk_prev=torch.zeros_like(pk))
+
+    def state_from_fields(self, u: np.ndarray, p: np.ndarray) -> ImplicitState:
+        """u as (NN, 3) and p as (NNp,) in deck node order; p^{k-1} = p^k."""
+        dtype = self.config.np_dtype()
+        u = np.asarray(u).T
+        ug = np.zeros((3, int(np.prod(self.fine_dims))), dtype=u.dtype)
+        ug[:, self.perm] = u
+        pg = np.empty_like(np.asarray(p))
+        pg[self.perm_p] = p
+        uk = torch.from_numpy(
+            pstl.parity_split_table(ug, self.fine_dims, self.sp_c).astype(dtype)
+        ).to(self.device)
+        pk = torch.from_numpy(pg.astype(dtype)).to(self.device)
+        return ImplicitState(uk=uk, pk=pk, pk_prev=pk.clone())
+
+    # ------------------------------------------------------------- one step
+    def _time_step(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
+        """Class-major layout (ops/parity_stencil): the per-step LHS is the
+        static masked MKp planes plus the convection planes merged by one
+        matmul, the momentum BiCGStab applies the compacted table, and
+        grad/div read/emit the coarse pressure grid directly."""
+        cfg = self.config
+        dt = self.dt
+        sp_c = self.sp_c
+        # the wrappers run the kernels on CUDA tensors and the plain
+        # versions on CPU tensors; `plain` forces the plain versions
+        apply = pstl.parity_apply_plain if self.plain else pstl.parity_apply
+        div_apply = pstl.parity_div_apply_plain if self.plain else pstl.parity_div_apply
+        cg_solve = fused_cg_plain if self.plain else fused_cg
+
+        uk_prev, pk_prev, pk_prevprev = state       # uk (3, 8, Sp)
+
+        # ---- per-step LHS: A = (M/dt + K)|masked + masked A(u^k).
+        # Flat ae build (embedded element axis, minor-axis shift gathers)
+        # -> 729 convection weight planes (8 contiguous shifts) -> ONE
+        # matmul merges them onto the static MKp planes.
+        sv, gtab, qtab = d["Sv"], d["gDSv_p"], d["gq_p"]
+        u0_e = pstl.parity_gather_elem_flat(uk_prev, self.coarse_dims)
+        u0_gq = torch.einsum("ki,die->dke", sv, u0_e)
+        udotg = torch.einsum("dke,djke->jke", u0_gq, gtab)
+        if cfg.conv_stab:
+            # Temam (div u0) Sv_i Sv_j term (SolverConfig.conv_stab; the
+            # ref carries it with coefficient 0.0, :3864-3865)
+            div0 = torch.einsum("djke,dje->ke", gtab, u0_e)
+            udotg = udotg + cfg.conv_stab * div0[None] * sv.T[:, :, None]
+        sv_i = sv[:, list(self.conv_i_order)]
+        ae = torch.einsum("ki,ke,jke->ije", sv_i, qtab, udotg)
+        # Dirichlet row-zeroing in ELEMENT space: contributions whose
+        # output node is a BC node vanish (the static MKp already carries
+        # the unit diagonal there)
+        ae = ae * d["bc_mask_e"][:, None, :]
+        conv_wc = pstl.conv_planes_from_ae(ae, groups=self.conv_groups)
+        # 0/1 selection in full f32 (TF32 is off): it must not round the planes
+        conv_p = torch.matmul(d["conv_sel"], conv_wc[0])[None]
+        a_wc = d["MKp"] + conv_p
+        a_diag = a_wc[0, list(self.diag_planes)].reshape(1, -1)     # (1, 8*Sp)
+
+        a_mul = lambda x: apply(
+            a_wc, x.reshape(3, 8, sp_c), pairs=self.a_pairs, co=3
+        ).reshape(3, -1)
+        m_mul = lambda x: apply(d["Mp"], x, pairs=self.m_pairs, co=3)
+
+        def grad(p):
+            xp = torch.nn.functional.pad(p, (0, sp_c - p.shape[0]))[None, None]
+            return apply(d["Gp"], xp, pairs=self.g_pairs, co=3)
+
+        div = lambda u: div_apply(d["GT_cwin"], u, self.coarse_dims)[: self.nnp]
+
+        # ---- RHS = (M/dt) u^k - G (2 p^k - p^{k-1}); BC rows = BC values
+        pdiff2 = 2.0 * pk_prev - pk_prevprev
+        r1 = m_mul(uk_prev) - grad(pdiff2)
+        r1 = r1 * d["bc_mask_p"][None] + d["bc_vel_p"]
+
+        warm = bool(cfg.implicit_warm_start)
+        mom = self._momentum_solver(
+            a_mul,
+            r1.reshape(3, -1),
+            x0=uk_prev.reshape(3, -1) if warm else None,
+            tol=cfg.momentum_tol,
+            atol=cfg.momentum_abs_tol,
+            maxiter=cfg.momentum_maxiter,
+            # warm-started solves take AT LEAST one Krylov step: the
+            # ||b||-relative bound is inflated by the M/dt term and lets a
+            # warm solve exit at 0 iterations, freezing the time loop at an
+            # unconverged state; miniter keeps the reference's exact bound
+            # and merely forbids the zero-iteration exit
+            miniter=1 if warm else 0,
+            dot_dtype=cfg.krylov_dot_dtype(),
+            precond=lambda r: r / a_diag,
+        )
+        uk = mom.x.reshape(3, 8, sp_c)
+
+        # ---- step2: pressure CG on the coarse grid (the pressure grid IS
+        # class 0)
+        r2 = (-1.0 / dt) * div(uk) * d["p_mask"]
+        if self.ppe_project:
+            # all-Neumann + boundary thru-flow: remove the null-space
+            # (constant) component the discrete BC flux defect injects
+            r2 = r2 - torch.mean(r2)
+        if self.pin_grid >= 0:
+            r2[self.pin_grid] = 0.0
+        pdiff0 = (pk_prev - pk_prevprev) if warm else None
+        sol = cg_solve(
+            d["Z_win"], r2, d["Z_dinv"],
+            dims=self.coarse_dims, radius=self.z_radius,
+            tol=cfg.pressure_cg_tol, maxiter=cfg.pressure_cg_maxiter,
+            x0=pdiff0,
+            unroll=max(1, int(cfg.pressure_cg_unroll)),
+            fuse_loop=cfg.pressure_cg_fuse_loop,
+            sym=cfg.pressure_cg_sym,
+            # MIXED policy: f64-accumulated dots inside the kernels
+            dot_mode="compensated" if cfg.krylov_dot_dtype() is not None else "plain",
+        )
+        pdiff = sol.x
+        if self.ppe_project:
+            # singular all-Neumann solve: pick the mean-zero representative
+            # so the arbitrary pressure level cannot drift across steps
+            pdiff = pdiff - torch.mean(pdiff)
+        pk = pk_prev + pdiff
+
+        max_acc = torch.max(torch.abs(uk - uk_prev)) / dt
+        probe = lambda c: uk[c, self.mon_cls, self.mon_q]
+        stats = StepStats(
+            u_mon=probe(0), v_mon=probe(1), w_mon=probe(2),
+            p_mon=pk[self.monitor_node_p], max_acc=max_acc,
+            iters=1, cg_iters=sol.iters, mom_iters=mom.iters,
+        )
+        return ImplicitState(uk=uk, pk=pk, pk_prev=pk_prev), stats
+
+    def _monitor_only(self, state: ImplicitState) -> StepStats:
+        probe = lambda c: state.uk[c, self.mon_cls, self.mon_q]
+        zero = torch.zeros((), dtype=state.uk.dtype, device=self.device)
+        return StepStats(probe(0), probe(1), probe(2),
+                         state.pk[self.monitor_node_p], zero, 0, 0, 0)
+
+    # ------------------------------------------------------------------- io
+    def fields(self, state: ImplicitState) -> tuple[np.ndarray, np.ndarray]:
+        """(u (NN,3), p (NNp,)) as numpy, deck node order."""
+        u = pstl.parity_merge(state.uk, self.fine_dims).cpu().numpy()
+        p = state.pk.cpu().numpy()
+        return u[:, self.perm].T, p[self.perm_p]

@@ -71,3 +71,8 @@ class SolverConfig:
 
     def np_dtype(self):
         return self.dtype_policy.state_dtype
+
+    def krylov_dot_dtype(self):
+        """f64 accumulation dtype for Krylov inner products under the
+        MIXED policy (f32 state + f64 reductions); None otherwise."""
+        return torch.float64 if self.dtype_policy is DTypePolicy.MIXED else None

@@ -4,11 +4,12 @@
     python3 chip_smoke.py                  # the NE27000 cavity, 100 steps
     python3 chip_smoke.py --deck-n 4 --steps 6   # a quick small run
 
-Drives the port's main path — the explicit BCH solver on the parity layout,
-``ExplicitBCHSolver(deck, config).run(...)`` — on the generated NE27000
-lid-driven cavity (``cavity_deck(30, cluster=2.0)``, 61^3 velocity and 31^3
-pressure nodes) with the F32 / CG tol 1e-6 / warm-started, fused-CG
-configuration, and checks it:
+Drives the port's two main paths on the generated NE27000 lid-driven cavity
+(``cavity_deck(30, cluster=2.0)``, 61^3 velocity and 31^3 pressure nodes):
+the explicit BCH solver, ``ExplicitBCHSolver(deck, config).run(...)``, with
+the F32 / CG tol 1e-6 / warm-started, fused-CG configuration, and the
+implicit GQ solver, ``ImplicitGQSolver(deck, config).run(...)``, with the F32 /
+CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
 
 1. toolchain: card, power limit, CUDA, nvcc, triton, and the kernel build
    (every ``csrc/*.cu`` compiled from the checkout, in parallel);
@@ -22,7 +23,18 @@ configuration, and checks it:
    path from the same state, which must agree; and on the NE27000 deck the
    100-step monitor trace and final velocity against the stored f64 run
    (``cfd_with_cuda_tpu/validation/data/precision_ne27000.npz``, bounds of
-   ``tests/test_validation.py:194-195``).
+   ``tests/test_validation.py:194-195``);
+4. CG modes: ``cg_init`` + ``cg_iter`` (the per-iteration loop), the
+   compensated dot and the symmetric half window, on the explicit solver's
+   125-slot Z and the implicit solver's 27-slot Z, cold and warm, each
+   against its plain version; ``comp_dot_f32`` alone against the f64 dot and
+   the half-window apply alone against the full-window apply;
+5. e2e_implicit: warm-up then timed steps from rest with the launch counts
+   held against the iteration history, 3 steps of the kernel path against
+   the plain path, then 10 steps under MIXED and 10 with ``pressure_cg_sym``
+   against their plain paths, and on the NE27000 deck 20 steps at dt = 0.01
+   from the stored developed state
+   (``cfd_with_cuda_tpu/validation/data/cavity_re100_implicit_state.npz``).
 
 Each phase prints one JSON line.  Any failure raises (non-zero exit, no
 result line).  The last lines are the ``kernels`` summary, the card's name
@@ -32,6 +44,7 @@ and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -43,8 +56,27 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32, outside the tensor cores
 WARMUP_STEPS = 5
 APPLY_TOL = 1e-5   # of the largest sum |w x|: FMA vs rounded product over <= 1241 terms, same order
-CG_X_TOL = 1e-3    # of max|x|: two f32 CGs whose dots sum in different orders, ~40 iterations
+CG_X_TOL = 1e-3    # of max|x|: two f32 CGs whose dots sum in different orders, run to convergence
+# the same CG after a FIXED 0, 1 and 40 iterations (tol = 0), where nothing is forgiven
+# by convergence: x of max|x|, and |r| relative to itself, by depth.  0: one apply and
+# one dot.  40: |r| has fallen by orders while the error that x carries into it has not
+# (read 3e-7 of max|x| in x beside 1.1e-2 of |r| on the implicit Z), so x is the check
+# and |r| only guards against a wrong recurrence
+CG_FIXED_X_TOL = 1e-5
+CG_FIXED_R_TOL = {0: 1e-5, 1: 1e-4, 40: 5e-2}
 STEP_TOLS = dict(u=5e-6, p=5e-5, mon=5e-6)   # tests/test_parity_stencil.py:285-289
+# implicit steps, tests/test_parity_stencil.py:344-354: the f32 BiCGStab stops at
+# 1e-6 of |b|, which two summation orders meet with solutions ~2e-5 apart
+IMPLICIT_TOLS = dict(u=5e-5, p=5e-5, cg_iters=4, mom_iters=1)
+# CG counts of the 10 MIXED steps: at this deck |r| does not fall through tol |b|
+# monotonically: it dips to 0.7-1.6 of the bound at k = 180-184, is back above it at
+# 188-192 and falls below for good at k = 196, while kernel and plain |r| differ by 13-34 % at that
+# depth in either dot mode (python -m cfd_with_cuda_tpu_torch.cg_trace).  Whether a solve
+# stops in the dip or 12-16 iterations later hangs on rounding; the F32 and half-window
+# runs happen to take the same side on every step and keep the bound of 4
+MIXED_CG_ITERS_TOL = 16
+UNROLL = 4         # SolverConfig.pressure_cg_unroll
+SEEDED_U_MON = -0.2051389   # cavity_re100_implicit.npz: u_mon of the stored state at t = 250
 
 
 def emit(obj) -> None:
@@ -73,6 +105,26 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, kernel_name: str, reps: int) -> float:
+    """Mean device time of the kernel whose name holds ``kernel_name`` over
+    ``reps`` calls of ``fn`` (torch.profiler), whatever the host does between
+    the launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name]
+    if len(spans) < reps // 2:        # the trace may drop a launch or two, not most
+        raise AssertionError(f"profiler saw {len(spans)} launches of {kernel_name} in {reps} calls")
+    return sum(spans) / len(spans) / 1e3
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -264,7 +316,7 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
         b[solver.pin_grid] = 0.0
     cfg = solver.config
     kw = dict(dims=solver.coarse_dims, radius=solver.z_radius, tol=cfg.pressure_cg_tol,
-              maxiter=cfg.pressure_cg_maxiter)
+              maxiter=cfg.pressure_cg_maxiter, fuse_loop=True)
     win, dinv = d["Z_win"], d["Z_dinv"]
     cold = fused_cg_mod.fused_cg(win, b, dinv, **kw)
     x0 = (cold.x * (1 + 1e-3 * rand(nnp))).contiguous()
@@ -299,7 +351,7 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
                                            g_planes=int(d["Gp"].shape[1]),
                                            conv_planes=27 * 27),
               checks=results))
-    return results
+    return results, (b, x0)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -324,11 +376,12 @@ def phase_e2e(solver, cuda_lib, n_steps: int, ExplicitBCHSolver, precision_deck:
     if len(hist) != n_steps:
         raise AssertionError(f"ran {len(hist)} of {n_steps} steps")
     subs = [int(h["iters"]) for h in hist]
-    expect = dict(
+    on_path = dict(
         parity_apply_k_plus_a=sum(subs), parity_apply_k=sum(s - 1 for s in subs),
         parity_apply_g=sum(s + 1 for s in subs), div_compact=sum(subs), cg_solve=sum(subs),
     )
-    if any(v <= 0 for v in counts.values()) or counts != expect:
+    expect = {k: on_path.get(k, 0) for k in counts}      # the other kernels: not on this path
+    if min(on_path.values()) <= 0 or counts != expect:
         raise AssertionError(f"launch counts {counts}, expected {expect}")
     if not (torch.isfinite(state.un).all() and torch.isfinite(state.pn).all()):
         raise AssertionError("non-finite fields")
@@ -385,12 +438,340 @@ def phase_e2e(solver, cuda_lib, n_steps: int, ExplicitBCHSolver, precision_deck:
     return out
 
 
+# ---------------------------------------------------------------- phase 4
+
+def _timed_once(fn):
+    """(result, device ms) of one call (CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _z_csr(win, offs, n):
+    """The full-window operator as one sparse matrix, for the library yardstick."""
+    import torch
+
+    q = torch.arange(n, device=win.device)
+    cols = q[None] + torch.tensor(offs, device=win.device)[:, None]
+    ok = (cols >= 0) & (cols < n)
+    return _csr(q[None].expand_as(cols)[ok], cols[ok], win[ok], (n, n))
+
+
+def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol, maxiter) -> dict:
+    """``cg_init`` + ``cg_iter``, the compensated dot and the half window on
+    one pressure system (``win`` the full (W^3, n) window), cold and warm,
+    each against its plain version; per-launch times and bounds."""
+    import numpy as np
+    import torch
+
+    n, nw = b.shape[0], win.shape[0]
+    offs = window_stencil.window_offsets(dims, radius)
+    half = torch.from_numpy(cg.half_window(win.cpu().numpy(), dims, radius)).to(win.device)
+    nh = half.shape[0]
+    base = dict(dims=dims, radius=radius, tol=tol, maxiter=maxiter)
+    modes = {
+        "cg_iter": dict(unroll=UNROLL),
+        "cg_iter_comp": dict(unroll=UNROLL, dot_mode="compensated"),
+        "cg_solve_comp": dict(fuse_loop=True, dot_mode="compensated"),
+        "cg_iter_sym": dict(unroll=UNROLL, sym=True),
+        "cg_solve_sym": dict(fuse_loop=True, sym=True),
+    }
+    results = {}
+    full_x = {}
+    for name, mode in modes.items():
+        w = half if mode.get("sym") else win
+        group = 1 if mode.get("fuse_loop") else UNROLL
+        cap = -(-maxiter // group) * group
+        for start, xs in (("cold", None), ("warm", x0)):
+            solve = lambda: cg.fused_cg(w, b, dinv, x0=xs, **base, **mode)
+            solve()                                     # first launches of this mode
+            sol, ms = _timed_once(solve)
+            ref, plain_ms = _timed_once(lambda: cg.fused_cg_plain(w, b, dinv, x0=xs, **base, **mode))
+            k, k_ref = int(sol.iters), int(ref.iters)
+            err = float((sol.x - ref.x).abs().max())
+            rel = err / float(ref.x.abs().max())
+            bnorm = float(torch.linalg.vector_norm(b))
+            what = f"{tag} {name} {start}"
+            if abs(k - k_ref) > group or not rel <= CG_X_TOL or not k > 0 or k % group:
+                raise AssertionError(f"{what}: k {k} vs {k_ref}, x err {rel:.3e}")
+            if not (float(sol.residual) <= tol * bnorm * 1.0001 or k == cap):
+                raise AssertionError(f"{what}: stopped unconverged at k={k}")
+            rec = dict(max_abs_err=err, err_rel=rel, tol=CG_X_TOL, iters=k, iters_plain=k_ref,
+                       ms=ms, ms_per_iter=ms / k, plain_ms=plain_ms)
+            if name == "cg_iter":
+                full_x[start] = (sol.x, k)
+            if mode.get("sym"):
+                # the half-window solve against the full-window solve
+                x_full, k_full = full_x[start]
+                rel_full = float((sol.x - x_full).abs().max()) / float(x_full.abs().max())
+                if not rel_full <= CG_X_TOL or abs(k - k_full) > max(group, UNROLL):
+                    raise AssertionError(f"{what}: vs the full window: k {k} vs {k_full}, "
+                                         f"x err {rel_full:.3e}")
+                rec.update(err_rel_vs_full=rel_full, iters_full=k_full)
+            results[f"{name}_{start}"] = rec
+
+    # one launch each, held against the plain version at a fixed depth: init
+    # alone (maxiter=0), one iteration, and N iterations in one group with
+    # tol=0 (never converged); the time of an iteration is that loop's less
+    # the init's, over N
+    n_it = 40
+    for name, mode, w in (("plain", {}, win), ("comp", dict(dot_mode="compensated"), win),
+                          ("sym", dict(sym=True), half)):
+        kw = dict(dims=dims, radius=radius, tol=0.0, x0=x0, **mode)
+        run = lambda solve, k: solve(w, b, dinv, maxiter=k, unroll=max(k, 1), **kw)
+        errs = {}
+        for k in (0, 1, n_it):
+            sol, ref = run(cg.fused_cg, k), run(cg.fused_cg_plain, k)
+            x_rel = float((sol.x - ref.x).abs().max()) / float(ref.x.abs().max())
+            r_rel = abs(float(sol.residual) - float(ref.residual)) / float(ref.residual)
+            what = f"{tag} {name}: {k} iterations against the plain version"
+            if int(sol.iters) != k or not x_rel <= CG_FIXED_X_TOL or not r_rel <= CG_FIXED_R_TOL[k]:
+                raise AssertionError(f"{what}: k {int(sol.iters)}, x {x_rel:.3e}, |r| {r_rel:.3e}")
+            errs[k] = dict(x_abs=float((sol.x - ref.x).abs().max()), x_rel=x_rel, r_rel=r_rel)
+        init_wall_ms = time_ms(lambda: run(cg.fused_cg, 0), 20)
+        loop_ms = time_ms(lambda: run(cg.fused_cg, n_it), 5)
+        _, init_plain = _timed_once(lambda: run(cg.fused_cg_plain, 0))
+        _, loop_plain = _timed_once(lambda: run(cg.fused_cg_plain, n_it))
+        rows = w.shape[0]
+        # init (warm): window + b, dinv, x0 read, x, r, p written; iter: window +
+        # x, r, p, dinv read, x, r, p written
+        ib, ib_by = bound(4 * (rows + 6) * n, (2 * rows + 8) * n)
+        tb, tb_by = bound(4 * (rows + 7) * n, (2 * rows + 12) * n)
+        results[f"launch_{name}"] = dict(
+            window_rows=rows, fixed_depth_errs=errs, x_tol=CG_FIXED_X_TOL, r_tol=CG_FIXED_R_TOL,
+            # the kernel alone (profiler), and the wrapper's call with its host
+            # read of |r0|, |b| (CUDA events)
+            init_ms=kernel_device_ms(lambda: run(cg.fused_cg, 0), "cg_init_kernel", 20),
+            init_with_host_read_ms=init_wall_ms, init_plain_ms=init_plain,
+            init_bound_ms=ib, init_bound_by=ib_by,
+            init_abs_err=max(errs[0]["x_abs"], errs[1]["x_abs"]),
+            iter_ms=(loop_ms - init_wall_ms) / n_it,
+            iter_plain_ms=(loop_plain - init_plain) / n_it,
+            iter_abs_err=errs[n_it]["x_abs"], iter_bound_ms=tb, iter_bound_by=tb_by,
+        )
+
+    # the half-window apply alone against the full-window apply
+    v = x0
+    y = cg.window_apply_sym(half, v, dims=dims, radius=radius)
+    y_full = cg.window_apply_plain(win, v, offs)
+    y_abs = cg.window_apply_plain(win.abs(), v.abs(), offs)
+    err, rel = _apply_err(y, y_full, y_abs)
+    if not rel <= APPLY_TOL:
+        raise AssertionError(f"{tag} sym apply vs the full window: {rel:.3e} > {APPLY_TOL}")
+    a_z = _z_csr(win, offs, n)
+    sb, sb_by = bound(4 * (nh + 2) * n, 2 * nw * n)
+    results["sym_apply"] = dict(
+        max_abs_err=err, err_rel=rel, tol=APPLY_TOL, window_rows=nh,
+        # the kernel alone (profiler): the wrapper's host work outlasts it
+        ms=kernel_device_ms(lambda: cg.window_apply_sym(half, v, dims=dims, radius=radius),
+                            "window_apply_sym_kernel", 20),
+        call_ms=time_ms(lambda: cg.window_apply_sym(half, v, dims=dims, radius=radius), 20),
+        plain_ms=time_ms(lambda: cg.window_apply_plain(half, v, offs[nw // 2:], True), 3),
+        library_ms=time_ms(lambda: torch.mv(a_z, v), 20),
+        library_abs_err=float((torch.mv(a_z, v) - y).abs().max()),
+        bound_ms=sb, bound_by=sb_by,
+    )
+    del a_z
+
+    # the compensated dot alone: the f64 dot of the f32 inputs within 2 ulp (f32)
+    rng = np.random.default_rng(11)
+    worst = 0.0
+    for m in (128, 4096, 29824, n):
+        a_h = (rng.standard_normal(m) * 10.0 ** rng.uniform(-3, 3, m)).astype(np.float32)
+        b_h = (rng.standard_normal(m) * 10.0 ** rng.uniform(-3, 3, m)).astype(np.float32)
+        a_d, b_d = torch.from_numpy(a_h).to(b.device), torch.from_numpy(b_h).to(b.device)
+        got = float(cg.comp_dot_f32(a_d, b_d))
+        exact = float(np.dot(a_h.astype(np.float64), b_h.astype(np.float64)))
+        ulp = float(np.spacing(np.float32(abs(exact)) or np.float32(1.0)))
+        if not abs(got - exact) <= 2 * ulp:
+            raise AssertionError(f"comp_dot n={m}: {got} vs {exact} (ulp {ulp})")
+        worst = max(worst, abs(got - exact) / ulp)
+    db, db_by = bound(8 * n + 4, 2 * n)
+    results["comp_dot"] = dict(
+        max_abs_err=abs(got - exact), err_ulp_worst=worst, tol_ulp=2, n=n,
+        ms=kernel_device_ms(lambda: cg.comp_dot_f32(a_d, b_d), "comp_dot_kernel", 20),
+        call_ms=time_ms(lambda: cg.comp_dot_f32(a_d, b_d), 20),
+        plain_ms=time_ms(lambda: cg.comp_dot_plain(a_d, b_d), 20),
+        library_ms=None, bound_ms=db, bound_by=db_by,
+    )
+    emit(dict(phase="cg_modes", system=tag, n=n, window_rows=nw, half_rows=nh, checks=results))
+    return results
+
+
+# ---------------------------------------------------------------- phase 5
+
+def _implicit_expect(hist, counts, **modes):
+    """Launch counts a run of the implicit solver implies, per its history."""
+    cg_it = sum(int(h["cg_iters"]) for h in hist)
+    mom = sum(int(h["mom_iters"]) for h in hist)
+    n = len(hist)
+    on_path = dict(cg_init=n, cg_iter=cg_it, div_compact=n, parity_apply_g=n,
+                   parity_apply_k=2 * n + 2 * mom)          # M u, A x0, 2 A per iteration
+    for name, on in modes.items():
+        if on:
+            on_path[name] = n + cg_it                       # every cg_init and cg_iter launch
+    return on_path, {k: on_path.get(k, 0) for k in counts}
+
+
+def _implicit_vs_plain(what, solver, ImplicitGQSolver, cuda_lib, state, n_steps,
+                       strict=True, cg_iters_tol=None, **modes) -> dict:
+    """``n_steps`` of the kernel path and of the plain path from ``state``; the
+    kernel path's launch counts (set to 0 just before) against its history.
+    ``strict=False`` (a deck other than NE27000, where a 4^3 mesh's ~25
+    BiCGStab iterations in f32 scatter more than the bounds allow) prints
+    the comparison and asserts only the counts and finite fields."""
+    import numpy as np
+
+    attrs = {k: getattr(solver, k) for k in ImplicitGQSolver.STATIC_ATTRS}
+    plain = ImplicitGQSolver.from_tables(solver.deck, solver.config, solver.d, attrs,
+                                         device=solver.device, plain=True)
+    cuda_lib.reset_launch_counts()
+    st_k, h_k = solver.run(state, n_steps=n_steps)
+    counts = dict(cuda_lib.launch_counts)
+    st_p, h_p = plain.run(state, n_steps=n_steps)
+    if dict(cuda_lib.launch_counts) != counts:
+        raise AssertionError(f"{what}: the plain path launched a kernel")
+    on_path, expect = _implicit_expect(h_k, counts, **modes)
+    if min(on_path.values()) <= 0 or counts != expect:
+        raise AssertionError(f"{what}: launch counts {counts}, expected {expect}")
+    u_k, p_k = solver.fields(st_k)
+    u_p, p_p = plain.fields(st_p)
+    du, dp = float(np.abs(u_k - u_p).max()), float(np.abs(p_k - p_p).max())
+    cg_k, cg_p = [int(r["cg_iters"]) for r in h_k], [int(r["cg_iters"]) for r in h_p]
+    mom_k, mom_p = [int(r["mom_iters"]) for r in h_k], [int(r["mom_iters"]) for r in h_p]
+    t = dict(IMPLICIT_TOLS, cg_iters=cg_iters_tol or IMPLICIT_TOLS["cg_iters"])
+    cmp = dict(phase=what, steps=n_steps, du=du, dp=dp, tols=t,
+               cg_iters=[cg_k, cg_p], mom_iters=[mom_k, mom_p], launches=counts,
+               u_mon=h_k[-1]["u_mon"])
+    emit(cmp)
+    if not (np.isfinite(u_k).all() and np.isfinite(p_k).all()
+            and all(k % UNROLL == 0 for k in cg_k)):
+        raise AssertionError(f"{what}: {cmp}")
+    if strict and not (
+            du <= t["u"] and dp <= t["p"]
+            and all(abs(a - b) <= t["cg_iters"] for a, b in zip(cg_k, cg_p))
+            and all(abs(a - b) <= t["mom_iters"] for a, b in zip(mom_k, mom_p))):
+        raise AssertionError(f"{what}: kernel path and plain path disagree: {cmp}")
+    return cmp
+
+
+def phase_e2e_implicit(solver, ImplicitGQSolver, cuda_lib, cg, n_steps: int,
+                       DTypePolicy, strict: bool) -> dict:
+    import torch
+
+    state = solver.initial_state()
+    warm = min(WARMUP_STEPS, n_steps - 1)
+    cuda_lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, hist_w = solver.run(state, n_steps=warm)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    state, hist_t = solver.run(state, n_steps=n_steps - warm)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    counts = dict(cuda_lib.launch_counts)
+    hist = hist_w + hist_t
+    if len(hist) != n_steps:
+        raise AssertionError(f"implicit: ran {len(hist)} of {n_steps} steps")
+    on_path, expect = _implicit_expect(hist, counts)
+    if min(on_path.values()) <= 0 or counts != expect:
+        raise AssertionError(f"implicit: launch counts {counts}, expected {expect}")
+    if not (torch.isfinite(state.uk).all() and torch.isfinite(state.pk).all()):
+        raise AssertionError("implicit: non-finite fields")
+    timed = hist_t
+    out = dict(
+        phase="e2e_implicit", steps=n_steps, warmup_steps=warm,
+        ms_per_step=(t2 - t1) / (n_steps - warm) * 1e3, warmup_s=t1 - t0,
+        cg_iters_mean=sum(h["cg_iters"] for h in timed) / len(timed),
+        mom_iters_mean=sum(h["mom_iters"] for h in timed) / len(timed),
+        cg_iters_first_last=[int(hist[0]["cg_iters"]), int(hist[-1]["cg_iters"])],
+        mom_iters_first_last=[int(hist[0]["mom_iters"]), int(hist[-1]["mom_iters"])],
+        u_mon=hist[-1]["u_mon"], max_acc=hist[-1]["max_acc"], launches=counts,
+        launches_per_step="cg_init 1, cg_iter = cg_iters, div_compact 1, parity_apply_g 1, "
+                          "parity_apply_k 2 + 2 mom_iters",
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    emit(out)
+
+    _implicit_vs_plain("implicit_kernel_vs_plain_3_steps", solver, ImplicitGQSolver, cuda_lib,
+                       state, 3, strict)
+    # MIXED (compensated dots) and the half window share the F32 tables
+    attrs = {k: getattr(solver, k) for k in ImplicitGQSolver.STATIC_ATTRS}
+    cfg = solver.config
+    mixed = ImplicitGQSolver.from_tables(
+        solver.deck, dataclasses.replace(cfg, dtype_policy=DTypePolicy.MIXED),
+        solver.d, attrs, device=solver.device)
+    out["mixed"] = _implicit_vs_plain("implicit_mixed_vs_plain_10_steps", mixed,
+                                      ImplicitGQSolver, cuda_lib, state, min(10, n_steps),
+                                      strict, cg_iters_tol=MIXED_CG_ITERS_TOL, comp_dot=True)
+    half = cg.half_window(solver.d["Z_win"].cpu().numpy(), solver.coarse_dims, solver.z_radius)
+    sym = ImplicitGQSolver.from_tables(
+        solver.deck, dataclasses.replace(cfg, pressure_cg_sym=True),
+        {**solver.d, "Z_win": torch.from_numpy(half)}, attrs, device=solver.device)
+    out["sym"] = _implicit_vs_plain("implicit_sym_vs_plain_10_steps", sym, ImplicitGQSolver,
+                                    cuda_lib, state, min(10, n_steps), strict, sym_apply=True)
+    return out
+
+
+def phase_seeded(deck, cfg, ImplicitGQSolver, n_steps: int = 20) -> dict:
+    """20 steps at dt = 0.01 from the stored developed state of this deck
+    (written by scripts/validate_cavity.py --implicit, t = 250): the
+    developed-flow regime.  The state holds no p^{k-1}, so the first steps
+    carry a restart transient in max_acc (0.50 falling to the stored run's
+    0.063 after ~25 steps on the plain path); u_mon stays within 2e-4."""
+    import numpy as np
+    import torch
+
+    seed = np.load(REPO / "cfd_with_cuda_tpu" / "validation" / "data"
+                   / "cavity_re100_implicit_state.npz")
+    deck.dt, deck.max_iter = 0.01, 1
+    t0 = time.time()
+    solver = ImplicitGQSolver(deck, cfg)
+    setup_s = time.time() - t0
+    state = solver.state_from_fields(seed["u"], seed["p"])
+    u_mon0 = float(solver._monitor_only(state).u_mon)
+    state, hist_w = solver.run(state, n_steps=WARMUP_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    state, hist = solver.run(state, n_steps=n_steps - WARMUP_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.time() - t1) / (n_steps - WARMUP_STEPS) * 1e3
+    hist = hist_w + hist
+    u_mon = [h["u_mon"] for h in hist]
+    max_acc = [h["max_acc"] for h in hist]
+    out = dict(
+        phase="seeded_implicit", steps=n_steps, setup_s=setup_s, ms_per_step=ms,
+        u_mon_state=u_mon0, u_mon_stored=SEEDED_U_MON, u_mon_last=u_mon[-1],
+        u_mon_max_dev=max(abs(v - SEEDED_U_MON) for v in u_mon), u_mon_bound=5e-3,
+        max_acc_first_last=[max_acc[0], max_acc[-1]], max_acc_bound=1.0,
+        cg_iters_mean=sum(h["cg_iters"] for h in hist) / len(hist),
+        mom_iters_mean=sum(h["mom_iters"] for h in hist) / len(hist),
+    )
+    emit(out)
+    finite = bool(torch.isfinite(state.uk).all() and torch.isfinite(state.pk).all())
+    if not (len(hist) == n_steps and finite and abs(u_mon0 - SEEDED_U_MON) < 1e-6
+            and out["u_mon_max_dev"] < 5e-3 and max(max_acc) < 1.0):
+        raise AssertionError(f"seeded implicit run: {out}")
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck-n", type=int, default=30, help="cavity elements per edge (30: NE27000)")
-    ap.add_argument("--steps", type=int, default=100, help="e2e steps (warm-up included)")
+    ap.add_argument("--steps", type=int, default=100, help="explicit e2e steps (warm-up included)")
+    ap.add_argument("--implicit-steps", type=int, default=50,
+                    help="implicit e2e steps from rest (warm-up included)")
     args = ap.parse_args()
 
     import torch
@@ -402,10 +783,13 @@ def main() -> int:
     from cfd_with_cuda_tpu_torch.mesh.generators import cavity_deck
     from cfd_with_cuda_tpu_torch.ops import cuda_lib, fused_cg, parity_stencil, window_stencil
     from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
+    from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
     from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 
     phase_toolchain(cuda_lib)
+    full = args.deck_n == 30
 
+    # ---- the explicit path
     t0 = time.time()
     deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
     cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
@@ -415,28 +799,80 @@ def main() -> int:
     emit(dict(phase="setup", deck=f"cavity_deck({args.deck_n}, cluster=2.0)",
               nn=solver.nn, nnp=solver.nnp, sp=solver.sp_c, setup_s=time.time() - t0))
 
-    checks = phase_kernels(solver, parity_stencil, cuda_lib, fused_cg, window_stencil)
-    e2e = phase_e2e(solver, cuda_lib, args.steps, ExplicitBCHSolver,
-                    precision_deck=args.deck_n == 30)
+    checks, (b_x, x0_x) = phase_kernels(solver, parity_stencil, cuda_lib, fused_cg, window_stencil)
+    e2e = phase_e2e(solver, cuda_lib, args.steps, ExplicitBCHSolver, precision_deck=full)
+    # the explicit solver's other CG modes on its 125-slot product Z
+    phase_cg_modes("explicit_z", fused_cg, window_stencil, solver.d["Z_win"], solver.d["Z_dinv"],
+                   b_x, x0_x, solver.coarse_dims, solver.z_radius, cfg.pressure_cg_tol,
+                   cfg.pressure_cg_maxiter)
+    del solver, b_x, x0_x
+    torch.cuda.empty_cache()
+
+    # ---- the implicit path ("implicit" row of the JAX package's bench matrix)
+    t0 = time.time()
+    icfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                        pressure_warm_start=True, steps_per_chunk=25)
+    isolver = ImplicitGQSolver(deck, icfg)
+    emit(dict(phase="setup_implicit", nn=isolver.nn, nnp=isolver.nnp, sp=isolver.sp_c,
+              z_window_rows=int(isolver.d["Z_win"].shape[0]), setup_s=time.time() - t0))
+    # a divergence-shaped right-hand side on the implicit solver's 27-slot Z
+    rng = torch.Generator(device="cpu").manual_seed(20260816)
+    u = torch.randn(3, 8, isolver.sp_c, generator=rng).to(isolver.device)
+    b_i = (-1.0 / isolver.dt) * parity_stencil.parity_div_apply_plain(
+        isolver.d["GT_cwin"], u * isolver.d["bc_mask_p"][None], isolver.coarse_dims
+    )[: isolver.nnp].contiguous()
+    b_i = b_i * 1e-3                      # the size of a step's right-hand side
+    if isolver.pin_grid >= 0:
+        b_i[isolver.pin_grid] = 0.0
+    cold = fused_cg.fused_cg_plain(isolver.d["Z_win"], b_i, isolver.d["Z_dinv"],
+                                   dims=isolver.coarse_dims, radius=isolver.z_radius,
+                                   tol=icfg.pressure_cg_tol, maxiter=icfg.pressure_cg_maxiter)
+    x0_i = (cold.x * (1 + 1e-3 * torch.randn(isolver.nnp, generator=rng).to(isolver.device)))
+    modes = phase_cg_modes("implicit_z", fused_cg, window_stencil, isolver.d["Z_win"],
+                           isolver.d["Z_dinv"], b_i, x0_i.contiguous(), isolver.coarse_dims,
+                           isolver.z_radius, icfg.pressure_cg_tol, icfg.pressure_cg_maxiter)
+    del u, b_i, x0_i, cold
+    ie2e = phase_e2e_implicit(isolver, ImplicitGQSolver, cuda_lib, fused_cg,
+                              args.implicit_steps, DTypePolicy, strict=full)
+    del isolver
+    torch.cuda.empty_cache()
+    if full:
+        phase_seeded(deck, icfg, ImplicitGQSolver)
 
     csrc = "cfd_with_cuda_tpu_torch/csrc/"
+    pcg = "cfd_with_cuda_tpu/ops/pallas_cg.py"
     rows = [
-        ("parity_apply_k", "parity_apply_k", "parity_apply.cu",
-         "cfd_with_cuda_tpu/ops/parity_stencil.py:432"),
-        ("parity_apply_g", "parity_apply_g", "parity_apply.cu",
-         "cfd_with_cuda_tpu/ops/parity_stencil.py:432"),
-        ("parity_apply_k_plus_a", "parity_apply_k_plus_a", "parity_apply.cu",
-         "cfd_with_cuda_tpu/ops/parity_stencil.py:406"),
-        ("div_compact", "div_compact", "div_compact.cu",
-         "cfd_with_cuda_tpu/ops/pallas_stencil.py:307"),
-        ("cg_solve", "cg_solve_warm", "cg_solve.cu", "cfd_with_cuda_tpu/ops/pallas_cg.py:549"),
+        ("parity_apply_k", "parity_apply.cu", "cfd_with_cuda_tpu/ops/parity_stencil.py:432",
+         e2e["launches"]["parity_apply_k"], checks["parity_apply_k"]),
+        ("parity_apply_g", "parity_apply.cu", "cfd_with_cuda_tpu/ops/parity_stencil.py:432",
+         e2e["launches"]["parity_apply_g"], checks["parity_apply_g"]),
+        ("parity_apply_k_plus_a", "parity_apply.cu", "cfd_with_cuda_tpu/ops/parity_stencil.py:406",
+         e2e["launches"]["parity_apply_k_plus_a"], checks["parity_apply_k_plus_a"]),
+        ("div_compact", "div_compact.cu", "cfd_with_cuda_tpu/ops/pallas_stencil.py:307",
+         e2e["launches"]["div_compact"], checks["div_compact"]),
+        ("cg_solve", "cg_solve.cu", pcg + ":549", e2e["launches"]["cg_solve"],
+         checks["cg_solve_warm"]),
+    ]
+    # the implicit path's CG kernels, at its 27-slot window: one launch each
+    ln = modes["launch_plain"]
+    rows += [
+        ("cg_init", "cg_iter.cu", pcg + ":607", ie2e["launches"]["cg_init"],
+         dict(max_abs_err=ln["init_abs_err"], ms=ln["init_ms"], plain_ms=ln["init_plain_ms"],
+              bound_ms=ln["init_bound_ms"], bound_by=ln["init_bound_by"], library_ms=None)),
+        ("cg_iter", "cg_iter.cu", pcg + ":577", ie2e["launches"]["cg_iter"],
+         dict(max_abs_err=ln["iter_abs_err"], ms=ln["iter_ms"],
+              plain_ms=ln["iter_plain_ms"], bound_ms=ln["iter_bound_ms"],
+              bound_by=ln["iter_bound_by"], library_ms=None)),
+        ("comp_dot", "cg_iter.cu", pcg + ":194", ie2e["mixed"]["launches"]["comp_dot"],
+         modes["comp_dot"]),
+        ("sym_apply", "cg_iter.cu", pcg + ":262", ie2e["sym"]["launches"]["sym_apply"],
+         modes["sym_apply"]),
     ]
     kernels = []
-    for name, check, src, replaces in rows:
-        c = checks[check]
+    for name, src, replaces, launches, c in rows:
         kernels.append(dict(
             name=name, route="cuda", source=csrc + src, replaces=replaces,
-            launches=e2e["launches"][name], max_abs_err=c["max_abs_err"], ms=c["ms"],
+            launches=launches, max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"],
         ))

@@ -111,11 +111,58 @@ def test_state_from_jax_continues_the_run(reference):
     assert np.isfinite(st1.un.numpy()).all() and int(stats.iters) >= 1
 
 
+# CG modes the explicit solver reaches beside rung 1: (port overrides, u
+# tol, p tol, CG-count tol).  "mixed" and "iter" run the same arithmetic as
+# the JAX solver (the bounds of rung 1; counts of the per-iteration loop are
+# multiples of the unroll, 4, and must be equal); "sym" sums the half window
+# in another order than JAX's scatter form is summed, so it takes the bounds
+# of tests/test_parity_stencil.py:611-613 (u, p 1e-5, counts within 4).
+CG_MODES = {
+    "mixed": (dict(dtype_policy=DTypePolicy.MIXED, pressure_cg_fuse_loop=False), 5e-6, 5e-5, 0),
+    "iter": (dict(pressure_cg_fuse_loop=False), 5e-6, 5e-5, 0),
+    "sym": (dict(pressure_cg_sym=True, pressure_cg_fuse_loop=False), 1e-5, 1e-5, 4),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(CG_MODES))
+def test_steps_match_jax_other_cg_modes(mode):
+    """MIXED (compensated dots), the default per-iteration CG loop and the
+    symmetric half window, 3 steps each against the JAX solver."""
+    override, u_tol, p_tol, cg_tol = CG_MODES[mode]
+    cfg = dict(dtype_policy=DTypePolicy.F32, **RUNG1) | override
+    jcfg = dict(cfg, dtype_policy=JaxPolicy(cfg["dtype_policy"].value))
+    js = JaxSolver(jax_cavity_deck(4, viscosity=0.01, dt=0.001),
+                   JaxConfig(pressure_backend="pallas", structured_layout="parity",
+                             setup_cache="off", **jcfg))
+    step = jax.jit(js._time_step)
+    st = js.initial_state()
+    ref_rows = []
+    for _ in range(N_STEPS):
+        st, stats = step(js.d, st)
+        ref_rows.append([float(getattr(stats, f)) for f in STAT_FIELDS])
+    ref_rows = np.asarray(ref_rows)
+    ts = ExplicitBCHSolver(_deck(), SolverConfig(**cfg), device="cpu")
+    if mode == "sym":
+        attrs = {k: getattr(js, k) for k in ExplicitBCHSolver.STATIC_ATTRS}
+        carried = tables_from_jax({k: np.asarray(v) for k, v in js.d.items()}, attrs, sym=True)
+        assert ts.d["Z_win"].shape == (63, ts.nnp)
+        np.testing.assert_array_equal(ts.d["Z_win"].numpy(), carried["Z_win"].numpy())
+    state, rows = _run_port(ts)
+    np.testing.assert_array_equal(rows[:, 5], ref_rows[:, 5])          # sub-iterations
+    assert np.abs(rows[:, 6] - ref_rows[:, 6]).max() <= cg_tol
+    assert (rows[:, 6] % 4 == 0).all()
+    np.testing.assert_allclose(rows[:, :5], ref_rows[:, :5], rtol=0, atol=max(u_tol, 5e-6))
+    u_j, p_j = js.fields(st)
+    u_t, p_t = ts.fields(state)
+    np.testing.assert_allclose(u_t, u_j, rtol=0, atol=u_tol)
+    np.testing.assert_allclose(p_t, p_j, rtol=0, atol=p_tol)
+
+
 @pytest.mark.parametrize("override", [
     dict(dtype_policy=DTypePolicy.F64),
-    dict(dtype_policy=DTypePolicy.MIXED),
-    dict(pressure_cg_fuse_loop=False),
-    dict(pressure_cg_sym=True),
+    dict(pressure_precond="mg"),
+    dict(structured="never"),
+    dict(conv_mode="assemble"),
     dict(structured_layout="interleaved"),
     dict(conv_mode="matrix-free"),
     dict(spmd_devices=2),

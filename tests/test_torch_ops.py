@@ -270,3 +270,38 @@ def test_route_table_layout_and_bounds(js):
         tps._route_table(js.k_pairs, None, m - 1, 0, 8, torch.device("cpu"))
     with pytest.raises(ValueError, match="outside"):
         tps._route_table(js.k_pairs, None, m, 0, 1, torch.device("cpu"))
+
+
+def test_route_cache_keyed_by_route_identity_not_weights(js):
+    """A solver passes the same route tuples every call (new weights every
+    step on the implicit path): the route table is looked up by the tuples'
+    identity, without hashing the ~10^3-entry route, and the weights are no
+    part of the key."""
+    m = int(js.d["Kp"].shape[1])
+    dev = torch.device("cpu")
+    tps._routes_by_id.clear()
+    first = tps._route_for(js.k_pairs, None, m, 0, 8, dev)
+    assert tps._route_for(js.k_pairs, None, m, 0, 8, dev) is first
+    assert len(tps._routes_by_id) == 1
+    # an equal route in another tuple object: a second entry, the same table
+    copy = tuple(tuple(cls) for cls in js.k_pairs)
+    assert copy is not js.k_pairs and copy == js.k_pairs
+    assert torch.equal(tps._route_for(copy, None, m, 0, 8, dev), first)
+    assert len(tps._routes_by_id) == 2
+    # the entry holds its tuples, so their ids cannot be reused while cached
+    assert all(hit[1] is not None for hit in tps._routes_by_id.values())
+
+
+def test_merge_matrix_and_diag_planes_match_jax(js):
+    """The implicit path's host half: conv_plane_merge_matrix and
+    diag_plane_indices equal the JAX package's on the explicit solver's K
+    route, and a route with a plane missing is refused."""
+    local_off = js.local_off
+    sel_j = jps.conv_plane_merge_matrix(local_off, js.conv_i_order, js.k_pairs, js.coarse_dims)
+    sel_t = tps.conv_plane_merge_matrix(local_off, js.conv_i_order, js.k_pairs, js.coarse_dims)
+    np.testing.assert_array_equal(sel_t, sel_j)
+    assert sel_t.dtype == np.float32 and (sel_t.sum(axis=0) == 1.0).all()
+    assert tps.diag_plane_indices(js.k_pairs) == jps.diag_plane_indices(js.k_pairs)
+    short = (js.k_pairs[0][:-1],) + tuple(js.k_pairs[1:])
+    with pytest.raises(ValueError, match="absent"):
+        tps.conv_plane_merge_matrix(local_off, js.conv_i_order, short, js.coarse_dims)
