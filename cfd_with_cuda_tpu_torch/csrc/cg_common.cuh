@@ -5,7 +5,12 @@
 //
 // Window apply, full form (replaces pallas_cg.py::_apply_window, :230):
 //   (Z v)[i] = sum_w win[w, i] * v[i + offs[w]],  v zero outside [0, n),
-// slots summed in order.  There is no halo copy of v: a bounds check.
+// slots summed in order.  There is no halo copy of v: a bounds check.  The
+// offsets are any static list: a box grid's W^3 window, or the banded window
+// of an unstructured pressure operator (ops/banded.py; replaces
+// pallas_cg.py::fused_cg(offs=...), :478-492, at NE144600 BFS scale 275 slots
+// up to +-7,390 over n = 147,477 rows).  Indices stay in int except the weight
+// row offset, a size_t (275 x 147,477 = 40.6M entries per table).
 //
 // Symmetric-half form (replaces _apply_window's sym branch, :262-283): the
 // weights are the (nw, n) dq >= 0 half of a symmetric window, offs[0] = 0 and

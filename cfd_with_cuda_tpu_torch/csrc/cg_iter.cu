@@ -28,7 +28,10 @@
 // next phase (p.ap before x/r; r.z before p).  Design: one cooperative launch
 // per iteration with two grid.sync() inside (cg_solve.cu's loop body), so an
 // iteration pays one launch plus two grid barriers; at this size it is bound
-// by that latency, not by bytes.  scal[0] is read by every block before the
+// by that latency, not by bytes.  The banded window of the NE144600-class
+// backward-facing step (275 slots x 147,477 rows, 162 MB) does not fit L2:
+// there an iteration streams the window from HBM and bytes set its pace
+// (bound 49.7 us at 3.35 TB/s).  scal[0] is read by every block before the
 // first barrier and written by block 0 after the second, so no block can see
 // the new value early.
 

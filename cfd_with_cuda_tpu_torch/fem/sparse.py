@@ -5,8 +5,8 @@ Port of ``cfd_with_cuda_tpu/fem/sparse.py`` (the reference's L3 layer,
 ``fractionalStep/explicit/Cpp/blascoCodinaHuerta.cpp:1675-2159``): patterns
 are coalesced on the host once, and each elemental entry (e, i, j) gets a
 precomputed scatter slot into the NNZ value array (the reference's
-``sparseMapM``/``sparseMapG``, :1860-1905).  Only what the explicit parity
-path needs is kept; the ELL layout of the JAX package is not ported.
+``sparseMapM``/``sparseMapG``, :1860-1905).  Operators of the
+unstructured path are stored as padded slot-major ELL (:func:`ell_from_csr`).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["CsrPattern", "build_csr_pattern"]
+__all__ = ["CsrPattern", "EllMatrix", "build_csr_pattern", "ell_pad_width", "ell_from_csr"]
 
 
 @dataclass(frozen=True)
@@ -88,4 +88,69 @@ def build_csr_pattern(
     scatter = inverse.reshape(ne, a, b)
     return CsrPattern(
         n_rows=n_rows, n_cols=n_cols, indptr=indptr, indices=indices, scatter=scatter
+    )
+
+
+def ell_pad_width(indptr: np.ndarray, multiple: int = 8) -> int:
+    max_row = int(np.diff(indptr).max()) if indptr.size > 1 else 0
+    return -(-max_row // multiple) * multiple
+
+
+@dataclass(frozen=True)
+class EllMatrix:
+    """Padded *slot-major* ELL sparse matrix: cols/vals shaped (L, n_rows).
+    Padding slots have col 0 and value 0, so gathers stay in bounds and
+    contribute nothing."""
+
+    n_rows: int
+    n_cols: int
+    cols: np.ndarray          # (L, n_rows) int32
+    vals: np.ndarray          # (L, n_rows)
+    # map from CSR nnz slot -> flat (L, n_rows) ELL slot, for value refresh
+    csr_to_ell: np.ndarray
+
+    @property
+    def pad(self) -> int:
+        return self.cols.shape[0]
+
+    def with_values(self, csr_values: np.ndarray) -> np.ndarray:
+        """A new (L, n_rows) ELL value array from CSR values."""
+        out = np.zeros(self.pad * self.n_rows, dtype=csr_values.dtype)
+        out[self.csr_to_ell] = csr_values
+        return out.reshape(self.pad, self.n_rows)
+
+
+def ell_from_csr(
+    pattern_or_indptr,
+    indices: np.ndarray | None = None,
+    values: np.ndarray | None = None,
+    *,
+    n_cols: int | None = None,
+    pad_multiple: int = 8,
+) -> EllMatrix:
+    """Convert a CSR pattern (+ optional values) to slot-major ELL."""
+    if isinstance(pattern_or_indptr, CsrPattern):
+        pat = pattern_or_indptr
+        indptr, indices, n_cols = pat.indptr, pat.indices, pat.n_cols
+    else:
+        indptr = np.asarray(pattern_or_indptr)
+        assert indices is not None and n_cols is not None
+    n_rows = indptr.size - 1
+    L = ell_pad_width(indptr, pad_multiple)
+    row_len = np.diff(indptr)
+    row_ids = np.repeat(np.arange(n_rows, dtype=np.int64), row_len)
+    # position of each nnz within its row
+    within = np.arange(indices.size, dtype=np.int64) - np.repeat(indptr[:-1], row_len)
+    flat = within * n_rows + row_ids          # slot-major (L, n_rows) flat index
+    cols = np.zeros(L * n_rows, dtype=np.int32)
+    cols[flat] = indices.astype(np.int32)
+    vals = np.zeros(L * n_rows, dtype=np.float64)
+    if values is not None:
+        vals[flat] = values
+    return EllMatrix(
+        n_rows=n_rows,
+        n_cols=int(n_cols),
+        cols=cols.reshape(L, n_rows),
+        vals=vals.reshape(L, n_rows),
+        csr_to_ell=flat,
     )

@@ -12,12 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cfd_with_cuda_tpu_torch.ops.spmv import build_reverse_incidence
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitState
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitState
 
 __all__ = [
     "tables_from_jax", "state_from_jax",
     "implicit_tables_from_jax", "implicit_state_from_jax",
+    "ell_tables_from_jax", "implicit_ell_tables_from_jax", "rev_from_jax",
 ]
 
 # tables the parity step reads under the same name in both packages
@@ -71,6 +73,82 @@ def implicit_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, *,
     (``attrs`` and ``sym`` as :func:`tables_from_jax`, for
     ``ImplicitGQSolver.STATIC_ATTRS``)."""
     return _carry(d, _SHARED_IMPLICIT, attrs, sym)
+
+
+def rev_from_jax(rev: np.ndarray, ne: int, s: int) -> np.ndarray:
+    """A JAX reverse-incidence table (positions ``s_i * NE + e`` of a
+    ``(S, NE)`` value array) as the port's (positions ``e * S + s_i`` of an
+    ``(NE, S)`` array), entries in the same order; sentinel ``NE * S``."""
+    rev = np.asarray(rev).astype(np.int64)
+    out = (rev % ne) * s + rev // ne
+    out[rev == ne * s] = ne * s
+    return out.astype(np.int32)
+
+
+def _element_tables(d) -> dict[str, np.ndarray]:
+    """The JAX package's element-minor tables in the port's element-major
+    layout: ``ltog (NEN, NE) -> (NE, NEN)``, ``gDSv (3, NENv, NGP, NE) ->
+    (NE, 3, NENv, NGP)``, ``gq (NGP, NE) -> (NE, NGP)``."""
+    return {
+        "ltog": np.asarray(d["ltog"]).T,
+        "Sv": np.asarray(d["Sv"]),
+        "gDSv": np.transpose(np.asarray(d["gDSv"]), (3, 0, 1, 2)),
+        "gq": np.asarray(d["gq"]).T,
+    }
+
+
+def _tensors(out: dict) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in out.items()}
+
+
+def ell_tables_from_jax(d: dict[str, np.ndarray], attrs: dict) -> dict[str, torch.Tensor]:
+    """The port's table dict from a JAX explicit solver's unstructured ``d``
+    (``attrs``: ``ExplicitBCHSolver.ELL_STATIC_ATTRS``, with ``nn``, ``nnp``
+    and ``z_offs``).  Element tables are transposed to element-major, the
+    reverse tables re-indexed (:func:`rev_from_jax`), and the banded window
+    comes across as the plain ``(D, NNp)`` table: from ``Z_bwin_cg (nb, KP,
+    s_pad)`` cut as :func:`tables_from_jax` cuts ``Z_win_cg``, else
+    ``Z_bwin``.  ``Z_dinv`` is the f32 reciprocal of ``Z_diag``, as the JAX
+    step divides per solve."""
+    nn, nnp = int(attrs["nn"]), int(attrs["nnp"])
+    out = _element_tables(d)
+    ne = out["ltog"].shape[0]
+    out["ltog_p"] = np.asarray(d["ltog_p"]).T
+    out["rev"] = rev_from_jax(d["rev"], ne, out["ltog"].shape[1])
+    out["rev_p"] = rev_from_jax(d["rev_p"], ne, out["ltog_p"].shape[1])
+    out["Ke"] = np.transpose(np.asarray(d["Ke"]), (2, 0, 1))
+    out["Ge"] = np.transpose(np.asarray(d["Ge"]), (3, 0, 1, 2))
+    for k in ("Z_vals", "Z_cols", "Z_diag"):
+        out[k] = np.asarray(d[k])
+    for k in ("md_inv", "md_orig_inv", "bc_mask", "bc_vel"):
+        out[k] = np.asarray(d[k])[..., :nn]          # less any shard padding
+    out["Z_dinv"] = np.ones((), out["Z_diag"].dtype) / out["Z_diag"]
+    if attrs["z_offs"] is not None:
+        if "Z_bwin_cg" in d:
+            s_pad = -(-nnp // 128) * 128
+            out["Z_bwin"] = np.asarray(d["Z_bwin_cg"]).reshape(-1, s_pad)[
+                : len(attrs["z_offs"]), :nnp]
+        else:
+            out["Z_bwin"] = np.asarray(d["Z_bwin"])
+    return _tensors(out)
+
+
+def implicit_ell_tables_from_jax(d: dict[str, np.ndarray], attrs: dict) -> dict[str, torch.Tensor]:
+    """The port's table dict from a JAX implicit solver's ELL ``d``
+    (``attrs``: ``ImplicitGQSolver.ELL_STATIC_ATTRS``).  The elemental ->
+    CSR map ``scatter_m (NENv, NENv, NE)`` becomes its reverse table
+    ``rev_m`` over the element-major ``(NE, NENv * NENv)`` values."""
+    nn = int(attrs["nn"])
+    out = _element_tables(d)
+    scatter = np.transpose(np.asarray(d["scatter_m"]), (2, 0, 1))
+    out["rev_m"] = build_reverse_incidence(scatter.reshape(scatter.shape[0], -1),
+                                           np.asarray(d["mk_vals_csr"]).shape[0])
+    for k in ("mk_vals_csr", "row_mask", "diag_add", "csr_to_ell", "GT_vals", "GT_cols",
+              "Z_vals", "Z_cols", "Z_diag", "p_mask", "diag_slots"):
+        out[k] = np.asarray(d[k])
+    for k in ("m_vals", "A_cols", "G_vals", "G_cols", "bc_mask", "bc_vel"):
+        out[k] = np.asarray(d[k])[..., :nn]          # less any shard padding
+    return _tensors(out)
 
 
 def state_from_jax(state) -> ExplicitState:

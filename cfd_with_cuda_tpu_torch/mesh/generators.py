@@ -6,8 +6,8 @@ Rebuilds the reference's MATLAB tooling
 ``HexaMeshGeneratorInAChannel...m``) as numpy functions producing the same
 deck data: corner coordinates, 8-node connectivity, face-based velocity BC
 tables, zero-pressure node, monitor point.  The sinh() wall clustering of
-``cavityMeshGenerator.m:48-60`` is reproduced exactly.  Port of the cube
-and cavity part of ``cfd_with_cuda_tpu/mesh/generators.py``.
+``cavityMeshGenerator.m:48-60`` is reproduced exactly.  Port of the cube,
+cavity and backward-facing step part of ``cfd_with_cuda_tpu/mesh/generators.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import numpy as np
 
 from cfd_with_cuda_tpu_torch.io.deck import Deck
 
-__all__ = ["clustered_axis", "cube_hex_mesh", "cavity_deck"]
+__all__ = ["clustered_axis", "cube_hex_mesh", "cavity_deck", "bfs_deck"]
 
 
 def clustered_axis(n_nodes: int, length: float = 1.0, cluster: float = 0.0) -> np.ndarray:
@@ -171,3 +171,154 @@ def cavity_deck(
     return deck
 
 
+def bfs_deck(
+    ne_x: int = 30,
+    ne_y: int = 8,
+    ne_z: int = 8,
+    *,
+    lengths=(15.0, 2.0, 2.0),
+    step_frac=(0.2, 0.5),
+    inlet_velocity: float = 1.0,
+    dt: float = 0.002,
+    t_final: float = 20.0,
+    max_iter: int = 4,
+    tolerance: float = 1e-3,
+    convergence: float = 1e-6,
+    density: float = 1.0,
+    viscosity: float = 0.01,
+    inlet_profile: str | None = "duct_developed",
+) -> Deck:
+    """Backward-facing step deck (the ``backwardFacingStepNE144600`` class
+    from the reference's stripped large decks, ``.MISSING_LARGE_BLOBS``).
+
+    Domain: x in [0, L], y in [0, H] wall-normal, z in [0, W] span.  The
+    solid step occupies ``x < step_frac[0]*L`` and ``y < step_frac[1]*H``;
+    flow enters at x=0 through the channel ABOVE the step (developed duct
+    profile by default), expands over the step edge, and leaves at x=L
+    (natural outflow — nodes absent from the velocity-BC set, like the
+    reference's ``BCoutFaces``).  The mesh is a box grid with the step
+    block of elements REMOVED and nodes compacted, so the resulting hex
+    mesh is NOT a box grid: it exercises the unstructured ELL path of the
+    fractional-step solvers at any size (ne defaults give 2,304 kept
+    hexes; 96x40x40 rebuilds the NE144600 class).
+    """
+    ex, ey, ez = ne_x, ne_y, ne_z
+    coords, conn = cube_hex_mesh(
+        ex + 1, ey + 1, ez + 1, lengths=lengths,
+    )
+    # element-grid step mask (element (i,j,k) solid iff fully inside step)
+    i_step = max(1, int(round(step_frac[0] * ex)))
+    j_step = max(1, int(round(step_frac[1] * ey)))
+    I, J, K = np.meshgrid(
+        np.arange(ex), np.arange(ey), np.arange(ez), indexing="ij"
+    )
+    # element order must match cube_hex_mesh: x-fastest (order="F")
+    ei = I.ravel(order="F")
+    ej = J.ravel(order="F")
+    ek = K.ravel(order="F")
+    keep = ~((ei < i_step) & (ej < j_step))
+
+    keep3 = np.zeros((ex, ey, ez), bool)
+    keep3[ei[keep], ej[keep], ek[keep]] = True
+
+    # boundary faces of the kept region: a face is boundary iff the
+    # neighbour element is absent (outside the grid or solid).  Face ids
+    # follow HEX_FACE_CORNERS: 0 z-, 1 y-, 2 x+, 3 y+, 4 x-, 5 z+.
+    def absent(di, dj, dk):
+        nb = np.zeros_like(keep3)
+        src = keep3
+        sl_dst = [slice(None)] * 3
+        sl_src = [slice(None)] * 3
+        for ax, d in enumerate((di, dj, dk)):
+            if d == 1:
+                sl_dst[ax] = slice(0, -1)
+                sl_src[ax] = slice(1, None)
+            elif d == -1:
+                sl_dst[ax] = slice(1, None)
+                sl_src[ax] = slice(0, -1)
+        nb[tuple(sl_dst)] = src[tuple(sl_src)]
+        return keep3 & ~nb
+
+    eid3 = -np.ones((ex, ey, ez), np.int64)
+    eid3[ei[keep], ej[keep], ek[keep]] = np.arange(int(keep.sum()))
+
+    face_dirs = [
+        ((0, 0, -1), 0), ((0, -1, 0), 1), ((1, 0, 0), 2),
+        ((0, 1, 0), 3), ((-1, 0, 0), 4), ((0, 0, 1), 5),
+    ]
+    inlet, outlet, walls = [], [], []
+    for (di, dj, dk), face in face_dirs:
+        ii, jj, kk = np.nonzero(absent(di, dj, dk))
+        eids = eid3[ii, jj, kk]
+        pairs = np.stack([eids, np.full(len(eids), face)], -1)
+        if face == 4:
+            is_in = ii == 0  # x- faces at the domain inlet plane
+            inlet.append(pairs[is_in])
+            walls.append(pairs[~is_in])  # step's vertical face
+        elif face == 2:
+            is_out = ii == ex - 1
+            outlet.append(pairs[is_out])
+            walls.append(pairs[~is_out])
+        else:
+            walls.append(pairs)
+    inlet = np.concatenate(inlet)
+    outlet = np.concatenate(outlet)
+    walls = np.concatenate(walls)
+
+    # compact nodes to those used by kept elements
+    conn = conn[keep]
+    used = np.zeros(coords.shape[0], bool)
+    used[conn.ravel()] = True
+    new_id = -np.ones(coords.shape[0], np.int64)
+    new_id[used] = np.arange(int(used.sum()))
+    conn = new_id[conn]
+    coords = coords[used]
+
+    vel_faces = np.concatenate(
+        [
+            np.column_stack([walls, np.zeros(len(walls), dtype=np.int64)]),
+            np.column_stack([inlet, np.ones(len(inlet), dtype=np.int64)]),
+        ]
+    ).astype(np.int64)
+    out_faces = np.column_stack(
+        [outlet, np.full(len(outlet), 2, dtype=np.int64)]
+    ).astype(np.int64)
+
+    L, H, W = lengths
+    target = np.array([L, H / 2, W / 2])
+    zp = int(np.argmin(((coords - target) ** 2).sum(axis=1)))
+
+    deck = Deck(
+        dialect="fractional",
+        title=f"3D backward-facing step {ne_x}x{ne_y}x{ne_z}",
+    )
+    deck.etype = 1
+    deck.ne = int(keep.sum())
+    deck.ncn = coords.shape[0]
+    deck.nenv, deck.nenp, deck.ngp = 27, 8, 8
+    deck.alpha = 1.0
+    deck.dt = dt
+    deck.t_ini = 0.0
+    deck.t_final = t_final
+    deck.max_iter = max_iter
+    deck.tolerance = tolerance
+    deck.convergence_criteria = convergence
+    deck.density = density
+    deck.viscosity = viscosity
+    deck.coords = coords
+    deck.conn = conn
+    deck.bc_type = np.array([1.0, 1.0, 3.0])
+    deck.bc_str = np.array(
+        [[0.0, 0.0, 0.0], [float(inlet_velocity), 0.0, 0.0], [0.0, 0.0, 0.0]]
+    )
+    deck.bc_vel_faces = vel_faces
+    deck.bc_out_faces = out_faces
+    deck.zero_pressure_node = zp
+    # monitor just downstream of the step edge, behind the expansion
+    # (the recirculation bubble the BFS benchmark is about)
+    deck.monitor_xyz = np.array(
+        [step_frac[0] * L + 0.15 * L, step_frac[1] * H / 2, W / 2]
+    )
+    if inlet_profile is not None:
+        deck.inlet_profile = (inlet_profile, 1, 0, float(abs(inlet_velocity)))
+    return deck

@@ -1,10 +1,13 @@
 """Jacobi-preconditioned CG of the pressure solve on a window operator.
 
 Port of ``cfd_with_cuda_tpu/ops/pallas_cg.py::fused_cg`` with its
-signature less ``offs`` and ``_skip_loop``.  The operator is a plain
-``(W^3, n)`` window, ``(Z v)[i] = sum_w win[w, i] * v[i + off_w]`` with v
-zero outside [0, n); the TPU kernel's DMA-block weight layout
-(``cg_weight_layout``, ``pick_kp``) has no counterpart here.
+signature less ``_skip_loop``.  The operator is a plain ``(D, n)`` window,
+``(Z v)[i] = sum_w win[w, i] * v[i + off_w]`` with v zero outside [0, n):
+a box grid's ``W^3`` window, its offsets made from ``dims`` and ``radius``
+(z-major scan), or any static offset list given as ``offs`` with
+``dims=(n, 1, 1)`` (the banded tables of ``ops/banded.py`` on the
+unstructured path; the halo is max |offs|).  The TPU kernel's DMA-block
+weight layout (``cg_weight_layout``, ``pick_kp``) has no counterpart here.
 
 Math (same as the TPU kernels): warm r0 = b - Z x0 (cold r0 = b); stop when
 ||r|| <= max(tol * ||b||, 0) or the iteration cap; alpha and beta through
@@ -26,7 +29,8 @@ Two loop forms, as in the JAX package:
 the f64 dot of its f32 inputs, rounded to f32 once (:func:`comp_dot_f32`).
 ``sym=True`` applies only the dq >= 0 half of a symmetric window, each
 positive offset both ways (:func:`window_apply_sym`); ``win`` is then the
-full table (its last ``W^3 // 2 + 1`` rows are taken) or that half.
+full table (its last ``D // 2 + 1`` rows are taken) or that half, and the
+offsets must be mirror-symmetric.
 """
 
 from __future__ import annotations
@@ -104,10 +108,16 @@ def comp_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double()).sum().to(a.dtype)
 
 
-def _resolve_window(win, dims, radius, sym):
-    """(offsets, window) as the kernels take them: under ``sym`` the half
-    offsets and the ``(W^3 // 2 + 1, n)`` half of ``win``."""
-    offs = window_offsets(dims, radius)
+def _resolve_window(win, dims, radius, sym, offs=None):
+    """(offsets, window) as the kernels take them: the box window's offsets
+    or ``offs`` (then ``dims`` must be ``(n, 1, 1)``); under ``sym`` the
+    half offsets and the ``(D // 2 + 1, n)`` half of ``win``."""
+    if offs is None:
+        offs = window_offsets(dims, radius)
+    else:
+        offs = tuple(int(o) for o in offs)
+        if tuple(dims[1:]) != (1, 1) or radius is not None:
+            raise ValueError(f"offs needs dims=(n, 1, 1) and radius=None, got {dims}, {radius}")
     if not sym:
         return offs, win
     half = _sym_offsets(offs)
@@ -116,11 +126,11 @@ def _resolve_window(win, dims, radius, sym):
     return half, win
 
 
-def fused_cg_plain(win, b, dinv, *, dims, radius, tol, maxiter, x0=None, unroll=1,
-                   dot_mode="plain", sym=False, fuse_loop=False) -> KrylovResult:
+def fused_cg_plain(win, b, dinv, *, dims, radius=None, tol, maxiter, x0=None, unroll=1,
+                   dot_mode="plain", sym=False, fuse_loop=False, offs=None) -> KrylovResult:
     """Plain PyTorch version of :func:`fused_cg`, every mode (the loop
     decision is read on the host once per group of ``unroll`` iterations)."""
-    offs, win = _resolve_window(win, dims, radius, sym)
+    offs, win = _resolve_window(win, dims, radius, sym, offs)
     if dot_mode == "compensated":
         dot = comp_dot_plain
     else:
@@ -217,12 +227,12 @@ def window_apply_sym(win, v, *, dims, radius) -> torch.Tensor:
     return y
 
 
-def fused_cg(win, b, dinv, *, dims, radius, tol, maxiter, x0=None, unroll=1,
-             dot_mode="plain", sym=False, fuse_loop=False) -> KrylovResult:
-    """Jacobi-PCG solve of Z x = b for the window operator ``win (W^3, n)``
-    (W = 2 radius + 1, z-major window scan over the grid ``dims``), ``b``
-    and ``dinv (n,)``, optional warm start ``x0 (n,)``; modes in the module
-    docstring.  Returns :class:`KrylovResult` with 0-d ``iters`` and
+def fused_cg(win, b, dinv, *, dims, radius=None, tol, maxiter, x0=None, unroll=1,
+             dot_mode="plain", sym=False, fuse_loop=False, offs=None) -> KrylovResult:
+    """Jacobi-PCG solve of Z x = b for the window operator ``win (D, n)``
+    (D = W^3, W = 2 radius + 1, z-major window scan over the grid ``dims``;
+    or D = len(offs) with ``dims=(n, 1, 1)``), ``b`` and ``dinv (n,)``,
+    optional warm start ``x0 (n,)``; modes in the module docstring.  Returns :class:`KrylovResult` with 0-d ``iters`` and
     ``residual`` on the device.  A CPU tensor runs :func:`fused_cg_plain`;
     a CUDA tensor launches the kernels of ``csrc/cg_iter.cu`` or
     ``csrc/cg_solve.cu``."""
@@ -231,8 +241,8 @@ def fused_cg(win, b, dinv, *, dims, radius, tol, maxiter, x0=None, unroll=1,
     if b.device.type == "cpu":
         return fused_cg_plain(win, b, dinv, dims=dims, radius=radius, tol=tol,
                               maxiter=maxiter, x0=x0, unroll=unroll, dot_mode=dot_mode,
-                              sym=sym, fuse_loop=fuse_loop)
-    offs, win = _resolve_window(win, dims, radius, sym)
+                              sym=sym, fuse_loop=fuse_loop, offs=offs)
+    offs, win = _resolve_window(win, dims, radius, sym, offs)
     n = b.shape[0]
     if win.shape != (len(offs), n) or dinv.shape != (n,) or b.shape != (n,):
         raise ValueError(f"fused_cg: shapes win {tuple(win.shape)}, b {tuple(b.shape)}, dinv {tuple(dinv.shape)}")

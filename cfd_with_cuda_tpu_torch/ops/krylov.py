@@ -1,10 +1,12 @@
-"""Krylov solvers on batched systems: BiCGStab (+ Jacobi via ``precond``).
+"""Krylov solvers on batched systems: CG and BiCGStab (+ Jacobi via ``precond``).
 
 Port of ``cfd_with_cuda_tpu/ops/krylov.py`` as far as the port's solvers
 reach it: ``KrylovResult``, the ``dot_dtype`` reductions of the MIXED
-policy, the breakdown guard and ``bicgstab`` (the implicit integrator's
-momentum solver).  ``cg``/``cr``/``bicg``/``gmres`` are not ported yet
-(``ROADMAP.md`` queue 1 item 6) and :func:`solver_by_name` says so.
+policy, the breakdown guard, ``cg`` (the pressure solve of the F64 and
+``pressure_backend="xla"`` paths, of the ELL fallback and of the implicit
+ELL step) and ``bicgstab`` (the implicit integrator's momentum solver).
+``cr``/``bicg``/``gmres`` are not ported yet (``ROADMAP.md`` queue 1 item
+6) and :func:`solver_by_name` says so.
 
 The methods accept a ``matvec`` callable and right-hand sides shaped
 ``(N,)`` or ``(C, N)``: inner products reduce over the minor axis only, so
@@ -22,7 +24,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["KrylovResult", "bicgstab", "solver_by_name"]
+__all__ = ["KrylovResult", "cg", "bicgstab", "solver_by_name"]
 
 
 class KrylovResult(NamedTuple):
@@ -77,6 +79,48 @@ def _safe_div(a, b):
     return torch.where(zero, torch.zeros_like(a), a / torch.where(zero, torch.ones_like(b), b))
 
 
+def cg(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    tol: float = 1e-12,
+    atol: float = 0.0,
+    maxiter: int = 1000,
+    precond: Callable | None = None,
+    dot_dtype=None,
+    miniter: int = 0,
+) -> KrylovResult:
+    """Preconditioned conjugate gradient (SPD systems), ``matvec`` once for
+    r0 (also with ``x0=None``), then once per iteration; ||r|| is tested
+    on the host every iteration, as the JAX ``while_loop`` tests it."""
+    M = precond or (lambda r: r)
+    dot, norm = _make_dot(dot_dtype)
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - matvec(x)
+    z = M(r)
+    p = z
+    rz = dot(r, z)
+    bound = torch.clamp_min(tol * torch.max(norm(b)), atol)
+
+    k = 0
+    rn = torch.max(norm(r))
+    # a NaN residual compares False and ends the loop, as lax.while_loop's
+    while k < miniter or (k < maxiter and bool(rn > bound)):
+        ap = matvec(p)
+        alpha = _safe_div(rz, dot(p, ap))
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = M(r)
+        rz_new = dot(r, z)
+        beta = _safe_div(rz_new, rz)
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+        rn = torch.max(norm(r))
+    return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rn)
+
+
 def bicgstab(
     matvec: Callable,
     b: torch.Tensor,
@@ -124,8 +168,8 @@ def bicgstab(
     return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rn)
 
 
-_SOLVERS = {"bicgstab": bicgstab}
-_NOT_PORTED = ("cg", "cr", "bicg", "gmres")
+_SOLVERS = {"cg": cg, "bicgstab": bicgstab}
+_NOT_PORTED = ("cr", "bicg", "gmres")
 
 
 def solver_by_name(name: str, **fixed) -> Callable:

@@ -3,6 +3,7 @@
     python -m cfd_with_cuda_tpu_torch.profile_step                # NE27000 cavity
     python -m cfd_with_cuda_tpu_torch.profile_step --deck-n 4 --warm-steps 50
     python -m cfd_with_cuda_tpu_torch.profile_step --solver implicit
+    python -m cfd_with_cuda_tpu_torch.profile_step --deck bfs [--solver implicit]
 
 ``--solver explicit`` (the default) runs the explicit BCH solver (F32, CG
 tol 1e-6, warm-started fused CG) on ``cavity_deck(deck_n, cluster=2.0)``
@@ -26,6 +27,19 @@ momentum iterations, and a ``torch.profiler`` trace of 5 steps: device
 time by kernel name and the device's busy share of the traced wall time
 (busy = union of kernel and copy intervals).  Prints one JSON line per
 regime, then the card's name and power limit.  Needs one CUDA card.
+
+``--deck bfs`` runs the unstructured path instead, on the backward-facing
+step ``bfs_deck(96, 40, 40, lengths=(15, 2, 2), step_frac=(0.2, 0.5),
+viscosity=0.01)`` (``--bfs-dims`` for another size): the explicit solver at
+dt 0.002 (F32, CG tol 1e-6, cold-started per-iteration CG on the banded
+window), or with ``--solver implicit`` the ELL step at dt 0.01.  One regime
+from rest, and besides the trace's kernels its device time by PyTorch op
+(``aten::index`` the gathers, ``aten::bmm`` the elemental products, ...),
+the host gap (traced wall less busy time), and each op of the step timed
+alone at the step's shapes (CUDA events): the elemental gather, ``bmm``
+and reverse-map scatter, a whole elemental apply, the Ae(u) build, G and
+G^T, the pressure solve, and for the implicit step the CSR assembly of
+A(u), its ELL scatter and the ELL products.
 """
 
 from __future__ import annotations
@@ -40,7 +54,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cfd_with_cuda_tpu_torch.mesh.generators import cavity_deck
+from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
+from cfd_with_cuda_tpu_torch.ops import spmv
+from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
@@ -68,13 +84,14 @@ def _trace(solver, state):
         state, _ = solver.run(state, n_steps=PROFILE_STEPS)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    short = lambda name: name.replace("void ", "").replace("(anonymous namespace)::", "")[:100]
     by_name = defaultdict(float)
     spans = []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         start, end = e.time_range.start, e.time_range.end
-        by_name[e.name] += (end - start) / 1e3 / PROFILE_STEPS
+        by_name[short(e.name)] += (end - start) / 1e3 / PROFILE_STEPS
         spans.append((start, end))
     busy, last = 0.0, float("-inf")
     for start, end in sorted(spans):
@@ -82,13 +99,23 @@ def _trace(solver, state):
             busy += end - max(start, last)
             last = end
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:15])
-    return state, top, (busy / wall_us if spans else None), wall_us / 1e3 / PROFILE_STEPS
+    by_op = {}
+    for a in prof.key_averages():
+        if a.device_type != torch.autograd.DeviceType.CPU:
+            continue                       # the kernels themselves: by_name above
+        us = getattr(a, "self_device_time_total", None)
+        us = getattr(a, "self_cuda_time_total", 0.0) if us is None else us
+        if us > 0:
+            by_op[a.key] = us / 1e3 / PROFILE_STEPS
+    by_op = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:15])
+    busy_share = busy / wall_us if spans else None
+    return state, top, busy_share, wall_us / 1e3 / PROFILE_STEPS, by_op
 
 
-def _regime(name, solver, state, n_timed):
+def _regime(name, solver, state, n_timed, ops=None):
     state, hist, ms = _timed(solver, state, n_timed)
     subs = [int(h["iters"]) for h in hist]
-    state, top, busy, traced_ms = _trace(solver, state)
+    state, top, busy, traced_ms, by_op = _trace(solver, state)
     out = dict(
         regime=name, ms_per_step=ms, timed_steps=n_timed,
         sub_iters_hist={str(s): subs.count(s) for s in sorted(set(subs))},
@@ -97,8 +124,79 @@ def _regime(name, solver, state, n_timed):
         traced_ms_per_step=traced_ms, device_busy_share=busy,
         device_ms_per_step_by_kernel=top,
     )
+    if ops is not None:
+        out.update(device_ms_per_step_by_op=by_op,
+                   host_gap_ms_per_step=None if busy is None else traced_ms * (1 - busy),
+                   op_ms_alone=ops(state))
     print(json.dumps(out), flush=True)
     return state
+
+
+def _event_ms(fn, reps=10):
+    """Mean device ms of ``fn`` (CUDA events) after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _explicit_ops(solver):
+    """The ops of one explicit unstructured step, each alone at its shapes."""
+    def ops(state):
+        d, un = solver.d, state.un
+        ltog, rev = d["ltog"], d["rev"]
+        ka = d["Ke"] + spmv.convection_elemental(un, ltog, d["Sv"], d["gDSv"], d["gq"])
+        gathered = spmv._gather_nodes(un, ltog)
+        y_e = torch.bmm(ka, gathered)
+        k_mul, ka_mul, grad, div, solve, *_ = solver._ell_operators(d, un)
+        r2 = div(un)
+        if solver.pin >= 0:
+            r2[solver.pin] = 0.0
+        out = dict(
+            gather_nodes=_event_ms(lambda: spmv._gather_nodes(un, ltog)),
+            bmm_ke_plus_ae=_event_ms(lambda: torch.bmm(ka, gathered)),
+            scatter_rev=_event_ms(lambda: spmv.scatter_nodes_rev(y_e, rev)),
+            elem_apply=_event_ms(lambda: ka_mul(un)),
+            ae_build=_event_ms(lambda: spmv.convection_elemental(
+                un, ltog, d["Sv"], d["gDSv"], d["gq"]), 3),
+            grad=_event_ms(lambda: grad(state.pn)),
+            div=_event_ms(lambda: div(un)),
+            pressure_solve=_event_ms(lambda: solve(r2, state.pdot), 2),
+        )
+        out["pressure_solve_cg_iters"] = int(solve(r2, state.pdot).iters)
+        return out
+    return ops
+
+
+def _implicit_ops(solver):
+    """The ops of one implicit ELL step, each alone at its shapes."""
+    def ops(state):
+        d, uk = solver.d, state.uk
+        conv = lambda: spmv.convection_assemble_csr(uk, d["ltog"], d["Sv"], d["gDSv"],
+                                                    d["gq"], d["rev_m"])
+        a_csr = d["mk_vals_csr"] + conv()
+        shape = d["A_cols"].shape
+
+        def to_ell():
+            a_ell = a_csr.new_zeros(shape[0] * shape[1])
+            a_ell[d["csr_to_ell"]] = a_csr
+            return a_ell.reshape(shape)
+
+        a_ell = to_ell()
+        return dict(
+            convection_assemble_csr=_event_ms(conv, 3),
+            csr_to_ell=_event_ms(to_ell),
+            ell_spmv_a=_event_ms(lambda: spmv.ell_spmv(a_ell, d["A_cols"], uk)),
+            grad=_event_ms(lambda: grad_apply(d["G_vals"], d["G_cols"], state.pk)),
+            div=_event_ms(lambda: div_apply(d["GT_vals"], d["GT_cols"], uk)),
+            ell_spmv_z=_event_ms(lambda: spmv.ell_spmv(d["Z_vals"], d["Z_cols"], state.pk)),
+        )
+    return ops
 
 
 def main() -> None:
@@ -110,10 +208,28 @@ def main() -> None:
     ap.add_argument("--solver", choices=("explicit", "implicit"), default="explicit")
     ap.add_argument("--state", default=str(SEEDED_STATE),
                     help="npz with u (NN, 3), p (NNp,): the implicit solver's seeded regime")
+    ap.add_argument("--deck", choices=("cavity", "bfs"), default="cavity")
+    ap.add_argument("--bfs-dims", default="96x40x40")
+    ap.add_argument("--timed", type=int, default=None,
+                    help="timed steps of the BFS regime (default 50 explicit, 15 implicit)")
     args = ap.parse_args()
 
-    deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
-    if args.solver == "explicit":
+    if args.deck == "bfs":
+        dims = tuple(int(v) for v in args.bfs_dims.split("x"))
+        implicit = args.solver == "implicit"
+        deck = bfs_deck(*dims, lengths=(15.0, 2.0, 2.0), step_frac=(0.2, 0.5),
+                        viscosity=0.01, dt=0.01 if implicit else 0.002)
+        cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                           pressure_warm_start=implicit, steps_per_chunk=25)
+        t0 = time.perf_counter()
+        solver = (ImplicitGQSolver if implicit else ExplicitBCHSolver)(deck, cfg)
+        print(json.dumps(dict(deck=f"bfs_deck{dims}", layout=solver.layout, nn=solver.nn,
+                              nnp=solver.nnp, setup_s=time.perf_counter() - t0)), flush=True)
+        state, _ = solver.run(n_steps=5)
+        _regime("from_rest", solver, state, args.timed or (15 if implicit else 50),
+                ops=(_implicit_ops if implicit else _explicit_ops)(solver))
+    elif args.solver == "explicit":
+        deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
         cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
                            pressure_warm_start=True, pressure_cg_fuse_loop=True,
                            steps_per_chunk=50)
@@ -124,6 +240,7 @@ def main() -> None:
         state, _ = solver.run(state, n_steps=max(0, args.warm_steps - done))
         _regime("warm", solver, state, args.timed_warm)
     else:
+        deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
         cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
                            pressure_warm_start=True, steps_per_chunk=25)
         solver = ImplicitGQSolver(deck, cfg)

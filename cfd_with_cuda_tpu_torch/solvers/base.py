@@ -23,7 +23,10 @@ import torch
 from cfd_with_cuda_tpu_torch.device import resolve_device
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
-__all__ = ["StepStats", "ChunkedTimeLoop", "unpack_chunk_stats", "unsupported_config"]
+__all__ = [
+    "StepStats", "ChunkedTimeLoop", "unpack_chunk_stats", "unsupported_config",
+    "unsupported_on_box",
+]
 
 
 class StepStats(NamedTuple):
@@ -37,14 +40,27 @@ class StepStats(NamedTuple):
     mom_iters: torch.Tensor | int   # momentum-solver iterations (0 for explicit)
 
 
+def unsupported_on_box(cfg) -> str | None:
+    """The ``ROADMAP.md`` item of the first ``SolverConfig`` choice that the
+    port does not run on a box mesh that the JAX package takes onto its
+    structured path (None when there is none): there it runs its XLA DIA
+    operators and multigrid preconditioner, which are not ported.  On the
+    ELL path (any other mesh, and for the implicit solver a box whose
+    elements do not tile it, as in the JAX package) F64 and
+    ``pressure_backend="xla"`` run (the torch CG); the solvers add their
+    own choices."""
+    if cfg.dtype_policy.value == "f64":
+        return ("dtype_policy=F64 on a box mesh (the XLA DIA / multigrid path: "
+                "ROADMAP.md queue 1 item 6)")
+    if cfg.pressure_backend == "xla" or cfg.pressure_precond == "mg":
+        return ("the XLA pressure CG / multigrid preconditioner on a box mesh "
+                "(ROADMAP.md queue 1 item 6)")
+    return None
+
+
 def unsupported_config(cfg) -> str | None:
     """The ``ROADMAP.md`` item of the first ``SolverConfig`` choice that no
-    solver of the port runs yet (None when there is none); the solvers add
-    their own."""
-    if cfg.dtype_policy.value == "f64":
-        return "dtype_policy=F64 (the XLA Krylov/multigrid path: ROADMAP.md queue 1 item 6)"
-    if cfg.pressure_backend == "xla" or cfg.pressure_precond == "mg":
-        return "the XLA pressure CG / multigrid preconditioner (ROADMAP.md queue 1 item 6)"
+    solver of the port runs on any mesh yet (None when there is none)."""
     if int(cfg.spmd_devices or 0) >= 1:
         return "spmd_devices (multi-device: ROADMAP.md queue 1 item 11)"
     if cfg.setup_cache not in (None, "", "off", "none", "0"):
@@ -61,8 +77,10 @@ def unpack_chunk_stats(packed) -> tuple[StepStats, bool]:
 
 class ChunkedTimeLoop:
     """Base of the solvers: setup once from a deck, then run chunks of
-    time steps.  Subclasses provide ``STATIC_ATTRS``, ``_unsupported``,
-    ``_setup``, ``_time_step``, ``_monitor_only`` and ``initial_state``.
+    time steps.  Subclasses provide ``STATIC_ATTRS`` and
+    ``ELL_STATIC_ATTRS``, ``_box_unsupported``, ``_setup``, ``_time_step``,
+    ``_monitor_only`` and ``initial_state``.  ``layout`` is ``"parity"``
+    (a box mesh) or ``"ell"`` (any other mesh, or ``structured="never"``).
 
     ``device=None`` runs on the CUDA card (raises without one);
     ``device="cpu"`` runs every kernel's plain PyTorch version.
@@ -70,9 +88,10 @@ class ChunkedTimeLoop:
     path the kernels are held against on the card).
     """
 
-    # static attributes that define a set-up solver besides its tables
-    # (the interop module carries the JAX solver's across)
+    # static attributes that define a set-up solver besides its tables, by
+    # layout (the interop module carries the JAX solver's across)
     STATIC_ATTRS: tuple[str, ...] = ()
+    ELL_STATIC_ATTRS: tuple[str, ...] = ()
 
     def __init__(self, deck, config=None, device=None, *, plain: bool = False):
         self._configure(deck, config or SolverConfig(), device, plain)
@@ -81,14 +100,49 @@ class ChunkedTimeLoop:
     @classmethod
     def from_tables(cls, deck, config, tables: dict, attrs: dict, device=None, *,
                     plain: bool = False):
-        """A solver from ready tables (the interop module's) and the
-        :data:`STATIC_ATTRS` values, skipping the host setup."""
+        """A solver from ready tables (the interop module's, or another
+        solver's ``d``) and the static values of its layout
+        (:meth:`static_attrs`; ``attrs["layout"]`` defaults to
+        ``"parity"``), skipping the host setup."""
         self = cls.__new__(cls)
         self._configure(deck, config, device, plain)
-        for k in cls.STATIC_ATTRS:
+        self._set_layout(attrs.get("layout", "parity"))
+        for k in self._layout_attrs():
             setattr(self, k, attrs[k])
         self.d = {k: v.to(self.device) for k, v in tables.items()}
         return self
+
+    def _layout_attrs(self) -> tuple[str, ...]:
+        return self.STATIC_ATTRS if self.layout == "parity" else self.ELL_STATIC_ATTRS
+
+    def static_attrs(self) -> dict:
+        """The layout and its static values, for :meth:`from_tables`."""
+        return {"layout": self.layout, **{k: getattr(self, k) for k in self._layout_attrs()}}
+
+    def _set_layout(self, layout: str) -> None:
+        """Take the box mesh's parity path or the unstructured ELL path,
+        raising for what that path does not run."""
+        cfg = self.config
+        if layout == "parity":
+            why = self._box_unsupported(cfg)
+            if why is not None:
+                raise NotImplementedError(f"not ported yet: {why}")
+        elif layout == "ell":
+            # the JAX package's own errors for a mesh that fell back to ELL
+            if cfg.structured == "force":
+                raise ValueError("structured mode forced but mesh is not a box grid")
+            if cfg.pressure_precond == "mg":
+                raise ValueError(
+                    "pressure_precond='mg' needs the structured fast path "
+                    "(geometric hierarchy); this mesh fell back to ELL"
+                )
+            if cfg.structured_layout == "parity":
+                raise ValueError(
+                    "structured_layout='parity' needs an element-structured box grid"
+                )
+        else:
+            raise ValueError(f"unknown layout {layout!r}")
+        self.layout = layout
 
     def _configure(self, deck, config, device, plain) -> None:
         self.deck = deck
@@ -106,6 +160,10 @@ class ChunkedTimeLoop:
     @staticmethod
     def _unsupported(config) -> str | None:
         return unsupported_config(config)
+
+    @staticmethod
+    def _box_unsupported(config) -> str | None:
+        return unsupported_on_box(config)
 
     def _setup(self) -> None:
         raise NotImplementedError

@@ -1,22 +1,31 @@
-"""Explicit fractional-step solver (Blasco-Codina-Huerta 1998), parity path.
+"""Explicit fractional-step solver (Blasco-Codina-Huerta 1998).
 
-Port of ``cfd_with_cuda_tpu/solvers/explicit_bch.py`` on its main path:
-Q2/Q1 hexes (27-node velocity, 8-node pressure) on a box grid, fields in
-the class-major parity layout ``(3, 8, Sp)``, lumped-mass explicit
-predictor, pressure-Poisson solve on Z = G^T Md^-1 G, projection, with
-``maxIter`` nonlinear sub-iterations per time step (reference
-``blascoCodinaHuerta.cpp`` ``timeLoop`` :2815-3120, ``step1/2/3``
-:3692-3974).
+Port of ``cfd_with_cuda_tpu/solvers/explicit_bch.py``: Q2/Q1 hexes (27-node
+velocity, 8-node pressure), lumped-mass explicit predictor, pressure-Poisson
+solve on Z = G^T Md^-1 G, projection, with ``maxIter`` nonlinear
+sub-iterations per time step (reference ``blascoCodinaHuerta.cpp``
+``timeLoop`` :2815-3120, ``step1/2/3`` :3692-3974).  Two layouts:
 
-Per sub-iteration the step runs three CUDA kernels: ``parity_apply``
-((K + A(un)) u*, G p, K acc), ``div_compact`` (G^T onto the coarse
-pressure grid) and the pressure CG: ``cg_solve`` (the whole solve in one
-launch, ``pressure_cg_fuse_loop``) or ``cg_init`` + one ``cg_iter`` per
-iteration (the default), with compensated dots under ``DTypePolicy.MIXED``
-and the half window under ``pressure_cg_sym``.
-Once per step plain torch ops build the convection planes A(un).  The
-sub-iteration convergence flag is read on the host once per
-sub-iteration.
+* ``"parity"``, an element-structured box grid: fields in the class-major
+  layout ``(3, 8, Sp)``; per sub-iteration the CUDA kernels
+  ``parity_apply`` ((K + A(un)) u*, G p, K acc) and ``div_compact`` (G^T
+  onto the coarse pressure grid); once per step plain torch ops build the
+  convection planes A(un).
+* ``"ell"``, any other mesh or ``structured="never"`` (the JAX package's
+  unstructured branch): fields ``(3, NN)``; K, (K + A(un)), G and G^T
+  apply through the elemental matrices (torch gathers and ``bmm``,
+  ``ops/spmv.py``), Ae(un) built once per step.  The pressure operator is
+  the banded window of ``ops/banded.py`` when the numbering bounds its
+  offsets, else slot-major ELL.
+
+The pressure CG is ``cg_solve`` (the whole solve in one launch,
+``pressure_cg_fuse_loop``) or ``cg_init`` + one ``cg_iter`` per iteration
+(the default), with compensated dots under ``DTypePolicy.MIXED`` and, on
+the parity layout, the half window under ``pressure_cg_sym``; on the ELL
+layout they take the banded offsets.  F64, ``pressure_backend="xla"`` and
+an ELL pressure operator run the torch ``cg`` (``ops/krylov.py``), as the
+JAX package runs its XLA CG there.  The sub-iteration convergence flag is
+read on the host once per sub-iteration.
 
 Configurations that the JAX package runs on another branch raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
@@ -29,8 +38,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cfd_with_cuda_tpu_torch.fem.assembly import assemble_operators
+from cfd_with_cuda_tpu_torch.fem.assembly import (
+    assemble_operators,
+    elemental_gradient,
+    elemental_stiffness,
+)
 from cfd_with_cuda_tpu_torch.fem.jacobian import build_element_tables
+from cfd_with_cuda_tpu_torch.fem.sparse import ell_from_csr
 from cfd_with_cuda_tpu_torch.fem.structured import detect_promoted_box, dia_from_csr
 from cfd_with_cuda_tpu_torch.mesh.profiles import apply_inlet_profile
 from cfd_with_cuda_tpu_torch.mesh.topology import (
@@ -39,9 +53,12 @@ from cfd_with_cuda_tpu_torch.mesh.topology import (
     promote_hex_mesh,
 )
 from cfd_with_cuda_tpu_torch.ops import parity_stencil as pstl
+from cfd_with_cuda_tpu_torch.ops import spmv
+from cfd_with_cuda_tpu_torch.ops.banded import banded_from_csr, banded_spmv
 from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
+from cfd_with_cuda_tpu_torch.ops.krylov import cg
 from cfd_with_cuda_tpu_torch.ops.window_stencil import compact_gt_window
-from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, unsupported_config
+from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, unsupported_on_box
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = ["ExplicitState", "StepStats", "ExplicitBCHSolver"]
@@ -55,24 +72,32 @@ class ExplicitState(NamedTuple):
     ``pdot``/``pdot_nm1`` warm-start the next step's first pressure solve.
     """
 
-    un: torch.Tensor         # (3, 8, Sp) velocity at time n
-    pn: torch.Tensor         # (NNp,) pressure at time n (coarse grid order)
+    un: torch.Tensor         # (3, 8, Sp) parity / (3, NN) ell: velocity at time n
+    pn: torch.Tensor         # (NNp,) pressure at time n (coarse grid order on parity)
     unp1_prev: torch.Tensor
     pdot: torch.Tensor
     pdot_nm1: torch.Tensor
 
 
-def _unsupported(cfg: SolverConfig) -> str | None:
-    """The ROADMAP item of the first config choice the port does not run."""
-    why = unsupported_config(cfg)
+def _box_unsupported(cfg: SolverConfig) -> str | None:
+    """The ROADMAP item of the first config choice the port does not run on
+    a box mesh (the unstructured path ignores ``conv_mode`` and
+    ``structured_layout``, as the JAX package's does)."""
+    why = unsupported_on_box(cfg)
     if why is not None:
         return why
-    if cfg.structured == "never" or cfg.structured_layout == "interleaved":
-        return (f"structured={cfg.structured!r}, structured_layout={cfg.structured_layout!r} "
-                "(interleaved / ELL layouts: ROADMAP.md queue 1 item 6)")
+    if cfg.structured_layout == "interleaved":
+        return ("structured_layout='interleaved' (the interleaved layout: "
+                "ROADMAP.md queue 1 item 6)")
     if cfg.conv_mode in ("matrix-free", "assemble"):
-        return f"conv_mode={cfg.conv_mode!r} (ROADMAP.md queue 1 item 6)"
+        return f"conv_mode={cfg.conv_mode!r} on a box mesh (ROADMAP.md queue 1 item 6)"
     return None
+
+
+def _banded_kernel_cg(cfg: SolverConfig) -> bool:
+    """Whether a banded pressure operator goes through the CG kernels (the
+    JAX package's ``fused_pressure_eligible``: f32 storage, not "xla")."""
+    return cfg.dtype_policy.value != "f64" and cfg.pressure_backend != "xla"
 
 
 class ExplicitBCHSolver(ChunkedTimeLoop):
@@ -84,22 +109,22 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
     path the kernels are held against on the card).
     """
 
-    # static attributes that define a set-up solver besides its tables
-    # (interop.tables_from_jax carries the JAX solver's across)
+    # static attributes that define a set-up solver besides its tables, by
+    # layout (interop carries the JAX solver's across)
     STATIC_ATTRS = (
         "nn", "nnp", "dt", "pin_grid", "perm", "perm_p", "fine_dims",
         "coarse_dims", "elem_dims", "z_radius", "sp_c", "k_pairs", "g_pairs",
         "mon_cls", "mon_q", "monitor_node_p", "conv_i_order", "conv_groups",
         "conv_pairs2",
     )
+    ELL_STATIC_ATTRS = ("nn", "nnp", "dt", "pin", "monitor_node", "monitor_node_p", "z_offs")
 
-    _unsupported = staticmethod(_unsupported)
+    _box_unsupported = staticmethod(_box_unsupported)
 
     # ------------------------------------------------------------------ setup
     def _setup(self) -> None:
         deck = self.deck
         cfg = self.config
-        dtype = cfg.np_dtype()
 
         mesh = promote_hex_mesh(deck.conn, deck.coords)
         self.mesh = mesh
@@ -137,27 +162,49 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         if pin >= 0:
             Z[pin, pin] = Z[pin, pin] * cfg.pressure_pin_large
 
-        # ---- box-grid structure (the parity branch of _try_structured,
-        # cfd_with_cuda_tpu/solvers/explicit_bch.py:320-591)
-        box = detect_promoted_box(mesh.coords, self.nnp, mesh.ltog_node)
+        # ---- box-grid structure (_try_structured): the parity layout on an
+        # element-structured box, else the unstructured ELL path
+        box = None
+        if cfg.structured != "never":
+            box = detect_promoted_box(mesh.coords, self.nnp, mesh.ltog_node)
+        dias = None
+        if box is not None:
+            dias = (
+                dia_from_csr(ops.pattern_m.to_scipy(ops.K), box.perm, box.perm, box.fine_dims),
+                dia_from_csr(Z, box.perm_p, box.perm_p, box.coarse_dims),
+                [dia_from_csr(ops.G_csr(d), box.perm, box.embed, box.fine_dims)
+                 for d in range(3)],
+                [dia_from_csr(ops.G_csr(d).T.tocsr(), box.embed, box.perm, box.fine_dims)
+                 for d in range(3)],
+            )
+            if any(x is None for x in [dias[0], dias[1], *dias[2], *dias[3]]):
+                dias = None
+        d = self._setup_ell if dias is None else self._setup_parity
+        d = d(tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv)
+        self.dt = float(deck.dt)
+        self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                  for k, v in d.items()}
+
+    def _setup_parity(self, tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv) -> dict:
+        """Tables of the parity layout (the parity branch of the JAX
+        package's ``_try_structured``, explicit_bch.py:320-591)."""
+        if box.elem_perm is None:
+            raise NotImplementedError(
+                "not ported yet: box meshes that are not element-structured "
+                "(the interleaved layout: ROADMAP.md queue 1 item 6)"
+            )
+        self._set_layout("parity")
+        deck, cfg, mesh = self.deck, self.config, self.mesh
+        dtype = cfg.np_dtype()
+        pin = deck.zero_pressure_node
         not_box = NotImplementedError(
-            "not ported yet: meshes that are not element-structured box grids "
-            "(ELL / unstructured path: ROADMAP.md queue 1 item 6)"
+            "not ported yet: this box mesh has no parity route "
+            "(the interleaved layout: ROADMAP.md queue 1 item 6)"
         )
-        if box is None or box.elem_perm is None:
-            raise not_box
+        k_dia, z_dia, g_dias, gt_dias = dias
         fx, fy, fz = box.fine_dims
         cx, cy, cz = box.coarse_dims
-        perm, perm_p, embed = box.perm, box.perm_p, box.embed
-        k_dia = dia_from_csr(ops.pattern_m.to_scipy(ops.K), perm, perm, box.fine_dims)
-        z_dia = dia_from_csr(Z, perm_p, perm_p, box.coarse_dims)
-        g_dias = [dia_from_csr(ops.G_csr(d), perm, embed, box.fine_dims) for d in range(3)]
-        gt_dias = [
-            dia_from_csr(ops.G_csr(d).T.tocsr(), embed, perm, box.fine_dims)
-            for d in range(3)
-        ]
-        if any(x is None for x in [k_dia, z_dia, *g_dias, *gt_dias]):
-            raise not_box
+        perm, perm_p = box.perm, box.perm_p
         self.perm, self.perm_p = perm, perm_p
         self.fine_dims, self.coarse_dims = box.fine_dims, box.coarse_dims
         self.elem_dims = box.elem_dims
@@ -232,14 +279,59 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         self.mon_q = ((mz >> 1) * cy + (my >> 1)) * cx + (mx >> 1)
         (self.conv_i_order, self.conv_groups,
          self.conv_pairs2) = pstl.build_conv_plane_route(box.local_off, box.coarse_dims)
-        self.dt = float(deck.dt)
-        self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                  for k, v in d.items()}
+        return d
+
+    def _setup_ell(self, tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv) -> dict:
+        """Tables of the unstructured path (explicit_bch.py:209-310):
+        element-major elemental K and G with their reverse-incidence
+        scatter tables, the ELL Z, and the banded window of Z when the
+        numbering bounds its offsets."""
+        self._set_layout("ell")
+        deck, cfg, mesh = self.deck, self.config, self.mesh
+        dtype = cfg.np_dtype()
+        dev = lambda x: np.asarray(x, dtype=dtype)
+        z_ell = ell_from_csr(Z.indptr.astype(np.int64), Z.indices.astype(np.int64), Z.data,
+                             n_cols=self.nnp)
+        ltog = np.asarray(mesh.ltog_node, dtype=np.int32)               # (NE, 27)
+        ltog_p = np.ascontiguousarray(ltog[:, : deck.nenp])             # (NE, 8)
+        d = {
+            "ltog": ltog,
+            "ltog_p": ltog_p,
+            "rev": spmv.build_reverse_incidence(ltog, mesh.nn),
+            "rev_p": spmv.build_reverse_incidence(ltog_p, self.nnp),
+            "Sv": dev(tab.Sv),
+            "gDSv": dev(np.transpose(tab.gDSv, (0, 3, 2, 1))),         # (NE, 3, 27, NGP)
+            "gq": dev(tab.gq_factor),                                  # (NE, NGP)
+            "Ke": dev(elemental_stiffness(tab, deck.viscosity)),       # (NE, 27, 27)
+            "Ge": dev(np.transpose(elemental_gradient(tab, deck.density), (1, 0, 2, 3))),
+            "Z_vals": dev(z_ell.vals),
+            "Z_cols": np.asarray(z_ell.cols),
+            "Z_diag": dev(Z.diagonal()),
+            "md_inv": dev(md_inv),
+            "md_orig_inv": dev(md_orig_inv),
+            "bc_mask": dev(np.where(is_bc, 0.0, 1.0)),
+            "bc_vel": dev(bc_vel.T),
+        }
+        # the f32 reciprocal of the f32 diagonal, as the JAX package divides
+        # per solve
+        d["Z_dinv"] = np.ones((), dtype) / d["Z_diag"]
+        self.pin = deck.zero_pressure_node
+        self.monitor_node = find_monitor_node(
+            deck.coords, deck.monitor_xyz if deck.monitor_xyz is not None else (0.5,) * 3
+        )
+        # pressure monitor: corner node ids < NNp index pn directly
+        self.monitor_node_p = self.monitor_node
+        banded = banded_from_csr(Z, max_offsets=512)
+        self.z_offs = None
+        if banded is not None:
+            self.z_offs, z_bwin = banded
+            d["Z_bwin"] = dev(z_bwin)
+        return d
 
     # ----------------------------------------------------------- initial state
     def initial_state(self) -> ExplicitState:
         """Zero field with BC velocities imposed (``applyBC_initial``)."""
-        un = self.d["bc_vel_p"].clone()
+        un = self.d["bc_vel_p" if self.layout == "parity" else "bc_vel"].clone()
         pn = torch.zeros(self.nnp, dtype=un.dtype, device=self.device)
         return ExplicitState(un, pn, torch.zeros_like(un), torch.zeros_like(pn),
                              torch.zeros_like(pn))
@@ -248,34 +340,28 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         """u as (NN, 3) and p as (NNp,) in deck node order."""
         dtype = self.config.np_dtype()
         u = np.asarray(u).T
-        ug = np.zeros((3, int(np.prod(self.fine_dims))), dtype=u.dtype)
-        ug[:, self.perm] = u
-        pg = np.empty_like(np.asarray(p))
-        pg[self.perm_p] = p
-        un = torch.from_numpy(
-            pstl.parity_split_table(ug, self.fine_dims, self.sp_c).astype(dtype)
-        ).to(self.device)
-        pn = torch.from_numpy(pg.astype(dtype)).to(self.device)
+        p = np.asarray(p)
+        if self.layout == "parity":
+            ug = np.zeros((3, int(np.prod(self.fine_dims))), dtype=u.dtype)
+            ug[:, self.perm] = u
+            pg = np.empty_like(p)
+            pg[self.perm_p] = p
+            u, p = pstl.parity_split_table(ug, self.fine_dims, self.sp_c), pg
+        un = torch.from_numpy(np.ascontiguousarray(u, dtype=dtype)).to(self.device)
+        pn = torch.from_numpy(np.ascontiguousarray(p, dtype=dtype)).to(self.device)
         return ExplicitState(un, pn, torch.zeros_like(un), torch.zeros_like(pn),
                              torch.zeros_like(pn))
 
     # ------------------------------------------------------------- one step
-    def _time_step(self, d, state: ExplicitState) -> tuple[ExplicitState, StepStats]:
+    def _parity_operators(self, d, un):
+        """(K, K + A(un), G, G^T, pressure solve, probe) of the parity layout."""
         cfg = self.config
-        deck = self.deck
-        dt = self.dt
         sp_c = self.sp_c
         # the wrappers run the kernels on CUDA tensors and the plain
         # versions on CPU tensors; `plain` forces the plain versions
         apply = pstl.parity_apply_plain if self.plain else pstl.parity_apply
         div_apply = pstl.parity_div_apply_plain if self.plain else pstl.parity_div_apply
         cg_solve = fused_cg_plain if self.plain else fused_cg
-
-        un, pn, unp1_prev0, pdot0, pdot_nm1 = state
-        if cfg.pressure_warm_extrap and cfg.pressure_warm_start:
-            pdot_init = pdot0 + (pdot0 - pdot_nm1)
-        else:
-            pdot_init = pdot0
 
         k_mul = lambda u: apply(d["Kp"], u, pairs=self.k_pairs, co=3)
 
@@ -314,9 +400,65 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                 dot_mode="compensated" if cfg.krylov_dot_dtype() is not None else "plain",
             )
 
-        mask = d["bc_mask_p"][None]
-        md_inv_b = d["md_inv_p"][None]
-        md_orig_inv_b = d["md_orig_inv_p"][None]
+        probe = lambda u, c: u[c, self.mon_cls, self.mon_q]
+        masks = tuple(d[k][None] for k in ("bc_mask_p", "md_inv_p", "md_orig_inv_p"))
+        return k_mul, ka_mul, grad, div, pressure_solve, probe, masks, self.pin_grid
+
+    def _ell_operators(self, d, un):
+        """The same on the unstructured path (explicit_bch.py:707-743,
+        978-1068): elemental applies, Ke + Ae(un) built once per step, and
+        the banded-window CG kernels or the torch CG."""
+        cfg = self.config
+        ltog, rev = d["ltog"], d["rev"]
+        k_mul = lambda u: spmv.elem_matvec_apply(d["Ke"], u, ltog, rev)
+        grad = lambda p: spmv.elem_grad_apply(d["Ge"], p, d["ltog_p"], rev)
+        div = lambda u: spmv.elem_div_apply(d["Ge"], u, ltog, d["rev_p"])
+        # (K + A(un)) u* is ONE elemental apply per sub-iteration (conv_mode
+        # is ignored here, as in the JAX package)
+        ka = d["Ke"] + spmv.convection_elemental(un, ltog, d["Sv"], d["gDSv"], d["gq"],
+                                                 stab_coef=cfg.conv_stab)
+        ka_mul = lambda u: spmv.elem_matvec_apply(ka, u, ltog, rev)
+        warm = cfg.pressure_warm_start
+
+        if self.z_offs is not None and _banded_kernel_cg(cfg):
+            cg_solve = fused_cg_plain if self.plain else fused_cg
+
+            def pressure_solve(r2, x0):
+                # the banded window on the CG kernels; pressure_cg_sym is
+                # dropped here, as the JAX package drops it
+                return cg_solve(
+                    d["Z_bwin"], r2, d["Z_dinv"], dims=(self.nnp, 1, 1), offs=self.z_offs,
+                    tol=cfg.pressure_cg_tol, maxiter=cfg.pressure_cg_maxiter,
+                    x0=x0 if warm else None, unroll=max(1, int(cfg.pressure_cg_unroll)),
+                    fuse_loop=cfg.pressure_cg_fuse_loop,
+                    dot_mode="compensated" if cfg.krylov_dot_dtype() is not None else "plain",
+                )
+        else:
+            if self.z_offs is not None:
+                z_mul = lambda p: banded_spmv(d["Z_bwin"], self.z_offs, p)
+            else:
+                z_mul = lambda p: spmv.ell_spmv(d["Z_vals"], d["Z_cols"], p)
+
+            def pressure_solve(r2, x0):
+                return cg(z_mul, r2, x0 if warm else None, tol=cfg.pressure_cg_tol,
+                          maxiter=cfg.pressure_cg_maxiter, precond=lambda r: r / d["Z_diag"],
+                          dot_dtype=cfg.krylov_dot_dtype())
+
+        probe = lambda u, c: u[c, self.monitor_node]
+        masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
+        return k_mul, ka_mul, grad, div, pressure_solve, probe, masks, self.pin
+
+    def _time_step(self, d, state: ExplicitState) -> tuple[ExplicitState, StepStats]:
+        deck = self.deck
+        dt = self.dt
+        un, pn, unp1_prev0, pdot0, pdot_nm1 = state
+        if self.config.pressure_warm_extrap and self.config.pressure_warm_start:
+            pdot_init = pdot0 + (pdot0 - pdot_nm1)
+        else:
+            pdot_init = pdot0
+        operators = self._parity_operators if self.layout == "parity" else self._ell_operators
+        (k_mul, ka_mul, grad, div, pressure_solve, probe,
+         (mask, md_inv_b, md_orig_inv_b), pin) = operators(d, un)
         g_pn = grad(pn)                     # loop-invariant: pn is fixed
 
         it, conv = 1, False
@@ -332,8 +474,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             # ---- step2: R2 = G^T (u*/dt^2 - MdOrigInv K acc_prev)  (:3813-3868)
             dummy = unp_half / (dt * dt) - md_orig_inv_b * k_acc_prev
             r2 = div(dummy)
-            if self.pin_grid >= 0:
-                r2[self.pin_grid] = 0.0
+            if pin >= 0:
+                r2[pin] = 0.0
             sol = pressure_solve(r2, pdot_prev)
             pdot = sol.x
             pnp1 = pn + dt * pdot
@@ -356,16 +498,18 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             it += 1
 
         max_acc = torch.max(torch.abs(unp1 - un)) / dt
-        probe = lambda c: unp1[c, self.mon_cls, self.mon_q]
+        p_mon = self.monitor_node_p
         stats = StepStats(
-            u_mon=probe(0), v_mon=probe(1), w_mon=probe(2),
-            p_mon=pnp1[self.monitor_node_p], max_acc=max_acc, iters=it - 1,
-            cg_iters=cgit, mom_iters=0,
+            u_mon=probe(unp1, 0), v_mon=probe(unp1, 1), w_mon=probe(unp1, 2),
+            p_mon=pnp1[p_mon], max_acc=max_acc, iters=it - 1, cg_iters=cgit, mom_iters=0,
         )
         return ExplicitState(unp1, pnp1, unp1_prev, pdot_prev, pdot0), stats
 
     def _monitor_only(self, state: ExplicitState) -> StepStats:
-        probe = lambda c: state.un[c, self.mon_cls, self.mon_q]
+        if self.layout == "parity":
+            probe = lambda c: state.un[c, self.mon_cls, self.mon_q]
+        else:
+            probe = lambda c: state.un[c, self.monitor_node]
         zero = torch.zeros((), dtype=state.un.dtype, device=self.device)
         return StepStats(probe(0), probe(1), probe(2),
                          state.pn[self.monitor_node_p], zero, 0, 0, 0)
@@ -373,6 +517,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
     # ------------------------------------------------------------------- io
     def fields(self, state: ExplicitState) -> tuple[np.ndarray, np.ndarray]:
         """(u (NN,3), p (NNp,)) as numpy, deck node order."""
+        if self.layout == "ell":
+            return state.un.cpu().numpy().T, state.pn.cpu().numpy()
         u = pstl.parity_merge(state.un, self.fine_dims).cpu().numpy()
         p = state.pn.cpu().numpy()
         return u[:, self.perm].T, p[self.perm_p]

@@ -1,10 +1,10 @@
 """Implicit fractional-step solver (Guermond-Quartapelle incremental
-pressure-correction), parity path.
+pressure-correction).
 
 Port of ``cfd_with_cuda_tpu/solvers/implicit_gq.py`` on its class-major
-("parity") branch — the rebuild of ``fractionalStep/implicit/Cpp/
-guermondQuartapelle.cpp``: one pass per time step (no inner iterations,
-``timeLoop`` :3308-3416),
+("parity") branch and its ELL branch — the rebuild of
+``fractionalStep/implicit/Cpp/guermondQuartapelle.cpp``: one pass per time
+step (no inner iterations, ``timeLoop`` :3308-3416),
 
 * step1 (:3906-4083): momentum LHS  A = M/dt + K + A(u^k)  re-assembled on
   the device every step; RHS = (M/dt) u^k - G (2 p^k - p^{k-1}); Dirichlet
@@ -16,19 +16,25 @@ guermondQuartapelle.cpp``: one pass per time step (no inner iterations,
   Z = -int grad Sp . grad Sp (:3579-3670) with the LARGE pressure pin;
   p^{k+1} = p^k + Pdiff.
 
-Per step the CUDA kernels are ``parity_apply`` (M u^k, G p, and A x twice
-per BiCGStab iteration plus once for its r0), ``div_compact`` and the
-pressure CG (``cg_init`` + one ``cg_iter`` per iteration by default,
-``cg_solve`` with ``pressure_cg_fuse_loop``).  Plain torch ops build the
-convection planes and merge them onto the static planes with one matmul.
+On the parity layout (an element-structured box grid) the CUDA kernels of
+a step are ``parity_apply`` (M u^k, G p, and A x twice per BiCGStab
+iteration plus once for its r0), ``div_compact`` and the pressure CG
+(``cg_init`` + one ``cg_iter`` per iteration by default, ``cg_solve`` with
+``pressure_cg_fuse_loop``); plain torch ops build the convection planes and
+merge them onto the static planes with one matmul.  On the ELL layout (any
+other mesh, or ``structured="never"``; the JAX package's
+``_time_step_ell``) a step is torch ops only, as it is XLA ops only in the
+JAX package: A(u^k) assembled into CSR values through a reverse-incidence
+table, scattered into slot-major ELL, the batched BiCGStab on the ELL
+SpMV and the torch CG on the ELL Z.
 
 Deliberate divergence (kept from the JAX package): the reference's steady
 check at :3347-3353 assigns ``maxAcc`` *signed* (a bug — its own explicit
 solver takes |.| at ``blascoCodinaHuerta.cpp:3049-3061``), which can
 spuriously stop the run; this rebuild uses the correct |.| semantics.
 
-Meshes and configurations that the JAX package runs on its interleaved or
-ELL steps raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Configurations that the JAX package runs on its interleaved step raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 
 from cfd_with_cuda_tpu_torch.fem.assembly import assemble_operators
 from cfd_with_cuda_tpu_torch.fem.jacobian import build_element_tables
+from cfd_with_cuda_tpu_torch.fem.sparse import ell_from_csr
 from cfd_with_cuda_tpu_torch.fem.shape import HEX_FACE_ALL_NODES, HEX_FACE_CORNERS
 from cfd_with_cuda_tpu_torch.fem.structured import detect_promoted_box, dia_from_csr
 from cfd_with_cuda_tpu_torch.mesh.profiles import apply_inlet_profile
@@ -50,31 +57,33 @@ from cfd_with_cuda_tpu_torch.mesh.topology import (
     promote_hex_mesh,
 )
 from cfd_with_cuda_tpu_torch.ops import parity_stencil as pstl
+from cfd_with_cuda_tpu_torch.ops import spmv
 from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
-from cfd_with_cuda_tpu_torch.ops.krylov import solver_by_name
+from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
+from cfd_with_cuda_tpu_torch.ops.krylov import cg, solver_by_name
 from cfd_with_cuda_tpu_torch.ops.window_stencil import compact_gt_window
-from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, unsupported_config
+from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, unsupported_on_box
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = ["ImplicitState", "ImplicitGQSolver"]
 
-_OTHER_STEPS = "the interleaved and ELL implicit steps: ROADMAP.md queue 1 item 7"
+_OTHER_STEPS = "the interleaved implicit step: ROADMAP.md queue 1 item 7"
 
 
 class ImplicitState(NamedTuple):
-    uk: torch.Tensor         # (3, 8, Sp) u^k (class-major layout)
-    pk: torch.Tensor         # (NNp,)     p^k (coarse grid order)
+    uk: torch.Tensor         # (3, 8, Sp) parity / (3, NN) ell: u^k
+    pk: torch.Tensor         # (NNp,)     p^k (coarse grid order on parity)
     pk_prev: torch.Tensor    # (NNp,)     p^{k-1}
 
 
-def _unsupported(cfg: SolverConfig) -> str | None:
-    """The ROADMAP item of the first config choice the port does not run."""
-    why = unsupported_config(cfg)
+def _box_unsupported(cfg: SolverConfig) -> str | None:
+    """The ROADMAP item of the first config choice the port does not run on
+    a box mesh."""
+    why = unsupported_on_box(cfg)
     if why is not None:
         return why
-    if cfg.structured == "never" or cfg.structured_layout == "interleaved":
-        return (f"structured={cfg.structured!r}, structured_layout="
-                f"{cfg.structured_layout!r} ({_OTHER_STEPS})")
+    if cfg.structured_layout == "interleaved":
+        return f"structured_layout='interleaved' ({_OTHER_STEPS})"
     return None
 
 
@@ -88,8 +97,10 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         "g_pairs", "diag_planes", "mon_cls", "mon_q", "monitor_node_p",
         "conv_i_order", "conv_groups", "ppe_project",
     )
+    ELL_STATIC_ATTRS = ("nn", "nnp", "dt", "pin", "monitor_node", "monitor_node_p",
+                        "ppe_project")
 
-    _unsupported = staticmethod(_unsupported)
+    _box_unsupported = staticmethod(_box_unsupported)
 
     def _configure(self, deck, config, device, plain) -> None:
         super()._configure(deck, config, device, plain)
@@ -184,26 +195,32 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             self.ppe_project = thru > 1e-9 * umax
 
         mk_vals = ops.M + ops.K          # M/dt + K CSR values (:3921-3923)
-        self._setup_parity(mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask)
+        if cfg.structured == "never" or not self._setup_parity(
+                mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask):
+            self._setup_ell(mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask)
         self.dt = float(deck.dt)
         self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                   for k, v in self.d.items()}
 
-    def _setup_parity(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> None:
+    def _setup_parity(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> bool:
         """DIA operators and the per-step assembly maps of a box grid in the
         parity layout (``_try_structured`` of the JAX package, its parity
-        branch :544-663)."""
+        branch :544-663).  False, with nothing set, for a mesh that the JAX
+        package runs on its ELL step."""
         deck = self.deck
         cfg = self.config
         dtype = cfg.np_dtype()
         pat = ops.pattern_m
         not_box = NotImplementedError(
-            "not ported yet: meshes that are not element-structured box grids "
-            f"({_OTHER_STEPS})"
+            f"not ported yet: this box mesh has no parity route ({_OTHER_STEPS})"
         )
         box = detect_promoted_box(mesh.coords, self.nnp, mesh.ltog_node)
         if box is None or box.elem_perm is None:
-            raise not_box
+            # as in the JAX package (implicit_gq.py:351-354): the per-step
+            # LHS assembly needs element-grid structure, so a box whose
+            # elements do not tile it takes the ELL step, where the explicit
+            # solver takes its interleaved layout
+            return False
         fx, fy, fz = box.fine_dims
         cx, cy, cz = box.coarse_dims
         perm, perm_p, embed = box.perm, box.perm_p, box.embed
@@ -216,11 +233,11 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             dia_from_csr(ops.G_csr(d).T.tocsr(), embed, perm, box.fine_dims)
             for d in range(3)
         ]
-        if any(x is None for x in [mk_dia, m_dia, z_dia, *g_dias, *gt_dias]):
-            raise not_box
         # M and MK must share the DIA offset layout
-        if m_dia.flat_offsets != mk_dia.flat_offsets:
-            raise not_box
+        if (any(x is None for x in [mk_dia, m_dia, z_dia, *g_dias, *gt_dias])
+                or m_dia.flat_offsets != mk_dia.flat_offsets):
+            return False
+        self._set_layout("parity")
 
         self.perm, self.perm_p = perm, perm_p
         self.fine_dims, self.coarse_dims = box.fine_dims, box.coarse_dims
@@ -344,11 +361,73 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         mx, my, mz = monitor_node % fx, (monitor_node // fx) % fy, monitor_node // fxy
         self.mon_cls = ((mz & 1) * 2 + (my & 1)) * 2 + (mx & 1)
         self.mon_q = ((mz >> 1) * cy + (my >> 1)) * cx + (mx >> 1)
+        return True
+
+    def _setup_ell(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> None:
+        """Slot-major ELL operators and the per-step assembly maps of the
+        ELL step (implicit_gq.py:224-337): Dirichlet row masks on the CSR
+        values, the CSR -> ELL slot map, and the reverse-incidence table of
+        the elemental -> CSR map (``rev_m``, where the JAX package keeps the
+        map itself, ``scatter_m``, for a ``segment_sum``)."""
+        self._set_layout("ell")
+        deck = self.deck
+        dev = lambda x: np.asarray(x, dtype=self.config.np_dtype())
+        pat = ops.pattern_m
+        # Dirichlet row-zeroing masks on the CSR value array (:4622-4632):
+        # entries in BC rows -> 0, then +1 on their diagonal slots
+        row_ids = np.repeat(np.arange(mesh.nn), np.diff(pat.indptr))
+        diag_all_slots = np.flatnonzero(row_ids == pat.indices)
+        assert diag_all_slots.size == mesh.nn
+        diag_add = np.zeros(pat.nnz)
+        diag_add[diag_all_slots[is_bc]] = 1.0
+        mk_ell = ell_from_csr(pat, values=mk_vals)
+        m_ell = ell_from_csr(pat, values=ops.M)
+        g_ells = [ell_from_csr(ops.pattern_g, values=ops.G[d]) for d in range(3)]
+        gt_ells = []
+        for d in range(3):
+            m = ops.G_csr(d).T.tocsr()
+            m.sort_indices()
+            gt_ells.append(ell_from_csr(m.indptr.astype(np.int64), m.indices.astype(np.int64),
+                                        m.data, n_cols=mesh.nn))
+        z_ell = ell_from_csr(Z.indptr.astype(np.int64), Z.indices.astype(np.int64), Z.data,
+                             n_cols=self.nnp)
+        tab = self.tables
+        self.d = {
+            "ltog": np.asarray(mesh.ltog_node, dtype=np.int32),        # (NE, 27)
+            "Sv": dev(tab.Sv),
+            "gDSv": dev(np.transpose(tab.gDSv, (0, 3, 2, 1))),        # (NE, 3, 27, NGP)
+            "gq": dev(tab.gq_factor),                                 # (NE, NGP)
+            "rev_m": spmv.build_reverse_incidence(
+                pat.scatter.reshape(pat.scatter.shape[0], -1), pat.nnz),
+            "mk_vals_csr": dev(mk_vals),
+            "m_vals": dev(m_ell.vals),
+            "row_mask": dev(np.where(is_bc[row_ids], 0.0, 1.0)),
+            "diag_add": dev(diag_add),
+            "csr_to_ell": np.asarray(mk_ell.csr_to_ell),
+            "A_cols": np.asarray(mk_ell.cols),
+            "G_vals": dev(np.stack([g.vals for g in g_ells])),
+            "G_cols": np.asarray(g_ells[0].cols),
+            "GT_vals": dev(np.stack([g.vals for g in gt_ells])),
+            "GT_cols": np.asarray(gt_ells[0].cols),
+            "Z_vals": dev(z_ell.vals),
+            "Z_cols": np.asarray(z_ell.cols),
+            "Z_diag": dev(Z.diagonal()),
+            "p_mask": dev(p_mask),
+            "bc_mask": dev(np.where(is_bc, 0.0, 1.0)),
+            "bc_vel": dev(bc_vel.T),
+            "diag_slots": np.asarray(diag_all_slots),
+        }
+        self.pin = pin
+        self.monitor_node = find_monitor_node(
+            deck.coords, deck.monitor_xyz if deck.monitor_xyz is not None else (0.5,) * 3
+        )
+        # pressure monitor: corner node ids < NNp index pk directly
+        self.monitor_node_p = self.monitor_node
 
     # ----------------------------------------------------------------- state
     def initial_state(self) -> ImplicitState:
         """Zero field with BC velocities imposed."""
-        uk = self.d["bc_vel_p"].clone()
+        uk = self.d["bc_vel_p" if self.layout == "parity" else "bc_vel"].clone()
         pk = torch.zeros(self.nnp, dtype=uk.dtype, device=self.device)
         return ImplicitState(uk=uk, pk=pk, pk_prev=torch.zeros_like(pk))
 
@@ -356,18 +435,24 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         """u as (NN, 3) and p as (NNp,) in deck node order; p^{k-1} = p^k."""
         dtype = self.config.np_dtype()
         u = np.asarray(u).T
-        ug = np.zeros((3, int(np.prod(self.fine_dims))), dtype=u.dtype)
-        ug[:, self.perm] = u
-        pg = np.empty_like(np.asarray(p))
-        pg[self.perm_p] = p
-        uk = torch.from_numpy(
-            pstl.parity_split_table(ug, self.fine_dims, self.sp_c).astype(dtype)
-        ).to(self.device)
-        pk = torch.from_numpy(pg.astype(dtype)).to(self.device)
+        p = np.asarray(p)
+        if self.layout == "parity":
+            ug = np.zeros((3, int(np.prod(self.fine_dims))), dtype=u.dtype)
+            ug[:, self.perm] = u
+            pg = np.empty_like(p)
+            pg[self.perm_p] = p
+            u, p = pstl.parity_split_table(ug, self.fine_dims, self.sp_c), pg
+        uk = torch.from_numpy(np.ascontiguousarray(u, dtype=dtype)).to(self.device)
+        pk = torch.from_numpy(np.ascontiguousarray(p, dtype=dtype)).to(self.device)
         return ImplicitState(uk=uk, pk=pk, pk_prev=pk.clone())
 
     # ------------------------------------------------------------- one step
     def _time_step(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
+        if self.layout == "ell":
+            return self._time_step_ell(d, state)
+        return self._time_step_parity(d, state)
+
+    def _time_step_parity(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
         """Class-major layout (ops/parity_stencil): the per-step LHS is the
         static masked MKp planes plus the convection planes merged by one
         matmul, the momentum BiCGStab applies the compacted table, and
@@ -480,8 +565,82 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         )
         return ImplicitState(uk=uk, pk=pk, pk_prev=pk_prev), stats
 
+    def _time_step_ell(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
+        """The ELL step (implicit_gq.py:1109-1203): torch ops only."""
+        cfg = self.config
+        dt = self.dt
+        uk_prev, pk_prev, pk_prevprev = state           # uk (3, NN)
+
+        # ---- step1 LHS: A = M/dt + K + A(u^k), BC rows zeroed (:3916-3929)
+        conv_vals = spmv.convection_assemble_csr(
+            uk_prev, d["ltog"], d["Sv"], d["gDSv"], d["gq"], d["rev_m"],
+            stab_coef=cfg.conv_stab,
+        )
+        a_csr = (d["mk_vals_csr"] + conv_vals) * d["row_mask"] + d["diag_add"]
+        ell_shape = d["A_cols"].shape
+        a_ell = a_csr.new_zeros(ell_shape[0] * ell_shape[1])
+        a_ell[d["csr_to_ell"]] = a_csr          # distinct slots: no accumulation
+        a_ell = a_ell.reshape(ell_shape)
+
+        # ---- step1 RHS: (M/dt) u^k - G (2 p^k - p^{k-1})  (:3937-4005)
+        pdiff2 = 2.0 * pk_prev - pk_prevprev
+        r1 = spmv.ell_spmv(d["m_vals"], d["A_cols"], uk_prev)
+        r1 = r1 - grad_apply(d["G_vals"], d["G_cols"], pdiff2)
+        r1 = r1 * d["bc_mask"][None, :] + d["bc_vel"]        # RHS = BC value
+
+        # ---- momentum solve, 3 directions batched (:3972-4033); Jacobi
+        a_diag = a_csr[d["diag_slots"]]
+        warm = bool(cfg.implicit_warm_start)
+        mom = self._momentum_solver(
+            lambda x: spmv.ell_spmv(a_ell, d["A_cols"], x),
+            r1,
+            x0=uk_prev if warm else None,
+            tol=cfg.momentum_tol,
+            atol=cfg.momentum_abs_tol,
+            maxiter=cfg.momentum_maxiter,
+            # warm-started solves take at least one Krylov step (see the
+            # parity step)
+            miniter=1 if warm else 0,
+            dot_dtype=cfg.krylov_dot_dtype(),
+            precond=lambda r: r / a_diag,
+        )
+        uk = mom.x
+
+        # ---- step2: R2 = -(1/dt) G^T u^k  (:4096-4127)
+        r2 = (-1.0 / dt) * div_apply(d["GT_vals"], d["GT_cols"], uk) * d["p_mask"]
+        if self.ppe_project:
+            r2 = r2 - torch.mean(r2)
+        if self.pin >= 0:
+            r2[self.pin] = 0.0
+        # CG on the (negative-definite) direct Z, Jacobi-scaled
+        sol = cg(
+            lambda p: spmv.ell_spmv(d["Z_vals"], d["Z_cols"], p),
+            r2,
+            x0=(pk_prev - pk_prevprev) if warm else None,
+            tol=cfg.pressure_cg_tol,
+            maxiter=cfg.pressure_cg_maxiter,
+            dot_dtype=cfg.krylov_dot_dtype(),
+            precond=lambda r: r / d["Z_diag"],
+        )
+        pdiff = sol.x
+        if self.ppe_project:
+            pdiff = pdiff - torch.mean(pdiff)
+        pk = pk_prev + pdiff                                 # (:4162-4165)
+
+        max_acc = torch.max(torch.abs(uk - uk_prev)) / dt
+        mon = self.monitor_node
+        stats = StepStats(
+            u_mon=uk[0, mon], v_mon=uk[1, mon], w_mon=uk[2, mon],
+            p_mon=pk[self.monitor_node_p], max_acc=max_acc,
+            iters=1, cg_iters=sol.iters, mom_iters=mom.iters,
+        )
+        return ImplicitState(uk=uk, pk=pk, pk_prev=pk_prev), stats
+
     def _monitor_only(self, state: ImplicitState) -> StepStats:
-        probe = lambda c: state.uk[c, self.mon_cls, self.mon_q]
+        if self.layout == "parity":
+            probe = lambda c: state.uk[c, self.mon_cls, self.mon_q]
+        else:
+            probe = lambda c: state.uk[c, self.monitor_node]
         zero = torch.zeros((), dtype=state.uk.dtype, device=self.device)
         return StepStats(probe(0), probe(1), probe(2),
                          state.pk[self.monitor_node_p], zero, 0, 0, 0)
@@ -489,6 +648,8 @@ class ImplicitGQSolver(ChunkedTimeLoop):
     # ------------------------------------------------------------------- io
     def fields(self, state: ImplicitState) -> tuple[np.ndarray, np.ndarray]:
         """(u (NN,3), p (NNp,)) as numpy, deck node order."""
+        if self.layout == "ell":
+            return state.uk.cpu().numpy().T, state.pk.cpu().numpy()
         u = pstl.parity_merge(state.uk, self.fine_dims).cpu().numpy()
         p = state.pk.cpu().numpy()
         return u[:, self.perm].T, p[self.perm_p]

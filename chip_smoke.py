@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py                  # the NE27000 cavity, 100 steps
-    python3 chip_smoke.py --deck-n 4 --steps 6   # a quick small run
+    python3 chip_smoke.py                  # NE27000 cavity + NE144600-class BFS
+    python3 chip_smoke.py --deck-n 4 --steps 8 --implicit-steps 8 \
+        --bfs-dims 12x4x4 --bfs-steps 8 --bfs-implicit-steps 8   # a quick small run
 
 Drives the port's two main paths on the generated NE27000 lid-driven cavity
 (``cavity_deck(30, cluster=2.0)``, 61^3 velocity and 31^3 pressure nodes):
@@ -34,7 +35,19 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    the plain path, then 10 steps under MIXED and 10 with ``pressure_cg_sym``
    against their plain paths, and on the NE27000 deck 20 steps at dt = 0.01
    from the stored developed state
-   (``cfd_with_cuda_tpu/validation/data/cavity_re100_implicit_state.npz``).
+   (``cfd_with_cuda_tpu/validation/data/cavity_re100_implicit_state.npz``);
+6. the unstructured path of both solvers on the backward-facing step
+   ``bfs_deck(96, 40, 40)`` (138,400 hexes, 1,143,153 velocity and 147,477
+   pressure nodes; natural outflow): ``bfs_setup`` (the explicit solver's
+   host setup and its 275-slot banded pressure window), ``banded_cg``
+   (``cg_init`` + ``cg_iter`` and ``cg_solve`` on that window against the
+   plain version: converged solves and a fixed 0, 1 and 40 iterations, both
+   dot modes; device times, byte bound, a CSR ``torch.mv`` of the same Z),
+   ``e2e_bfs`` (the explicit solver from rest, launch counts, the flow
+   reaching the outflow plane, 3 steps against the plain path) and
+   ``e2e_bfs_implicit`` (the implicit ELL step at dt 0.01: torch ops only,
+   no launch; the outflow pressure rows stay 0; 3 steps against the plain
+   path).
 
 Each phase prints one JSON line.  Any failure raises (non-zero exit, no
 result line).  The last lines are the ``kernels`` summary, the card's name
@@ -77,6 +90,16 @@ IMPLICIT_TOLS = dict(u=5e-5, p=5e-5, cg_iters=4, mom_iters=1)
 MIXED_CG_ITERS_TOL = 16
 UNROLL = 4         # SolverConfig.pressure_cg_unroll
 SEEDED_U_MON = -0.2051389   # cavity_re100_implicit.npz: u_mon of the stored state at t = 250
+# the backward-facing step of the JAX package's bench matrix at the NE144600 class's full
+# size (scripts/bench_matrix.py:166-177 ran 48x20x20): 138,400 hexes after the step block
+BFS_DIMS = (96, 40, 40)
+BFS_KW = dict(lengths=(15.0, 2.0, 2.0), step_frac=(0.2, 0.5), viscosity=0.01)
+# kernel path against plain path on the BFS, 3 steps: u and p of max|u|, max|p| (the
+# implicit bound, as these CGs stop at 1e-6 of |b| through ~100 iterations), CG counts
+# within one group of 4
+BFS_TOLS = dict(u=5e-5, p=5e-5, cg_iters=4, mom_iters=1)
+BFS_FIXED_DEPTHS = (0, 1, 40)
+BFS_OUTFLOW_STEPS = 1000
 
 
 def emit(obj) -> None:
@@ -464,10 +487,13 @@ def _z_csr(win, offs, n):
     return _csr(q[None].expand_as(cols)[ok], cols[ok], win[ok], (n, n))
 
 
-def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol, maxiter) -> dict:
+def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol, maxiter,
+                   strict=True) -> dict:
     """``cg_init`` + ``cg_iter``, the compensated dot and the half window on
     one pressure system (``win`` the full (W^3, n) window), cold and warm,
-    each against its plain version; per-launch times and bounds."""
+    each against its plain version; per-launch times and bounds.
+    ``strict=False`` (a small deck, whose CG reaches rounding level within the
+    fixed 40 iterations) holds x, not |r|, at that depth."""
     import numpy as np
     import torch
 
@@ -532,7 +558,8 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
             x_rel = float((sol.x - ref.x).abs().max()) / float(ref.x.abs().max())
             r_rel = abs(float(sol.residual) - float(ref.residual)) / float(ref.residual)
             what = f"{tag} {name}: {k} iterations against the plain version"
-            if int(sol.iters) != k or not x_rel <= CG_FIXED_X_TOL or not r_rel <= CG_FIXED_R_TOL[k]:
+            r_ok = r_rel <= CG_FIXED_R_TOL[k] or (not strict and k == n_it)
+            if int(sol.iters) != k or not x_rel <= CG_FIXED_X_TOL or not r_ok:
                 raise AssertionError(f"{what}: k {int(sol.iters)}, x {x_rel:.3e}, |r| {r_rel:.3e}")
             errs[k] = dict(x_abs=float((sol.x - ref.x).abs().max()), x_rel=x_rel, r_rel=r_rel)
         init_wall_ms = time_ms(lambda: run(cg.fused_cg, 0), 20)
@@ -764,6 +791,292 @@ def phase_seeded(deck, cfg, ImplicitGQSolver, n_steps: int = 20) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 6
+
+def _bfs_deck(bfs_deck, dims, dt):
+    return bfs_deck(*dims, dt=dt, **BFS_KW)
+
+
+def phase_bfs_setup(dims, bfs_deck, ExplicitBCHSolver, cfg):
+    """The explicit solver's host setup on the backward-facing step: the
+    unstructured path with the banded pressure window."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    deck = _bfs_deck(bfs_deck, dims, 0.002)
+    solver = ExplicitBCHSolver(deck, cfg)
+    setup_s = time.time() - t0
+    offs = solver.z_offs
+    if solver.layout != "ell" or offs is None:
+        raise AssertionError(f"bfs: layout {solver.layout}, banded {offs is not None}")
+    win = solver.d["Z_bwin"]
+    out = dict(phase="bfs_setup", deck=f"bfs_deck{dims} {BFS_KW}", ne=int(deck.ne),
+               nn=solver.nn, nnp=solver.nnp, offsets=len(offs),
+               max_halo=max(abs(o) for o in offs),
+               window_mb=win.numel() * win.element_size() / 1e6,
+               ell_z_width=int(solver.d["Z_cols"].shape[0]), setup_s=setup_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    emit(out)
+    return solver, out
+
+
+def phase_banded_cg(solver, cg, cuda_lib) -> dict:
+    """``cg_init`` + ``cg_iter`` and ``cg_solve`` on the banded window of the
+    BFS pressure operator, each against ``fused_cg_plain``: a converged cold
+    solve in both dot modes, and a FIXED 0, 1 and 40 iterations from a warm
+    start (tol 0) in both loop forms and dot modes; per-launch device times,
+    the byte bound and a CSR ``torch.mv`` of the same Z."""
+    import numpy as np
+    import torch
+
+    d, cfg = solver.d, solver.config
+    win, dinv, offs, n = d["Z_bwin"], d["Z_dinv"], solver.z_offs, solver.nnp
+    nw = len(offs)
+    rng = np.random.default_rng(20261016)
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(solver.device)
+    if solver.pin >= 0:
+        b[solver.pin] = 0.0
+    base = dict(dims=(n, 1, 1), offs=offs)
+    results = {}
+
+    # converged cold solves, the default loop (counts within one group)
+    cold = None
+    for dot_mode in ("plain", "compensated"):
+        kw = dict(base, tol=cfg.pressure_cg_tol, maxiter=cfg.pressure_cg_maxiter,
+                  unroll=UNROLL, dot_mode=dot_mode)
+        cg.fused_cg(win, b, dinv, **kw)
+        sol, ms = _timed_once(lambda: cg.fused_cg(win, b, dinv, **kw))
+        ref, plain_ms = _timed_once(lambda: cg.fused_cg_plain(win, b, dinv, **kw))
+        k, k_ref = int(sol.iters), int(ref.iters)
+        rel = float((sol.x - ref.x).abs().max()) / float(ref.x.abs().max())
+        rec = dict(iters=k, iters_plain=k_ref, err_rel=rel, tol=CG_X_TOL, solve_ms=ms,
+                   ms_per_iter=ms / max(k, 1), plain_solve_ms=plain_ms)
+        if abs(k - k_ref) > UNROLL or not rel <= CG_X_TOL or not k > 0 or k % UNROLL:
+            raise AssertionError(f"banded cold solve {dot_mode}: {rec}")
+        if not float(sol.residual) <= cfg.pressure_cg_tol * float(torch.linalg.vector_norm(b)) * 1.0001:
+            raise AssertionError(f"banded cold solve {dot_mode}: stopped unconverged: {rec}")
+        results[f"cold_solve_{dot_mode}"] = rec
+        if cold is None:
+            cold = sol.x
+    noise = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(solver.device)
+    x0 = (cold * (1 + 0.1 * noise)).contiguous()
+
+    # a fixed depth, where convergence forgives nothing
+    forms = {"cg_iter": dict(fuse_loop=False), "cg_solve": dict(fuse_loop=True)}
+    for form, fkw in forms.items():
+        for dot_mode in ("plain", "compensated"):
+            kw = dict(base, tol=0.0, x0=x0, dot_mode=dot_mode, **fkw)
+            run = lambda solve, k: solve(win, b, dinv, maxiter=k, unroll=max(k, 1), **kw)
+            errs = {}
+            for k in BFS_FIXED_DEPTHS:
+                sol, ref = run(cg.fused_cg, k), run(cg.fused_cg_plain, k)
+                x_abs = float((sol.x - ref.x).abs().max())
+                x_rel = x_abs / float(ref.x.abs().max())
+                if int(sol.iters) != k or not x_rel <= CG_FIXED_X_TOL:
+                    raise AssertionError(f"banded {form} {dot_mode}: {k} iterations: "
+                                         f"k {int(sol.iters)}, x {x_rel:.3e}")
+                errs[k] = dict(x_abs=x_abs, x_rel=x_rel)
+            n_it = BFS_FIXED_DEPTHS[-1]
+            t0_ms = time_ms(lambda: run(cg.fused_cg, 0), 5)
+            tn_ms = time_ms(lambda: run(cg.fused_cg, n_it), 3)
+            _, p0 = _timed_once(lambda: run(cg.fused_cg_plain, 0))
+            _, pn = _timed_once(lambda: run(cg.fused_cg_plain, n_it))
+            rec = dict(fixed_depth_errs=errs, x_tol=CG_FIXED_X_TOL,
+                       ms_per_iter=(tn_ms - t0_ms) / n_it, plain_ms_per_iter=(pn - p0) / n_it,
+                       start_ms=t0_ms, plain_start_ms=p0)
+            if form == "cg_iter":
+                init, step = _raw_cg_launches(cg, cuda_lib, win, b, dinv, x0, offs, dot_mode)
+                rec.update(init_ms=time_ms(init, 20), iter_ms=time_ms(step, n_it))
+            results[f"{form}_{dot_mode}"] = rec
+
+    ib, ib_by = bound(4 * (nw + 6) * n, (2 * nw + 8) * n)
+    tb, tb_by = bound(4 * (nw + 7) * n, (2 * nw + 12) * n)
+    a_z = _z_csr(win, offs, n)
+    lib_ms = time_ms(lambda: torch.mv(a_z, x0), 20)
+    lib_err = float((torch.mv(a_z, x0) - cg.window_apply_plain(win, x0, offs)).abs().max())
+    del a_z
+    out = dict(phase="banded_cg", n=n, offsets=nw, max_halo=max(abs(o) for o in offs),
+               window_mb=4 * nw * n / 1e6, init_bound_ms=ib, init_bound_by=ib_by,
+               iter_bound_ms=tb, iter_bound_by=tb_by, library_csr_mv_ms=lib_ms,
+               library_abs_err=lib_err, checks=results)
+    emit(out)
+    return out
+
+
+def _raw_cg_launches(cg, cuda_lib, win, b, dinv, x0, offs, dot_mode):
+    """(init, step): one ``cg_init`` launch and one ``cg_iter`` launch each,
+    with the wrapper's arguments and no host read, for CUDA-event timing of
+    the kernels alone (the wrapper reads |r0| and |b| after ``cg_init``).
+    ``step`` advances one CG in place; tol 0 keeps it finite."""
+    import torch
+
+    comp = int(dot_mode == "compensated")
+    n, dev, fn, ptr = b.shape[0], b.device, cuda_lib.function, cuda_lib.ptr
+    offs_t = cg._offs_table(tuple(offs), dev)
+    x, work = torch.empty_like(b), torch.empty((3, n), dtype=b.dtype, device=dev)
+    part = torch.empty(3 * fn("cg_iter_max_blocks")(),
+                       dtype=torch.float64 if comp else torch.float32, device=dev)
+    scal = torch.empty(3, dtype=b.dtype, device=dev)
+    stream = cuda_lib.stream_ptr(dev)
+    init_args = (ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
+                 ptr(work[0]), ptr(work[1]), ptr(part), ptr(scal), n, comp, 0, stream)
+    iter_args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work[0]),
+                 ptr(work[1]), ptr(work[2]), ptr(part), ptr(scal), n, comp, 0, stream)
+    init = lambda: cuda_lib.check(fn("cg_init_f32")(*init_args), "cg_init")
+    step = lambda: cuda_lib.check(fn("cg_iter_f32")(*iter_args), "cg_iter")
+    init()
+    return init, step
+
+
+def _rel_diff(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+
+
+def _bfs_vs_plain(what, solver, cls, cuda_lib, state, n_steps, strict) -> dict:
+    """``n_steps`` of ``solver`` and of its plain-version twin (``from_tables``
+    on the same tables) from ``state``; the kernel run's launch counts."""
+    import numpy as np
+
+    plain = cls.from_tables(solver.deck, solver.config, solver.d, solver.static_attrs(),
+                            device=solver.device, plain=True)
+    cuda_lib.reset_launch_counts()
+    st_k, h_k = solver.run(state, n_steps=n_steps)
+    counts = dict(cuda_lib.launch_counts)
+    st_p, h_p = plain.run(state, n_steps=n_steps)
+    if dict(cuda_lib.launch_counts) != counts:
+        raise AssertionError(f"{what}: the plain path launched a kernel")
+    u_k, p_k = solver.fields(st_k)
+    u_p, p_p = plain.fields(st_p)
+    col = lambda h, f: [int(r[f]) for r in h]
+    cmp = dict(phase=what, steps=n_steps, du_rel=_rel_diff(u_k, u_p), dp_rel=_rel_diff(p_k, p_p),
+               tols=BFS_TOLS, sub_iters=[col(h_k, "iters"), col(h_p, "iters")],
+               cg_iters=[col(h_k, "cg_iters"), col(h_p, "cg_iters")],
+               mom_iters=[col(h_k, "mom_iters"), col(h_p, "mom_iters")], launches=counts)
+    emit(cmp)
+    within = lambda f, tol: all(abs(a - b) <= tol for a, b in zip(*cmp[f]))
+    if not (np.isfinite(u_k).all() and np.isfinite(p_k).all()):
+        raise AssertionError(f"{what}: non-finite fields")
+    if strict and not (cmp["du_rel"] <= BFS_TOLS["u"] and cmp["dp_rel"] <= BFS_TOLS["p"]
+                       and cmp["sub_iters"][0] == cmp["sub_iters"][1]
+                       and within("cg_iters", BFS_TOLS["cg_iters"])
+                       and within("mom_iters", BFS_TOLS["mom_iters"])):
+        raise AssertionError(f"{what}: kernel path and plain path disagree: {cmp}")
+    return cmp
+
+
+def _timed_run(solver, n_steps):
+    """(state, history, warm-up s, ms/step of the timed steps) from rest."""
+    import torch
+
+    state = solver.initial_state()
+    warm = min(WARMUP_STEPS, n_steps - 1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, hist_w = solver.run(state, n_steps=warm)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    state, hist_t = solver.run(state, n_steps=n_steps - warm)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    hist = hist_w + hist_t
+    if len(hist) != n_steps:
+        raise AssertionError(f"ran {len(hist)} of {n_steps} steps")
+    return state, hist, hist_t, t1 - t0, (t2 - t1) / (n_steps - warm) * 1e3
+
+
+def phase_e2e_bfs(solver, ExplicitBCHSolver, cuda_lib, n_steps, strict) -> dict:
+    """The explicit solver from rest on the BFS: the banded pressure window
+    on ``cg_init`` + ``cg_iter``, every other op plain torch."""
+    import numpy as np
+    import torch
+
+    cuda_lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, hist, timed, warm_s, ms = _timed_run(solver, n_steps)
+    counts = dict(cuda_lib.launch_counts)
+    subs = [int(h["iters"]) for h in hist]
+    last_cg = sum(int(h["cg_iters"]) for h in hist)
+    # one cg_init per solve (one solve a sub-iteration); the history holds each
+    # step's last solve only, so cg_iter is bounded below by those
+    on_path = {"cg_init": sum(subs)}
+    off_path = {k: v for k, v in counts.items() if k not in ("cg_init", "cg_iter")}
+    if (counts["cg_init"] != on_path["cg_init"] or counts["cg_iter"] < last_cg
+            or counts["cg_iter"] % UNROLL or not counts["cg_iter"] > 0 or any(off_path.values())):
+        raise AssertionError(f"bfs: launch counts {counts}, cg_init expected {on_path}")
+    u, p = solver.fields(state)
+    finite = bool(np.isfinite(u).all() and np.isfinite(p).all())
+    out = dict(
+        phase="e2e_bfs", steps=n_steps, warmup_steps=len(hist) - len(timed), ms_per_step=ms,
+        warmup_s=warm_s, sub_iters_hist={str(s): subs.count(s) for s in sorted(set(subs))},
+        cg_iters_per_solve=counts["cg_iter"] / counts["cg_init"],
+        cg_iters_last_solve_first_last=[int(hist[0]["cg_iters"]), int(hist[-1]["cg_iters"])],
+        u_mon=hist[-1]["u_mon"], finite=finite, launches=counts,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    # the flow reaches the outflow plane (tests/test_bfs.py:67-70): at dt 0.002
+    # it shows there (|u_x| > 1e-3) 150-200 steps from rest, so the run goes
+    # on, untimed, until it has or BFS_OUTFLOW_STEPS steps have run
+    x = solver.mesh.coords[:, 0]
+    outflow = np.isclose(x, x.max())
+    steps, out_st = n_steps, state
+    out_u = float(np.abs(u[outflow, 0]).max())
+    while strict and out_u <= 1e-3 and steps < BFS_OUTFLOW_STEPS:
+        out_st, _ = solver.run(out_st, n_steps=50)
+        steps += 50
+        out_u = float(np.abs(solver.fields(out_st)[0][outflow, 0]).max())
+    out.update(outflow_max_abs_ux=out_u, outflow_bound=1e-3, outflow_after_steps=steps)
+    emit(out)
+    if not finite or (strict and not out_u > 1e-3):
+        raise AssertionError(f"bfs e2e: {out}")
+    out["vs_plain"] = _bfs_vs_plain("bfs_kernel_vs_plain_3_steps", solver, ExplicitBCHSolver,
+                                    cuda_lib, state, 3, strict)
+    return out
+
+
+def phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, cfg, n_steps,
+                           strict) -> dict:
+    """The implicit ELL step on the BFS at dt 0.01: torch ops only, as the
+    JAX package's step is XLA ops only (no launch of this port's kernels).
+    Its 3 steps against ``plain=True`` therefore compare the step with
+    itself: they hold it to the bounds only once a kernel enters this path,
+    and until then guard that the plain flag changes nothing on it."""
+    import numpy as np
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    solver = ImplicitGQSolver(_bfs_deck(bfs_deck, dims, 0.01), cfg)
+    setup_s = time.time() - t0
+    if solver.layout != "ell":
+        raise AssertionError(f"bfs implicit: layout {solver.layout}")
+    cuda_lib.reset_launch_counts()
+    state, hist, timed, warm_s, ms = _timed_run(solver, n_steps)
+    counts = dict(cuda_lib.launch_counts)
+    u, p = solver.fields(state)
+    outflow = solver.d["p_mask"] == 0
+    p_out = float(state.pk[outflow].abs().max())
+    finite = bool(np.isfinite(u).all() and np.isfinite(p).all())
+    out = dict(
+        phase="e2e_bfs_implicit", steps=n_steps, warmup_steps=len(hist) - len(timed),
+        setup_s=setup_s, ms_per_step=ms, warmup_s=warm_s,
+        cg_iters_mean=sum(h["cg_iters"] for h in timed) / len(timed),
+        mom_iters_mean=sum(h["mom_iters"] for h in timed) / len(timed),
+        cg_iters_first_last=[int(hist[0]["cg_iters"]), int(hist[-1]["cg_iters"])],
+        mom_iters_first_last=[int(hist[0]["mom_iters"]), int(hist[-1]["mom_iters"])],
+        u_mon=hist[-1]["u_mon"], outflow_rows=int(outflow.sum()), outflow_max_abs_p=p_out,
+        finite=finite, launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    emit(out)
+    if not finite or any(counts.values()) or p_out != 0.0 or not outflow.any():
+        raise AssertionError(f"bfs implicit e2e: {out}")
+    out["vs_plain"] = _bfs_vs_plain("bfs_implicit_vs_plain_3_steps", solver, ImplicitGQSolver,
+                                    cuda_lib, state, 3, strict)
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -772,6 +1085,14 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=100, help="explicit e2e steps (warm-up included)")
     ap.add_argument("--implicit-steps", type=int, default=50,
                     help="implicit e2e steps from rest (warm-up included)")
+    ap.add_argument("--bfs-dims", default="x".join(map(str, BFS_DIMS)),
+                    help="backward-facing step elements NXxNYxNZ before the step block is "
+                         "removed (96x40x40: 138,400 hexes; a smaller one asserts launch "
+                         "counts and finite fields only)")
+    ap.add_argument("--bfs-steps", type=int, default=50,
+                    help="explicit BFS steps from rest (warm-up included)")
+    ap.add_argument("--bfs-implicit-steps", type=int, default=20,
+                    help="implicit BFS steps from rest (warm-up included)")
     args = ap.parse_args()
 
     import torch
@@ -780,13 +1101,68 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from cfd_with_cuda_tpu_torch.mesh.generators import cavity_deck
+    from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
     from cfd_with_cuda_tpu_torch.ops import cuda_lib, fused_cg, parity_stencil, window_stencil
     from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
     from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
     from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 
+    t_start = time.time()
     phase_toolchain(cuda_lib)
+    rows = cavity_phases(
+        args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
+        ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
+
+    # ---- the unstructured path of both solvers on the backward-facing step
+    dims = tuple(int(v) for v in args.bfs_dims.split("x"))
+    strict = dims == BFS_DIMS
+    bcfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6, steps_per_chunk=25)
+    bsolver, _ = phase_bfs_setup(dims, bfs_deck, ExplicitBCHSolver, bcfg)
+    banded = phase_banded_cg(bsolver, fused_cg, cuda_lib)
+    be2e = phase_e2e_bfs(bsolver, ExplicitBCHSolver, cuda_lib, args.bfs_steps, strict)
+    del bsolver
+    torch.cuda.empty_cache()
+    icfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                        pressure_warm_start=True, steps_per_chunk=25)
+    phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, icfg,
+                           args.bfs_implicit_steps, strict)
+
+    # row 9: the CG kernels on the banded window (launches: the explicit BFS run)
+    pcg = "cfd_with_cuda_tpu/ops/pallas_cg.py"
+    it, lib = banded["checks"]["cg_iter_plain"], banded["library_csr_mv_ms"]
+    errs = it["fixed_depth_errs"]
+    rows += [
+        ("cg_init_banded", "cg_iter.cu", pcg + ":478", be2e["launches"]["cg_init"],
+         dict(max_abs_err=max(errs[0]["x_abs"], errs[1]["x_abs"]), ms=it["init_ms"],
+              plain_ms=it["plain_start_ms"], bound_ms=banded["init_bound_ms"],
+              bound_by=banded["init_bound_by"], library_ms=None)),
+        ("cg_iter_banded", "cg_iter.cu", pcg + ":478", be2e["launches"]["cg_iter"],
+         dict(max_abs_err=errs[BFS_FIXED_DEPTHS[-1]]["x_abs"], ms=it["iter_ms"],
+              plain_ms=it["plain_ms_per_iter"], bound_ms=banded["iter_bound_ms"],
+              bound_by=banded["iter_bound_by"], library_ms=lib)),
+    ]
+    csrc = "cfd_with_cuda_tpu_torch/csrc/"
+    kernels = []
+    for name, src, replaces, launches, c in rows:
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + src, replaces=replaces,
+            launches=launches, max_abs_err=c["max_abs_err"], ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["library_ms"],
+        ))
+    emit(dict(phase="total", seconds=time.time() - t_start))
+    emit({"kernels": kernels})
+    print(smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def cavity_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
+                  ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig) -> list:
+    """Phases 2-5 on the cavity; the rows of the ``kernels`` line they measure."""
+    import torch
+
     full = args.deck_n == 30
 
     # ---- the explicit path
@@ -804,7 +1180,7 @@ def main() -> int:
     # the explicit solver's other CG modes on its 125-slot product Z
     phase_cg_modes("explicit_z", fused_cg, window_stencil, solver.d["Z_win"], solver.d["Z_dinv"],
                    b_x, x0_x, solver.coarse_dims, solver.z_radius, cfg.pressure_cg_tol,
-                   cfg.pressure_cg_maxiter)
+                   cfg.pressure_cg_maxiter, strict=full)
     del solver, b_x, x0_x
     torch.cuda.empty_cache()
 
@@ -830,7 +1206,8 @@ def main() -> int:
     x0_i = (cold.x * (1 + 1e-3 * torch.randn(isolver.nnp, generator=rng).to(isolver.device)))
     modes = phase_cg_modes("implicit_z", fused_cg, window_stencil, isolver.d["Z_win"],
                            isolver.d["Z_dinv"], b_i, x0_i.contiguous(), isolver.coarse_dims,
-                           isolver.z_radius, icfg.pressure_cg_tol, icfg.pressure_cg_maxiter)
+                           isolver.z_radius, icfg.pressure_cg_tol, icfg.pressure_cg_maxiter,
+                           strict=full)
     del u, b_i, x0_i, cold
     ie2e = phase_e2e_implicit(isolver, ImplicitGQSolver, cuda_lib, fused_cg,
                               args.implicit_steps, DTypePolicy, strict=full)
@@ -839,7 +1216,6 @@ def main() -> int:
     if full:
         phase_seeded(deck, icfg, ImplicitGQSolver)
 
-    csrc = "cfd_with_cuda_tpu_torch/csrc/"
     pcg = "cfd_with_cuda_tpu/ops/pallas_cg.py"
     rows = [
         ("parity_apply_k", "parity_apply.cu", "cfd_with_cuda_tpu/ops/parity_stencil.py:432",
@@ -868,19 +1244,7 @@ def main() -> int:
         ("sym_apply", "cg_iter.cu", pcg + ":262", ie2e["sym"]["launches"]["sym_apply"],
          modes["sym_apply"]),
     ]
-    kernels = []
-    for name, src, replaces, launches, c in rows:
-        kernels.append(dict(
-            name=name, route="cuda", source=csrc + src, replaces=replaces,
-            launches=launches, max_abs_err=c["max_abs_err"], ms=c["ms"],
-            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-            library_ms=c["library_ms"],
-        ))
-    emit({"kernels": kernels})
-    print(smi_line(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

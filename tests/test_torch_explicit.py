@@ -158,21 +158,25 @@ def test_steps_match_jax_other_cg_modes(mode):
     np.testing.assert_allclose(p_t, p_j, rtol=0, atol=p_tol)
 
 
-@pytest.mark.parametrize("override", [
-    dict(dtype_policy=DTypePolicy.F64),
-    dict(pressure_precond="mg"),
-    dict(structured="never"),
-    dict(conv_mode="assemble"),
-    dict(structured_layout="interleaved"),
-    dict(conv_mode="matrix-free"),
-    dict(spmd_devices=2),
-    dict(setup_cache="auto"),
-    dict(pressure_backend="xla"),
+# structured="never" runs (the unstructured path: tests/test_torch_unstructured_*.py);
+# F64 and the XLA CG run there too and raise only on a box mesh like this one
+@pytest.mark.parametrize("override,msg", [
+    pytest.param(dict(dtype_policy=DTypePolicy.F64), "F64 on a box mesh", id="override0"),
+    pytest.param(dict(pressure_precond="mg"), "multigrid preconditioner on a box mesh",
+                 id="override1"),
+    pytest.param(dict(conv_mode="assemble"), "on a box mesh", id="override3"),
+    pytest.param(dict(structured_layout="interleaved"), "interleaved", id="override4"),
+    pytest.param(dict(conv_mode="matrix-free"), "on a box mesh", id="override5"),
+    pytest.param(dict(spmd_devices=2), "multi-device", id="override6"),
+    pytest.param(dict(setup_cache="auto"), "setup_cache", id="override7"),
+    pytest.param(dict(pressure_backend="xla"), "XLA pressure CG .* on a box mesh",
+                 id="override8"),
 ])
-def test_other_branches_raise_with_roadmap_item(override):
+def test_other_branches_raise_with_roadmap_item(override, msg):
     cfg = dict(dtype_policy=DTypePolicy.F32, **RUNG1) | override
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         ExplicitBCHSolver(_deck(), SolverConfig(**cfg), device="cpu")
+    assert err.match(msg)
 
 
 def test_steady_flag_carries_across_chunks():

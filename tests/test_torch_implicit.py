@@ -271,20 +271,29 @@ def test_runs_on_the_card_by_default_and_raises_without_one():
         ImplicitGQSolver(_deck(), SolverConfig(dtype_policy=DTypePolicy.F32, **BASE))
 
 
-@pytest.mark.parametrize("override,item", [
-    (dict(dtype_policy=DTypePolicy.F64), "queue 1 item 6"),
-    (dict(pressure_backend="xla"), "queue 1 item 6"),
-    (dict(pressure_precond="mg"), "queue 1 item 6"),
-    (dict(structured_layout="interleaved"), "queue 1 item 7"),
-    (dict(structured="never"), "queue 1 item 7"),
-    (dict(momentum_solver="gmres"), "queue 1 item 6"),
-    (dict(spmd_devices=2), "queue 1 item 11"),
-    (dict(setup_cache="auto"), "queue 1 item 8"),
+# structured="never" runs (the ELL step: tests/test_torch_unstructured_implicit.py);
+# F64 and the XLA CG run there too and raise only on a box mesh like this one
+@pytest.mark.parametrize("override,item,msg", [
+    pytest.param(dict(dtype_policy=DTypePolicy.F64), "queue 1 item 6", "F64 on a box mesh",
+                 id="override0-queue 1 item 6"),
+    pytest.param(dict(pressure_backend="xla"), "queue 1 item 6", "on a box mesh",
+                 id="override1-queue 1 item 6"),
+    pytest.param(dict(pressure_precond="mg"), "queue 1 item 6", "on a box mesh",
+                 id="override2-queue 1 item 6"),
+    pytest.param(dict(structured_layout="interleaved"), "queue 1 item 7", "interleaved",
+                 id="override3-queue 1 item 7"),
+    pytest.param(dict(momentum_solver="gmres"), "queue 1 item 6", "gmres",
+                 id="override5-queue 1 item 6"),
+    pytest.param(dict(spmd_devices=2), "queue 1 item 11", "multi-device",
+                 id="override6-queue 1 item 11"),
+    pytest.param(dict(setup_cache="auto"), "queue 1 item 8", "setup_cache",
+                 id="override7-queue 1 item 8"),
 ])
-def test_other_branches_raise_with_roadmap_item(override, item):
+def test_other_branches_raise_with_roadmap_item(override, item, msg):
     cfg = dict(dtype_policy=DTypePolicy.F32, **BASE) | override
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}") as err:
         ImplicitGQSolver(_deck(), SolverConfig(**cfg), device="cpu")
+    assert err.match(msg)
 
 
 def test_steady_flag_stops_the_run():

@@ -1,4 +1,4 @@
-"""PyTorch port: ``ops/krylov.py`` (BiCGStab on batched systems, the MIXED
+"""PyTorch port: ``ops/krylov.py`` (BiCGStab and CG on batched systems, the MIXED
 policy's f64 reductions, the breakdown guard) against the JAX package's
 ``ops/krylov.py`` on the same seeded systems.
 
@@ -117,7 +117,66 @@ def test_make_dot_and_safe_div():
     )
 
 
-@pytest.mark.parametrize("name", ["cg", "cr", "bicg", "gmres"])
+def _spd_system(dtype):
+    rng = np.random.default_rng(20261016)
+    m = rng.standard_normal((N, N)) * 0.3
+    a = m @ m.T + np.diag(rng.uniform(4.0, 8.0, N))
+    b = rng.standard_normal((3, N))
+    b[1] = 0.0                                   # an all-zero column
+    x0 = rng.standard_normal((3, N)) * 0.1
+    return a.astype(dtype), b.astype(dtype), x0.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype,x_tol,dot_dtype", [
+    (np.float32, 1e-5, None), (np.float32, 1e-5, "f64"), (np.float64, 1e-12, None),
+], ids=["f32", "f32_f64_dot", "f64"])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_cg_matches_jax(dtype, x_tol, warm, dot_dtype):
+    """Jacobi CG (the pressure solve of the unstructured path) against the
+    JAX ``cg``: equal iteration counts (the ||r|| test every iteration),
+    one matvec for r0 (also cold) and one per iteration."""
+    a, b, x0 = _spd_system(dtype)
+    tol = 1e-6 if dtype == np.float32 else 1e-12
+    diag = np.diag(a).copy()
+    calls = []
+
+    def t_matvec(x):
+        calls.append(1)
+        return x @ torch.from_numpy(a).T
+
+    ref = jk.cg(lambda x: x @ jnp.asarray(a).T, jnp.asarray(b),
+                jnp.asarray(x0) if warm else None, tol=tol, maxiter=300,
+                precond=lambda r: r / jnp.asarray(diag),
+                dot_dtype=None if dot_dtype is None else jnp.float64)
+    out = tk.cg(t_matvec, torch.from_numpy(b), torch.from_numpy(x0) if warm else None,
+                tol=tol, maxiter=300, precond=lambda r: r / torch.from_numpy(diag),
+                dot_dtype=None if dot_dtype is None else torch.float64)
+    k = int(out.iters)
+    assert k == int(ref.iters) > 0 and len(calls) == 1 + k
+    assert out.x.dtype == torch.from_numpy(b).dtype
+    np.testing.assert_allclose(out.x.numpy(), np.asarray(ref.x), rtol=0, atol=x_tol)
+    if not warm:
+        assert np.all(out.x.numpy()[1] == 0.0)    # the zero column stays 0 (_safe_div)
+    res = np.linalg.norm(b - out.x.numpy() @ a.T, axis=1).max()
+    assert res <= 2 * tol * np.linalg.norm(b, axis=1).max()
+
+
+def test_cg_miniter_and_atol():
+    """``miniter`` forces steps past a converged start; ``atol`` stops a
+    solve whose relative bound it exceeds, as in the JAX ``cg``."""
+    a, b, _ = _spd_system(np.float64)
+    x = np.linalg.solve(a, b.T).T
+    at, aj = torch.from_numpy(a), jnp.asarray(a)
+    for kw in (dict(miniter=2), dict(atol=1e-3), dict(atol=1e-3, miniter=3)):
+        out = tk.cg(lambda v: v @ at.T, torch.from_numpy(b), torch.from_numpy(x * 0.9),
+                    tol=1e-12, **kw)
+        ref = jk.cg(lambda v: v @ aj.T, jnp.asarray(b), jnp.asarray(x * 0.9), tol=1e-12, **kw)
+        assert int(out.iters) == int(ref.iters) >= kw.get("miniter", 1), kw
+        np.testing.assert_allclose(out.x.numpy(), np.asarray(ref.x), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(float(out.residual), float(ref.residual), rtol=0, atol=1e-11)
+
+
+@pytest.mark.parametrize("name", ["cr", "bicg", "gmres"])
 def test_solver_by_name_names_the_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         tk.solver_by_name(name)
@@ -125,6 +184,7 @@ def test_solver_by_name_names_the_roadmap_item(name):
 
 def test_solver_by_name():
     assert tk.solver_by_name("BiCGStab") is tk.bicgstab
+    assert tk.solver_by_name("CG") is tk.cg
     fixed = tk.solver_by_name("bicgstab", maxiter=3)
     assert fixed.keywords == {"maxiter": 3}
     with pytest.raises(ValueError, match="unknown solver"):
