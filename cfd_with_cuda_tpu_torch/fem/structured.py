@@ -25,7 +25,7 @@ import scipy.sparse as sp
 __all__ = [
     "GridIndex", "DiaOperator", "PromotedBoxInfo",
     "detect_structured_grid", "detect_structured_elements",
-    "detect_promoted_box", "dia_from_csr",
+    "detect_promoted_box", "dia_from_csr", "shard_pad_size",
 ]
 
 
@@ -243,6 +243,18 @@ class PromotedBoxInfo:
         out[..., self.perm_p] = v
         return out
 
+    def elem_grid_tables(self, tables):
+        """``(Sv (NGP, 27), gDSv (3, 27, NGP, NE), gq (NGP, NE))`` of the
+        element tables (``fem/jacobian.ElementTables``) in element-grid order
+        with the local-node axis in window-channel order: the layout of both
+        solvers' structured steps (element-structured boxes only)."""
+        gdsv = np.transpose(tables.gDSv, (3, 2, 1, 0))
+        g2 = np.empty_like(gdsv)
+        g2[..., self.elem_perm] = gdsv
+        q2 = np.empty_like(tables.gq_factor.T)
+        q2[..., self.elem_perm] = tables.gq_factor.T
+        return tables.Sv[:, self.chan_order], g2[:, self.chan_order], q2
+
 
 def _element_box_walk(ltog_node: np.ndarray) -> np.ndarray | None:
     """Assign each element an integer (i, j, k) grid position from face
@@ -422,3 +434,16 @@ def _promoted_box_geometric(
         elem_perm=elem_perm, elem_dims=elem_dims,
         chan_order=chan_order, local_off=local_off,
     )
+
+
+def shard_pad_size(size: int, config, kernel_layout: bool) -> int:
+    """Padded fine-axis length: a ``shard_pad`` multiple, lcm'd with the
+    window kernels' block size ``BLK`` x the device count on the kernel
+    path (the JAX package's padding, so both packages' tables compare
+    element-wise; padding rows carry zero operator values)."""
+    pad = max(1, int(config.shard_pad))
+    if kernel_layout:
+        from cfd_with_cuda_tpu_torch.ops.window_stencil import BLK
+
+        pad = int(np.lcm(pad, BLK * max(1, int(config.spmd_devices))))
+    return -(-size // pad) * pad

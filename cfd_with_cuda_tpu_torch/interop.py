@@ -19,6 +19,7 @@ from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitState
 __all__ = [
     "tables_from_jax", "state_from_jax",
     "implicit_tables_from_jax", "implicit_state_from_jax",
+    "interleaved_tables_from_jax", "implicit_interleaved_tables_from_jax",
     "ell_tables_from_jax", "implicit_ell_tables_from_jax", "rev_from_jax",
 ]
 
@@ -33,6 +34,16 @@ _SHARED = (
 _SHARED_IMPLICIT = (
     "MKp", "Mp", "Gp", "GT_cwin", "conv_sel", "bc_mask_p", "bc_mask_e",
     "bc_vel_p", "gDSv_p", "gq_p", "Sv", "p_mask",
+)
+
+
+# tables the interleaved steps read under the same name in both packages
+_SHARED_INTERLEAVED = (
+    "K_vals", "G_win", "GT_win", "GT_cwin", "md_inv", "md_orig_inv", "bc_mask", "bc_vel",
+)
+_SHARED_INTERLEAVED_IMPLICIT = (
+    "MK_vals", "M_vals", "row_mask_grid", "diag_add_grid", "G_win", "GT_win", "GT_cwin",
+    "bc_mask", "bc_vel", "Sv", "gDSv", "gq", "p_mask",
 )
 
 
@@ -73,6 +84,33 @@ def implicit_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, *,
     (``attrs`` and ``sym`` as :func:`tables_from_jax`, for
     ``ImplicitGQSolver.STATIC_ATTRS``)."""
     return _carry(d, _SHARED_IMPLICIT, attrs, sym)
+
+
+def interleaved_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, *,
+                                sym: bool = False) -> dict[str, torch.Tensor]:
+    """The port's table dict from a JAX explicit solver's interleaved ``d``
+    (``attrs``: ``ExplicitBCHSolver.INTERLEAVED_STATIC_ATTRS``, with
+    ``elem_structured`` and ``fine_dims``; ``sym`` as
+    :func:`tables_from_jax`).  On a box whose elements do not tile it the
+    element tables go element-major and the grid-order ``ltog`` gets its
+    reverse table, as the port's elemental convection takes them."""
+    out = _carry(d, _SHARED_INTERLEAVED, attrs, sym)
+    if attrs["elem_structured"]:
+        out |= _tensors({k: np.asarray(d[k]) for k in ("Sv", "gDSv", "gq")})
+    else:
+        tabs = _element_tables(d)
+        tabs["ltog"] = np.asarray(tabs["ltog"], dtype=np.int32)
+        tabs["rev"] = build_reverse_incidence(tabs["ltog"], int(np.prod(attrs["fine_dims"])))
+        out |= _tensors(tabs)
+    return out
+
+
+def implicit_interleaved_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, *,
+                                         sym: bool = False) -> dict[str, torch.Tensor]:
+    """The port's table dict from a JAX implicit solver's interleaved ``d``
+    (``attrs``: ``ImplicitGQSolver.INTERLEAVED_STATIC_ATTRS``; ``sym`` as
+    :func:`tables_from_jax`)."""
+    return _carry(d, _SHARED_INTERLEAVED_IMPLICIT, attrs, sym)
 
 
 def rev_from_jax(rev: np.ndarray, ne: int, s: int) -> np.ndarray:

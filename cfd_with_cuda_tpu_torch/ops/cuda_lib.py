@@ -31,13 +31,14 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("parity_apply", "div_compact", "cg_solve", "cg_iter")
+SOURCES = ("parity_apply", "div_compact", "cg_solve", "cg_iter", "window_stencil")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# launch-count names: one per kernel launch form on the main paths.
+# launch-count names: one per kernel launch form on the main paths
+# (the window SPMV once per operator the solvers apply with it).
 # "comp_dot" counts every launch whose reductions are the compensated dot
 # (comp_dot_f32 alone, or cg_init / cg_iter / cg_solve in that mode) and
 # "sym_apply" every launch that applies the symmetric half window
@@ -46,6 +47,8 @@ NVCC_FLAGS = (
 KERNELS = (
     "parity_apply_k", "parity_apply_g", "parity_apply_k_plus_a",
     "div_compact", "cg_solve", "cg_init", "cg_iter", "comp_dot", "sym_apply",
+    "window_spmv", "window_spmv_k", "window_spmv_k_plus_a", "window_spmv_mk_plus_a",
+    "window_spmv_m", "grad_window", "div_window", "div_compact_interleaved",
 )
 launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -55,6 +58,8 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "parity_apply_f32": ("parity_apply", [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P]),
     "div_compact_f32": ("div_compact", [_P, _I, _P, _P, _P, _I, _P]),
+    "div_compact_interleaved_f32": ("div_compact", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                                                    _I, _I, _P]),
     "cg_solve_f32": ("cg_solve", [_P, _P, _I] + [_P] * 10 + [_I, _I, _D, _I, _I, _P]),
     "cg_solve_max_blocks": ("cg_solve", []),
     "cg_init_f32": ("cg_iter", [_P, _P, _I] + [_P] * 8 + [_I, _I, _I, _P]),
@@ -62,6 +67,8 @@ _SIGNATURES = {
     "cg_iter_max_blocks": ("cg_iter", []),
     "comp_dot_f32": ("cg_iter", [_P, _P, _P, _P, _I, _P]),
     "window_apply_sym_f32": ("cg_iter", [_P, _P, _I, _P, _P, _I, _P]),
+    "window_stencil_f32": ("window_stencil", [_I, _P, _P, _I, _P, _I, _P, _I, _P]),
+    "window_stencil_f64": ("window_stencil", [_I, _P, _P, _I, _P, _I, _P, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

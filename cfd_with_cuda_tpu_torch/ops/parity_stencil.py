@@ -50,6 +50,7 @@ __all__ = [
     "elem_channel_shifts",
     "embed_elem_table",
     "parity_gather_elem_flat",
+    "parity_scatter_elem_flat",
     "build_conv_plane_route",
     "conv_planes_from_ae",
     "conv_plane_merge_matrix",
@@ -386,6 +387,17 @@ def parity_gather_elem_flat(u: torch.Tensor, coarse_dims) -> torch.Tensor:
         [_shift_left(u[:, p_idx], dqf) for (p_idx, dqf) in elem_channel_shifts(coarse_dims)],
         dim=1,
     )
+
+
+def parity_scatter_elem_flat(r_e: torch.Tensor, coarse_dims) -> torch.Tensor:
+    """(C, 8, Sp) elemental scatter-add of ``r_e (C, 27, Sp)`` on the
+    embedded element axis: per class one sum of right-shifted channels, in
+    channel order."""
+    acc = [None] * 8
+    for c, (p_idx, dqf) in enumerate(elem_channel_shifts(coarse_dims)):
+        v = _shift_right(r_e[:, c], dqf)
+        acc[p_idx] = v if acc[p_idx] is None else acc[p_idx] + v
+    return torch.stack(acc, dim=1)
 
 
 # ---------------------------------------------- convection weight planes

@@ -1,0 +1,126 @@
+"""Stride-2 elemental and embedding ops of the interleaved structured layout.
+
+Port of the torch-op half of ``cfd_with_cuda_tpu/ops/stencil.py`` that the
+interleaved layout's kernel path runs (the XLA DIA / patches applies,
+``dia_spmv`` and ``patches_*``, belong to the F64 / XLA structured path and
+are not ported; nor are ``fine_to_coarse``, ``place_elem_field`` and
+``convection_apply_stencil``, which that path does not run: the compact
+G^T gives coarse rows directly, the assembly adds into strided views, and
+the matrix-free convection is :func:`convection_apply_elem` on the
+per-step elemental matrices).  Fields are flat z-major fine-grid arrays
+``flat = (k*fy + j)*fx + i``; the coarse pressure grid sits at the even
+fine positions, and element (I, J, K) is the 3x3x3 fine-node window at
+origin (2I, 2J, 2K).  Every op here works on strided views of the
+``(fz, fy, fx)`` grid: no node-index gather and no scatter over nodes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = [
+    "coarse_to_fine", "gather_elem_stencil", "assemble_window_values",
+    "scatter_elem_stencil", "convection_elem_matrices", "convection_apply_elem",
+]
+
+
+def coarse_to_fine(p: torch.Tensor, coarse_dims, fine_dims) -> torch.Tensor:
+    """``p (NNp,)`` in coarse grid order -> ``(S,)`` fine field, zero off the
+    even positions."""
+    cx, cy, cz = coarse_dims
+    fx, fy, fz = fine_dims
+    pf = p.new_zeros((fz, fy, fx))
+    pf[::2, ::2, ::2] = p.reshape(cz, cy, cx)
+    return pf.reshape(-1)
+
+
+def gather_elem_stencil(u: torch.Tensor, elem_dims, fine_dims) -> torch.Tensor:
+    """``u (C, S)`` -> ``(C, 27, NE)``: each element's 3x3x3 window in
+    window-channel order ``(kz*3 + ky)*3 + kx`` (the z-major scan of
+    ``conv_general_dilated_patches``), elements in z-major ``(ez, ey, ex)``
+    order.  Three stride-2 ``unfold``s over (z, y, x)."""
+    ex, ey, ez = elem_dims
+    fx, fy, fz = fine_dims
+    c = u.shape[0]
+    u3 = u[:, : fx * fy * fz].reshape(c, fz, fy, fx)
+    win = u3.unfold(1, 3, 2).unfold(2, 3, 2).unfold(3, 3, 2)   # (C, ez, ey, ex, kz, ky, kx)
+    return win.permute(0, 4, 5, 6, 1, 2, 3).reshape(c, 27, ez * ey * ex)
+
+
+def _lattice(t3: torch.Tensor, off, elem_dims) -> torch.Tensor:
+    """The view of ``t3 (..., fz, fy, fx)`` at fine nodes (2I+ox, 2J+oy, 2K+oz)."""
+    ex, ey, ez = elem_dims
+    ox, oy, oz = off
+    return t3[..., oz: oz + 2 * ez: 2, oy: oy + 2 * ey: 2, ox: ox + 2 * ex: 2]
+
+
+def assemble_window_values(ae: torch.Tensor, local_off, oij, n_off: int, elem_dims,
+                           fine_dims, s_pad: int) -> torch.Tensor:
+    """``(n_off, s_pad)`` window-operator values from the elemental matrices
+    ``ae (NEN, NEN, NE)`` (element-grid order).  On a box grid entry (i, j)
+    of every element lands at the fixed window slot ``oij[i][j]`` in fine row
+    ``2*origin(e) + local_off[i]``.  For one i the 27 slots ``oij[i]`` are
+    distinct, so row i of every element is ONE strided index-add of its 27
+    values: 27 adds in all, where the JAX package places 27 full fields
+    (``place_elem_field``) and chains 729 row adds.  Each output sums its
+    terms in i order, as the JAX chains do (bit-equal)."""
+    ex, ey, ez = elem_dims
+    fx, fy, fz = fine_dims
+    s = fx * fy * fz
+    nen = len(local_off)
+    out = ae.new_zeros((n_off, s_pad))
+    grid = out[:, :s].view(n_off, fz, fy, fx)
+    slots = torch.as_tensor(np.asarray(oij, dtype=np.int64), device=ae.device)
+    for i in range(nen):
+        view = _lattice(grid, local_off[i], elem_dims)        # (n_off, ez, ey, ex)
+        view[slots[i]] += ae[i].reshape(nen, ez, ey, ex)
+    return out
+
+
+def scatter_elem_stencil(r_e: torch.Tensor, local_off, elem_dims, fine_dims) -> torch.Tensor:
+    """Elemental scatter-add ``r_e (C, NEN, NE)`` -> ``(C, S)``.  Local
+    nodes of one parity class land on the same stride-2 lattice shifted by
+    whole elements: each class is summed in element space (contiguous
+    slice adds, in ``local_off`` order) and written to its lattice once, as
+    the JAX function groups them."""
+    ex, ey, ez = elem_dims
+    fx, fy, fz = fine_dims
+    c = r_e.shape[0]
+    groups: dict = {}
+    for i, off in enumerate(local_off):
+        groups.setdefault((off[0] & 1, off[1] & 1, off[2] & 1), []).append((i, off))
+    out = r_e.new_zeros((c, fz, fy, fx))
+    for (px, py, pz), items in groups.items():
+        gx, gy, gz = (fx - px + 1) // 2, (fy - py + 1) // 2, (fz - pz + 1) // 2
+        g = r_e.new_zeros((c, gz, gy, gx))
+        for i, off in items:
+            dx, dy, dz = (off[0] - px) // 2, (off[1] - py) // 2, (off[2] - pz) // 2
+            g[:, dz: dz + ez, dy: dy + ey, dx: dx + ex] += r_e[:, i].reshape(c, ez, ey, ex)
+        out[:, pz::2, py::2, px::2] = g
+    return out.reshape(c, -1)
+
+
+def convection_elem_matrices(u0, sv, gdsv, gq, elem_dims, fine_dims,
+                             stab_coef: float = 0.0) -> torch.Tensor:
+    """The elemental convection matrices ``ae (NENv_i, NENv_j, NE)`` of
+    A(u0) (``calculateMatrixA``), elements in element-grid order, local
+    nodes in window-channel order: the once-per-step build of both solvers'
+    interleaved steps (explicit_bch.py:888-924, implicit_gq.py:865-876)."""
+    u0_e = gather_elem_stencil(u0, elem_dims, fine_dims)
+    u0_gq = torch.einsum("ki,die->dke", sv, u0_e)
+    udotg = torch.einsum("dke,djke->jke", u0_gq, gdsv)
+    if stab_coef:
+        div0 = torch.einsum("djke,dje->ke", gdsv, u0_e)
+        udotg = udotg + stab_coef * div0[None] * sv.T[:, :, None]
+    return torch.einsum("ki,ke,jke->ije", sv, gq, udotg)
+
+
+def convection_apply_elem(ae, u, local_off, elem_dims, fine_dims) -> torch.Tensor:
+    """Matrix-free A u from the elemental matrices ``ae (NEN, NEN, NE)`` of
+    :func:`convection_elem_matrices`: gather -> per-element matvec ->
+    parity-grouped scatter, ``(C, S)`` from ``u (C, >= S)``
+    (explicit_bch.py:961-977).  On ``convection_elem_matrices(u0, ...)`` it
+    is the JAX package's ``convection_apply_stencil(u0, u, ...)``."""
+    r_e = torch.einsum("ije,dje->die", ae, gather_elem_stencil(u, elem_dims, fine_dims))
+    return scatter_elem_stencil(r_e, local_off, elem_dims, fine_dims)

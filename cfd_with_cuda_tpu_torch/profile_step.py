@@ -3,6 +3,7 @@
     python -m cfd_with_cuda_tpu_torch.profile_step                # NE27000 cavity
     python -m cfd_with_cuda_tpu_torch.profile_step --deck-n 4 --warm-steps 50
     python -m cfd_with_cuda_tpu_torch.profile_step --solver implicit
+    python -m cfd_with_cuda_tpu_torch.profile_step --layout interleaved [--solver implicit]
     python -m cfd_with_cuda_tpu_torch.profile_step --deck bfs [--solver implicit]
 
 ``--solver explicit`` (the default) runs the explicit BCH solver (F32, CG
@@ -27,6 +28,15 @@ momentum iterations, and a ``torch.profiler`` trace of 5 steps: device
 time by kernel name and the device's busy share of the traced wall time
 (busy = union of kernel and copy intervals).  Prints one JSON line per
 regime, then the card's name and power limit.  Needs one CUDA card.
+
+``--layout interleaved`` runs either solver on the cavity's interleaved
+structured layout (``structured_layout="interleaved"``) instead of the
+parity layout, and adds each op of the step timed alone at the step's
+shapes (CUDA events): the window applies (K or A, M, G), the compact G^T
+on the interleaved field, the elemental gather, the A(u) build (its
+einsums), and the per-step assembly of A(u) into the window rows
+(implicit, and the explicit ``conv_mode="assemble"`` form) or the
+parity-grouped scatter (explicit matrix-free form).
 
 ``--deck bfs`` runs the unstructured path instead, on the backward-facing
 step ``bfs_deck(96, 40, 40, lengths=(15, 2, 2), step_frac=(0.2, 0.5),
@@ -57,6 +67,18 @@ import torch
 from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
 from cfd_with_cuda_tpu_torch.ops import spmv
 from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
+from cfd_with_cuda_tpu_torch.ops.stencil import (
+    assemble_window_values,
+    coarse_to_fine,
+    convection_elem_matrices,
+    gather_elem_stencil,
+    scatter_elem_stencil,
+)
+from cfd_with_cuda_tpu_torch.ops.window_stencil import (
+    div_compact_interleaved,
+    grad_window,
+    window_spmv,
+)
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
@@ -199,6 +221,45 @@ def _implicit_ops(solver):
     return ops
 
 
+def _interleaved_ops(solver, implicit):
+    """The ops of one interleaved cavity step, each alone at its shapes."""
+    def ops(state):
+        d = solver.d
+        u = state.uk if implicit else state.un
+        fine, nn = solver.fine_dims, solver.nn
+        table, offs = (d["MK_vals"], solver.a_offsets) if implicit else (d["K_vals"],
+                                                                         solver.k_offsets)
+        ae_build = lambda: convection_elem_matrices(u[:, :nn], d["Sv"], d["gDSv"], d["gq"],
+                                                    solver.elem_dims, fine)
+        ae = ae_build()
+        oij = solver.conv_oij
+        assemble = lambda: assemble_window_values(ae, solver.local_off, oij, len(offs),
+                                                  solver.elem_dims, fine, solver.s_pad)
+        pf = torch.nn.functional.pad(coarse_to_fine(state.pk if implicit else state.pn,
+                                                    solver.coarse_dims, fine),
+                                     (0, solver.s_pad - nn))
+        out = dict(
+            window_spmv=_event_ms(lambda: window_spmv(table, u, fine, offsets=offs, trim=False)),
+            grad_window=_event_ms(lambda: grad_window(d["G_win"], pf, fine, solver.g_radius,
+                                                      trim=False)),
+            div_compact_interleaved=_event_ms(lambda: div_compact_interleaved(
+                d["GT_cwin"], u, fine, solver.coarse_dims)),
+            gather_elem=_event_ms(lambda: gather_elem_stencil(u[:, :nn], solver.elem_dims, fine)),
+            ae_build=_event_ms(ae_build, 3),
+            assemble_window_values=_event_ms(assemble, 3),
+        )
+        if implicit:
+            out["window_spmv_m"] = _event_ms(lambda: window_spmv(d["M_vals"], u, fine,
+                                                                 offsets=offs, trim=False))
+        else:
+            r1e = torch.einsum("ije,dje->die", ae, gather_elem_stencil(u[:, :nn],
+                                                                       solver.elem_dims, fine))
+            out["scatter_elem"] = _event_ms(lambda: scatter_elem_stencil(
+                r1e, solver.local_off, solver.elem_dims, fine))
+        return out
+    return ops
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck-n", type=int, default=30)
@@ -209,6 +270,8 @@ def main() -> None:
     ap.add_argument("--state", default=str(SEEDED_STATE),
                     help="npz with u (NN, 3), p (NNp,): the implicit solver's seeded regime")
     ap.add_argument("--deck", choices=("cavity", "bfs"), default="cavity")
+    ap.add_argument("--layout", choices=("parity", "interleaved"), default="parity",
+                    help="the cavity's structured layout")
     ap.add_argument("--bfs-dims", default="96x40x40")
     ap.add_argument("--timed", type=int, default=None,
                     help="timed steps of the BFS regime (default 50 explicit, 15 implicit)")
@@ -232,27 +295,32 @@ def main() -> None:
         deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
         cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
                            pressure_warm_start=True, pressure_cg_fuse_loop=True,
-                           steps_per_chunk=50)
+                           steps_per_chunk=50, structured_layout=args.layout)
         solver = ExplicitBCHSolver(deck, cfg)
+        print(json.dumps(dict(layout=solver.layout)), flush=True)
+        ops = _interleaved_ops(solver, False) if args.layout == "interleaved" else None
         state, _ = solver.run(n_steps=5)           # warm-up: kernel build and first launches
-        state = _regime("spin_up", solver, state, 50)
+        state = _regime("spin_up", solver, state, 50, ops=ops)
         done = 5 + 50 + PROFILE_STEPS
         state, _ = solver.run(state, n_steps=max(0, args.warm_steps - done))
-        _regime("warm", solver, state, args.timed_warm)
+        _regime("warm", solver, state, args.timed_warm, ops=ops)
     else:
         deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
         cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
-                           pressure_warm_start=True, steps_per_chunk=25)
+                           pressure_warm_start=True, steps_per_chunk=25,
+                           structured_layout=args.layout)
         solver = ImplicitGQSolver(deck, cfg)
+        print(json.dumps(dict(layout=solver.layout)), flush=True)
+        ops = _interleaved_ops(solver, True) if args.layout == "interleaved" else None
         state, _ = solver.run(n_steps=5)
-        _regime("from_rest", solver, state, 50)
+        _regime("from_rest", solver, state, 50, ops=ops)
         seed = np.load(args.state)
         if seed["u"].shape[0] == solver.nn:
             del solver, state
             deck.dt, deck.max_iter = 0.01, 1
             solver = ImplicitGQSolver(deck, cfg)
             state, _ = solver.run(solver.state_from_fields(seed["u"], seed["p"]), n_steps=5)
-            _regime("seeded", solver, state, 50)
+            _regime("seeded", solver, state, 50, ops=ops and _interleaved_ops(solver, True))
         else:
             print(json.dumps(dict(regime="seeded", skipped=f"{args.state} holds "
                                   f"{seed['u'].shape[0]} nodes, the deck {solver.nn}")), flush=True)

@@ -43,12 +43,12 @@ class StepStats(NamedTuple):
 def unsupported_on_box(cfg) -> str | None:
     """The ``ROADMAP.md`` item of the first ``SolverConfig`` choice that the
     port does not run on a box mesh that the JAX package takes onto its
-    structured path (None when there is none): there it runs its XLA DIA
-    operators and multigrid preconditioner, which are not ported.  On the
-    ELL path (any other mesh, and for the implicit solver a box whose
+    structured path (None when there is none): off its kernel path (F32 or
+    MIXED, backend not ``"xla"``, preconditioner not ``"mg"``) it runs its
+    XLA DIA operators and multigrid preconditioner, which are not ported.
+    On the ELL path (any other mesh, and for the implicit solver a box whose
     elements do not tile it, as in the JAX package) F64 and
-    ``pressure_backend="xla"`` run (the torch CG); the solvers add their
-    own choices."""
+    ``pressure_backend="xla"`` run (the torch CG)."""
     if cfg.dtype_policy.value == "f64":
         return ("dtype_policy=F64 on a box mesh (the XLA DIA / multigrid path: "
                 "ROADMAP.md queue 1 item 6)")
@@ -77,10 +77,12 @@ def unpack_chunk_stats(packed) -> tuple[StepStats, bool]:
 
 class ChunkedTimeLoop:
     """Base of the solvers: setup once from a deck, then run chunks of
-    time steps.  Subclasses provide ``STATIC_ATTRS`` and
-    ``ELL_STATIC_ATTRS``, ``_box_unsupported``, ``_setup``, ``_time_step``,
-    ``_monitor_only`` and ``initial_state``.  ``layout`` is ``"parity"``
-    (a box mesh) or ``"ell"`` (any other mesh, or ``structured="never"``).
+    time steps.  Subclasses provide ``STATIC_ATTRS``,
+    ``INTERLEAVED_STATIC_ATTRS`` and ``ELL_STATIC_ATTRS``, ``_setup``,
+    ``_time_step``, ``_monitor_only`` and ``initial_state``.  ``layout`` is
+    ``"parity"`` (a box mesh, class-major fields), ``"interleaved"`` (a box
+    mesh, flat grid-order fields) or ``"ell"`` (any other mesh, or
+    ``structured="never"``).
 
     ``device=None`` runs on the CUDA card (raises without one);
     ``device="cpu"`` runs every kernel's plain PyTorch version.
@@ -91,6 +93,7 @@ class ChunkedTimeLoop:
     # static attributes that define a set-up solver besides its tables, by
     # layout (the interop module carries the JAX solver's across)
     STATIC_ATTRS: tuple[str, ...] = ()
+    INTERLEAVED_STATIC_ATTRS: tuple[str, ...] = ()
     ELL_STATIC_ATTRS: tuple[str, ...] = ()
 
     def __init__(self, deck, config=None, device=None, *, plain: bool = False):
@@ -113,20 +116,27 @@ class ChunkedTimeLoop:
         return self
 
     def _layout_attrs(self) -> tuple[str, ...]:
-        return self.STATIC_ATTRS if self.layout == "parity" else self.ELL_STATIC_ATTRS
+        return {"parity": self.STATIC_ATTRS, "interleaved": self.INTERLEAVED_STATIC_ATTRS,
+                "ell": self.ELL_STATIC_ATTRS}[self.layout]
 
     def static_attrs(self) -> dict:
         """The layout and its static values, for :meth:`from_tables`."""
         return {"layout": self.layout, **{k: getattr(self, k) for k in self._layout_attrs()}}
 
     def _set_layout(self, layout: str) -> None:
-        """Take the box mesh's parity path or the unstructured ELL path,
-        raising for what that path does not run."""
+        """Take a box mesh's parity or interleaved layout or the unstructured
+        ELL path, raising for what that path does not run."""
         cfg = self.config
-        if layout == "parity":
-            why = self._box_unsupported(cfg)
+        if layout in ("parity", "interleaved"):
+            why = unsupported_on_box(cfg)
             if why is not None:
                 raise NotImplementedError(f"not ported yet: {why}")
+            if layout == "interleaved" and cfg.structured_layout == "parity":
+                # the JAX package's own error (explicit_bch.py:202-207)
+                raise ValueError(
+                    "structured_layout='parity' needs the fused Pallas path "
+                    "(single chip, f32/pallas backend) on an element-structured box grid"
+                )
         elif layout == "ell":
             # the JAX package's own errors for a mesh that fell back to ELL
             if cfg.structured == "force":
@@ -160,10 +170,6 @@ class ChunkedTimeLoop:
     @staticmethod
     def _unsupported(config) -> str | None:
         return unsupported_config(config)
-
-    @staticmethod
-    def _box_unsupported(config) -> str | None:
-        return unsupported_on_box(config)
 
     def _setup(self) -> None:
         raise NotImplementedError

@@ -11,6 +11,20 @@ sub-iterations per time step (reference ``blascoCodinaHuerta.cpp``
   ``parity_apply`` ((K + A(un)) u*, G p, K acc) and ``div_compact`` (G^T
   onto the coarse pressure grid); once per step plain torch ops build the
   convection planes A(un).
+  ``conv_mode="matrix-free"`` (and any deck whose coarse grid exceeds
+  100,000 nodes, as in the JAX package) applies A(un) matrix-free instead:
+  flat gather, one einsum, ``parity_scatter_elem_flat``.
+* ``"interleaved"``, a box mesh with ``structured_layout="interleaved"`` or
+  one whose elements do not tile it: fields ``(3, s_pad)`` in flat z-major
+  grid order (the fine axis padded to a ``BLK`` multiple); per
+  sub-iteration the CUDA kernels ``window_stencil`` (K u on the 125-offset
+  DIA table, G p on the 125-slot window) and ``div_compact`` in its
+  interleaved form (G^T onto the coarse grid).  Convection:
+  ``conv_mode="assemble"`` adds A(un) into K's window rows once per step
+  (one apply of K + A); otherwise the stride-2 elemental gather, one
+  einsum and the parity-grouped scatter (``ops/stencil.py``); on a box
+  whose elements do not tile it, the elemental convection of
+  ``ops/spmv.py`` on grid-order node tables.
 * ``"ell"``, any other mesh or ``structured="never"`` (the JAX package's
   unstructured branch): fields ``(3, NN)``; K, (K + A(un)), G and G^T
   apply through the elemental matrices (torch gathers and ``bmm``,
@@ -21,7 +35,7 @@ sub-iterations per time step (reference ``blascoCodinaHuerta.cpp``
 The pressure CG is ``cg_solve`` (the whole solve in one launch,
 ``pressure_cg_fuse_loop``) or ``cg_init`` + one ``cg_iter`` per iteration
 (the default), with compensated dots under ``DTypePolicy.MIXED`` and, on
-the parity layout, the half window under ``pressure_cg_sym``; on the ELL
+the box layouts, the half window under ``pressure_cg_sym``; on the ELL
 layout they take the banded offsets.  F64, ``pressure_backend="xla"`` and
 an ELL pressure operator run the torch ``cg`` (``ops/krylov.py``), as the
 JAX package runs its XLA CG there.  The sub-iteration convergence flag is
@@ -45,7 +59,11 @@ from cfd_with_cuda_tpu_torch.fem.assembly import (
 )
 from cfd_with_cuda_tpu_torch.fem.jacobian import build_element_tables
 from cfd_with_cuda_tpu_torch.fem.sparse import ell_from_csr
-from cfd_with_cuda_tpu_torch.fem.structured import detect_promoted_box, dia_from_csr
+from cfd_with_cuda_tpu_torch.fem.structured import (
+    detect_promoted_box,
+    dia_from_csr,
+    shard_pad_size,
+)
 from cfd_with_cuda_tpu_torch.mesh.profiles import apply_inlet_profile
 from cfd_with_cuda_tpu_torch.mesh.topology import (
     face_bc_to_node_bc,
@@ -57,8 +75,22 @@ from cfd_with_cuda_tpu_torch.ops import spmv
 from cfd_with_cuda_tpu_torch.ops.banded import banded_from_csr, banded_spmv
 from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
 from cfd_with_cuda_tpu_torch.ops.krylov import cg
-from cfd_with_cuda_tpu_torch.ops.window_stencil import compact_gt_window
-from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, unsupported_on_box
+from cfd_with_cuda_tpu_torch.ops.stencil import (
+    assemble_window_values,
+    coarse_to_fine,
+    convection_apply_elem,
+    convection_elem_matrices,
+)
+from cfd_with_cuda_tpu_torch.ops.window_stencil import (
+    compact_gt_window,
+    div_compact_interleaved,
+    div_compact_interleaved_plain,
+    grad_window,
+    grad_window_plain,
+    window_spmv,
+    window_spmv_plain,
+)
+from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = ["ExplicitState", "StepStats", "ExplicitBCHSolver"]
@@ -72,26 +104,16 @@ class ExplicitState(NamedTuple):
     ``pdot``/``pdot_nm1`` warm-start the next step's first pressure solve.
     """
 
-    un: torch.Tensor         # (3, 8, Sp) parity / (3, NN) ell: velocity at time n
-    pn: torch.Tensor         # (NNp,) pressure at time n (coarse grid order on parity)
+    un: torch.Tensor         # (3, 8, Sp) parity / (3, s_pad) interleaved / (3, NN) ell
+    pn: torch.Tensor         # (NNp,) pressure at time n (coarse grid order on a box)
     unp1_prev: torch.Tensor
     pdot: torch.Tensor
     pdot_nm1: torch.Tensor
 
 
-def _box_unsupported(cfg: SolverConfig) -> str | None:
-    """The ROADMAP item of the first config choice the port does not run on
-    a box mesh (the unstructured path ignores ``conv_mode`` and
-    ``structured_layout``, as the JAX package's does)."""
-    why = unsupported_on_box(cfg)
-    if why is not None:
-        return why
-    if cfg.structured_layout == "interleaved":
-        return ("structured_layout='interleaved' (the interleaved layout: "
-                "ROADMAP.md queue 1 item 6)")
-    if cfg.conv_mode in ("matrix-free", "assemble"):
-        return f"conv_mode={cfg.conv_mode!r} on a box mesh (ROADMAP.md queue 1 item 6)"
-    return None
+# on the parity layout the convection planes stream through parity_apply up
+# to this coarse size; above it the flat matrix-free form (explicit_bch.py:906)
+_PLANES_MAX_SP = 100_000
 
 
 def _banded_kernel_cg(cfg: SolverConfig) -> bool:
@@ -117,9 +139,12 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         "mon_cls", "mon_q", "monitor_node_p", "conv_i_order", "conv_groups",
         "conv_pairs2",
     )
+    INTERLEAVED_STATIC_ATTRS = (
+        "nn", "nnp", "dt", "pin_grid", "perm", "perm_p", "fine_dims",
+        "coarse_dims", "elem_dims", "elem_structured", "local_off", "k_offsets",
+        "z_radius", "g_radius", "s_pad", "conv_oij", "monitor_node", "monitor_node_p",
+    )
     ELL_STATIC_ATTRS = ("nn", "nnp", "dt", "pin", "monitor_node", "monitor_node_p", "z_offs")
-
-    _box_unsupported = staticmethod(_box_unsupported)
 
     # ------------------------------------------------------------------ setup
     def _setup(self) -> None:
@@ -163,7 +188,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             Z[pin, pin] = Z[pin, pin] * cfg.pressure_pin_large
 
         # ---- box-grid structure (_try_structured): the parity layout on an
-        # element-structured box, else the unstructured ELL path
+        # element-structured box, the interleaved layout on another box or
+        # when asked for, else the unstructured ELL path
         box = None
         if cfg.structured != "never":
             box = detect_promoted_box(mesh.coords, self.nnp, mesh.ltog_node)
@@ -179,7 +205,12 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             )
             if any(x is None for x in [dias[0], dias[1], *dias[2], *dias[3]]):
                 dias = None
-        d = self._setup_ell if dias is None else self._setup_parity
+        if dias is None:
+            d = self._setup_ell
+        elif box.elem_perm is not None and cfg.structured_layout != "interleaved":
+            d = self._setup_parity
+        else:
+            d = self._setup_interleaved
         d = d(tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv)
         self.dt = float(deck.dt)
         self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -188,19 +219,12 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
     def _setup_parity(self, tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv) -> dict:
         """Tables of the parity layout (the parity branch of the JAX
         package's ``_try_structured``, explicit_bch.py:320-591)."""
-        if box.elem_perm is None:
-            raise NotImplementedError(
-                "not ported yet: box meshes that are not element-structured "
-                "(the interleaved layout: ROADMAP.md queue 1 item 6)"
-            )
         self._set_layout("parity")
         deck, cfg, mesh = self.deck, self.config, self.mesh
         dtype = cfg.np_dtype()
         pin = deck.zero_pressure_node
-        not_box = NotImplementedError(
-            "not ported yet: this box mesh has no parity route "
-            "(the interleaved layout: ROADMAP.md queue 1 item 6)"
-        )
+        # the JAX package asserts both (explicit_bch.py:521, :544)
+        not_box = ValueError("this box mesh has no parity route")
         k_dia, z_dia, g_dias, gt_dias = dias
         fx, fy, fz = box.fine_dims
         cx, cy, cz = box.coarse_dims
@@ -215,15 +239,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         permute_vec = box.permute_vec
         dev = lambda x: np.asarray(x, dtype=dtype)
         z_diag = box.permute_vec_p(np.asarray(Z.diagonal()))
-        # element tables to element-grid order + channel-ordered locals
-        gDSv_t = np.transpose(tab.gDSv, (3, 2, 1, 0))
-        gq_t = tab.gq_factor.T
-        g2 = np.empty_like(gDSv_t)
-        g2[..., box.elem_perm] = gDSv_t
-        q2 = np.empty_like(gq_t)
-        q2[..., box.elem_perm] = gq_t
-        gDSv_t, gq_t = g2[:, box.chan_order], q2
-        sv_t = tab.Sv[:, box.chan_order]
+        sv_t, gDSv_t, gq_t = box.elem_grid_tables(tab)
 
         (pcx, pcy, pcz), sp_c = pstl.parity_dims(box.fine_dims)
         if (pcx, pcy, pcz) != (cx, cy, cz):
@@ -279,6 +295,75 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         self.mon_q = ((mz >> 1) * cy + (my >> 1)) * cx + (mx >> 1)
         (self.conv_i_order, self.conv_groups,
          self.conv_pairs2) = pstl.build_conv_plane_route(box.local_off, box.coarse_dims)
+        return d
+
+    def _setup_interleaved(self, tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv) -> dict:
+        """Tables of the interleaved layout (the JAX package's
+        ``_try_structured`` on its kernel path, explicit_bch.py:320-505,
+        less the multigrid branch :497-504, which that path never takes):
+        the K DIA table, the G and G^T windows, the compact G^T rows and the
+        coarse Z window, every fine-grid table padded to s_pad; the element
+        tables in element-grid order (element-major node tables on a box
+        whose elements do not tile it)."""
+        self._set_layout("interleaved")
+        deck, cfg, mesh = self.deck, self.config, self.mesh
+        dtype = cfg.np_dtype()
+        dev = lambda x: np.asarray(x, dtype=dtype)
+        k_dia, z_dia, g_dias, gt_dias = dias
+        fx, fy, _ = box.fine_dims
+        self.perm, self.perm_p = box.perm, box.perm_p
+        self.fine_dims, self.coarse_dims = box.fine_dims, box.coarse_dims
+        self.elem_structured = box.elem_perm is not None
+        self.elem_dims, self.local_off = box.elem_dims, box.local_off
+        self.k_offsets = k_dia.flat_offsets
+        self.z_radius = z_dia.radius
+        self.g_radius = max(g.radius for g in g_dias)
+        gt_radius = max(g.radius for g in gt_dias)
+        size = box.size
+        self.s_pad = shard_pad_size(size, cfg, True)
+        pad = lambda v: np.pad(v, [(0, 0)] * (v.ndim - 1) + [(0, self.s_pad - size)])
+        permute_vec = box.permute_vec
+        z_diag = box.permute_vec_p(np.asarray(Z.diagonal()))
+        gt_win = dev(np.stack([g.window_vals(gt_radius, dtype) for g in gt_dias]))
+        d = {
+            "K_vals": pad(dev(k_dia.vals)),
+            "G_win": pad(dev(np.stack([g.window_vals(self.g_radius, dtype) for g in g_dias]))),
+            "GT_win": pad(gt_win),
+            # divergence rows exist only at the embedded coarse positions
+            "GT_cwin": dev(compact_gt_window(gt_win, box.fine_dims, box.coarse_dims)),
+            "Z_win": dev(z_dia.window_vals(dtype=dtype)),
+            "Z_dinv": dev(1.0 / z_diag),
+            "md_inv": pad(dev(permute_vec(md_inv))),
+            "md_orig_inv": pad(dev(permute_vec(md_orig_inv))),
+            "bc_mask": pad(dev(permute_vec(np.where(is_bc, 0.0, 1.0)))),
+            "bc_vel": pad(dev(np.stack([permute_vec(bc_vel[:, i]) for i in range(3)]))),
+        }
+        if cfg.pressure_cg_sym:
+            d["Z_win"] = half_window(d["Z_win"], box.coarse_dims, z_dia.radius)
+        if self.elem_structured:
+            d |= dict(zip(("Sv", "gDSv", "gq"), map(dev, box.elem_grid_tables(tab))))
+            # entry (i, j) of every element lands at the fixed K offset
+            # fo(j) - fo(i): the "assemble" form adds A(un) into K's rows
+            fo = [ox + fx * (oy + fy * oz) for (ox, oy, oz) in self.local_off]
+            slot = {o: k for k, o in enumerate(self.k_offsets)}
+            self.conv_oij = tuple(tuple(slot[fo[j] - fo[i]] for j in range(len(fo)))
+                                  for i in range(len(fo)))
+        else:
+            # the elemental convection of ops/spmv.py on grid-order node ids
+            ltog = np.asarray(box.perm[mesh.ltog_node], dtype=np.int32)     # (NE, 27)
+            d |= {"ltog": ltog, "rev": spmv.build_reverse_incidence(ltog, size),
+                  "Sv": dev(tab.Sv), "gDSv": dev(np.transpose(tab.gDSv, (0, 3, 2, 1))),
+                  "gq": dev(tab.gq_factor)}
+            self.conv_oij = None
+        pin = deck.zero_pressure_node
+        self.pin_grid = int(box.perm_p[pin]) if pin >= 0 else -1
+        mon = find_monitor_node(
+            deck.coords,
+            deck.monitor_xyz if deck.monitor_xyz is not None else (0.5,) * 3,
+        )
+        self.monitor_node = int(box.perm[mon])
+        # pressure lives on the COARSE grid in perm_p order
+        self.monitor_node_p = int(box.perm_p[mon])
         return d
 
     def _setup_ell(self, tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv) -> dict:
@@ -341,51 +426,26 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         dtype = self.config.np_dtype()
         u = np.asarray(u).T
         p = np.asarray(p)
-        if self.layout == "parity":
-            ug = np.zeros((3, int(np.prod(self.fine_dims))), dtype=u.dtype)
+        if self.layout != "ell":
+            n = self.s_pad if self.layout == "interleaved" else int(np.prod(self.fine_dims))
+            ug = np.zeros((3, n), dtype=u.dtype)
             ug[:, self.perm] = u
             pg = np.empty_like(p)
             pg[self.perm_p] = p
-            u, p = pstl.parity_split_table(ug, self.fine_dims, self.sp_c), pg
+            u, p = ug, pg
+            if self.layout == "parity":
+                u = pstl.parity_split_table(u, self.fine_dims, self.sp_c)
         un = torch.from_numpy(np.ascontiguousarray(u, dtype=dtype)).to(self.device)
         pn = torch.from_numpy(np.ascontiguousarray(p, dtype=dtype)).to(self.device)
         return ExplicitState(un, pn, torch.zeros_like(un), torch.zeros_like(pn),
                              torch.zeros_like(pn))
 
     # ------------------------------------------------------------- one step
-    def _parity_operators(self, d, un):
-        """(K, K + A(un), G, G^T, pressure solve, probe) of the parity layout."""
+    def _box_pressure_solve(self, d):
+        """The pressure CG of the box layouts: the CG kernels on the coarse
+        Z window (its dq >= 0 half under ``pressure_cg_sym``)."""
         cfg = self.config
-        sp_c = self.sp_c
-        # the wrappers run the kernels on CUDA tensors and the plain
-        # versions on CPU tensors; `plain` forces the plain versions
-        apply = pstl.parity_apply_plain if self.plain else pstl.parity_apply
-        div_apply = pstl.parity_div_apply_plain if self.plain else pstl.parity_div_apply
         cg_solve = fused_cg_plain if self.plain else fused_cg
-
-        k_mul = lambda u: apply(d["Kp"], u, pairs=self.k_pairs, co=3)
-
-        def grad(p):
-            xp = torch.nn.functional.pad(p, (0, sp_c - p.shape[0]))[None, None]
-            return apply(d["Gp"], xp, pairs=self.g_pairs, co=3)
-
-        div = lambda u: div_apply(d["GT_cwin"], u, self.coarse_dims)[: self.nnp]
-
-        # convection planes A(un), once per step (un is fixed across the
-        # sub-iterations; ref calculateMatrixA uses Un :3520-3685)
-        sv, gtab, qtab = d["Sv"], d["gDSv_p"], d["gq_p"]
-        u0_e = pstl.parity_gather_elem_flat(un, self.coarse_dims)
-        u0_gq = torch.einsum("ki,die->dke", sv, u0_e)
-        udotg = torch.einsum("dke,djke->jke", u0_gq, gtab)
-        if cfg.conv_stab:
-            # Temam (div u0) Sv_i Sv_j stabilization
-            div0 = torch.einsum("djke,dje->ke", gtab, u0_e)
-            udotg = udotg + cfg.conv_stab * div0[None] * sv.T[:, :, None]
-        sv_i = sv[:, list(self.conv_i_order)]
-        ae = torch.einsum("ki,ke,jke->ije", sv_i, qtab, udotg)
-        conv_wc = pstl.conv_planes_from_ae(ae, groups=self.conv_groups)
-        ka_mul = lambda u: apply(d["Kp"], u, pairs=self.k_pairs, co=3,
-                                 wc2=conv_wc, pairs2=self.conv_pairs2)
 
         def pressure_solve(r2, x0):
             return cg_solve(
@@ -399,10 +459,106 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                 # MIXED policy: f64-accumulated dots inside the kernels
                 dot_mode="compensated" if cfg.krylov_dot_dtype() is not None else "plain",
             )
+        return pressure_solve
+
+    def _parity_operators(self, d, un):
+        """(K, K + A(un), G, G^T, pressure solve, probe) of the parity layout."""
+        cfg = self.config
+        sp_c = self.sp_c
+        # the wrappers run the kernels on CUDA tensors and the plain
+        # versions on CPU tensors; `plain` forces the plain versions
+        apply = pstl.parity_apply_plain if self.plain else pstl.parity_apply
+        div_apply = pstl.parity_div_apply_plain if self.plain else pstl.parity_div_apply
+
+        k_mul = lambda u: apply(d["Kp"], u, pairs=self.k_pairs, co=3)
+
+        def grad(p):
+            xp = torch.nn.functional.pad(p, (0, sp_c - p.shape[0]))[None, None]
+            return apply(d["Gp"], xp, pairs=self.g_pairs, co=3)
+
+        div = lambda u: div_apply(d["GT_cwin"], u, self.coarse_dims)[: self.nnp]
+
+        # convection A(un), once per step (un is fixed across the
+        # sub-iterations; ref calculateMatrixA uses Un :3520-3685): as 729
+        # weight planes streamed through parity_apply with K, or matrix-free
+        # (flat gather, einsum, scatter) under conv_mode="matrix-free" and
+        # above _PLANES_MAX_SP (explicit_bch.py:888-936)
+        planes = cfg.conv_mode == "planes" or (
+            cfg.conv_mode != "matrix-free" and sp_c <= _PLANES_MAX_SP)
+        sv, gtab, qtab = d["Sv"], d["gDSv_p"], d["gq_p"]
+        gather = lambda u: pstl.parity_gather_elem_flat(u, self.coarse_dims)
+        u0_e = gather(un)
+        u0_gq = torch.einsum("ki,die->dke", sv, u0_e)
+        udotg = torch.einsum("dke,djke->jke", u0_gq, gtab)
+        if cfg.conv_stab:
+            # Temam (div u0) Sv_i Sv_j stabilization
+            div0 = torch.einsum("djke,dje->ke", gtab, u0_e)
+            udotg = udotg + cfg.conv_stab * div0[None] * sv.T[:, :, None]
+        sv_i = sv[:, list(self.conv_i_order)] if planes else sv
+        ae = torch.einsum("ki,ke,jke->ije", sv_i, qtab, udotg)
+        if planes:
+            conv_wc = pstl.conv_planes_from_ae(ae, groups=self.conv_groups)
+            ka_mul = lambda u: apply(d["Kp"], u, pairs=self.k_pairs, co=3,
+                                     wc2=conv_wc, pairs2=self.conv_pairs2)
+        else:
+            def ka_mul(u):
+                r1e = torch.einsum("ije,dje->die", ae, gather(u))
+                return k_mul(u) + pstl.parity_scatter_elem_flat(r1e, self.coarse_dims)
 
         probe = lambda u, c: u[c, self.mon_cls, self.mon_q]
         masks = tuple(d[k][None] for k in ("bc_mask_p", "md_inv_p", "md_orig_inv_p"))
-        return k_mul, ka_mul, grad, div, pressure_solve, probe, masks, self.pin_grid
+        return (k_mul, ka_mul, grad, div, self._box_pressure_solve(d), probe, masks,
+                self.pin_grid)
+
+    def _interleaved_operators(self, d, un):
+        """The same on the interleaved layout (explicit_bch.py:839-867,
+        937-977, 1105-1110): K and K + A through ``window_spmv``, G through
+        ``grad_window`` on the embedded pressure, G^T through
+        ``div_compact_interleaved``."""
+        cfg = self.config
+        fine, nn, s_pad = self.fine_dims, self.nn, self.s_pad
+        pad = lambda y: torch.nn.functional.pad(y, (0, s_pad - y.shape[-1]))
+        # the wrappers run the kernels on CUDA tensors and the plain
+        # versions on CPU tensors; `plain` forces the plain versions
+        spmv_w = window_spmv_plain if self.plain else window_spmv
+        grad_w = grad_window_plain if self.plain else grad_window
+        div_c = div_compact_interleaved_plain if self.plain else div_compact_interleaved
+
+        k_mul = lambda u: spmv_w(d["K_vals"], u, fine, offsets=self.k_offsets, trim=False,
+                                 name="window_spmv_k")
+
+        def grad(p):
+            pf = pad(coarse_to_fine(p, self.coarse_dims, fine))
+            return grad_w(d["G_win"], pf, fine, self.g_radius, trim=False)
+
+        div = lambda u: div_c(d["GT_cwin"], u, fine, self.coarse_dims)[: self.nnp]
+
+        if not self.elem_structured:
+            # no element tiling: the elemental convection on grid-order ids
+            def ka_mul(u):
+                conv = spmv.convection_apply(un, u, d["ltog"], d["Sv"], d["gDSv"], d["gq"],
+                                             d["rev"], stab_coef=cfg.conv_stab)
+                return k_mul(u) + pad(conv)
+        else:
+            # A_e(un) once per step (elements in element-grid order)
+            ae = convection_elem_matrices(un[:, :nn], d["Sv"], d["gDSv"], d["gq"],
+                                          self.elem_dims, fine, stab_coef=cfg.conv_stab)
+            if cfg.conv_mode == "assemble":
+                # A_e into K's window rows: (K + A) u* is ONE window apply
+                ka_vals = d["K_vals"] + assemble_window_values(
+                    ae, self.local_off, self.conv_oij, len(self.k_offsets), self.elem_dims,
+                    fine, s_pad)
+                ka_mul = lambda u: spmv_w(ka_vals, u, fine, offsets=self.k_offsets, trim=False,
+                                          name="window_spmv_k_plus_a")
+            else:
+                # matrix-free: gather -> per-element matvec -> parity-grouped scatter
+                ka_mul = lambda u: k_mul(u) + pad(convection_apply_elem(
+                    ae, u[:, :nn], self.local_off, self.elem_dims, fine))
+
+        probe = lambda u, c: u[c, self.monitor_node]
+        masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
+        return (k_mul, ka_mul, grad, div, self._box_pressure_solve(d), probe, masks,
+                self.pin_grid)
 
     def _ell_operators(self, d, un):
         """The same on the unstructured path (explicit_bch.py:707-743,
@@ -456,7 +612,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             pdot_init = pdot0 + (pdot0 - pdot_nm1)
         else:
             pdot_init = pdot0
-        operators = self._parity_operators if self.layout == "parity" else self._ell_operators
+        operators = {"parity": self._parity_operators, "interleaved": self._interleaved_operators,
+                     "ell": self._ell_operators}[self.layout]
         (k_mul, ka_mul, grad, div, pressure_solve, probe,
          (mask, md_inv_b, md_orig_inv_b), pin) = operators(d, un)
         g_pn = grad(pn)                     # loop-invariant: pn is fixed
@@ -509,7 +666,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         if self.layout == "parity":
             probe = lambda c: state.un[c, self.mon_cls, self.mon_q]
         else:
-            probe = lambda c: state.un[c, self.monitor_node]
+            probe = lambda c: state.un[c, self.monitor_node]    # grid id on interleaved
         zero = torch.zeros((), dtype=state.un.dtype, device=self.device)
         return StepStats(probe(0), probe(1), probe(2),
                          state.pn[self.monitor_node_p], zero, 0, 0, 0)
@@ -519,6 +676,9 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         """(u (NN,3), p (NNp,)) as numpy, deck node order."""
         if self.layout == "ell":
             return state.un.cpu().numpy().T, state.pn.cpu().numpy()
-        u = pstl.parity_merge(state.un, self.fine_dims).cpu().numpy()
+        if self.layout == "parity":
+            u = pstl.parity_merge(state.un, self.fine_dims).cpu().numpy()
+        else:
+            u = state.un[:, : self.nn].cpu().numpy()
         p = state.pn.cpu().numpy()
         return u[:, self.perm].T, p[self.perm_p]

@@ -2,7 +2,7 @@
 pressure-correction).
 
 Port of ``cfd_with_cuda_tpu/solvers/implicit_gq.py`` on its class-major
-("parity") branch and its ELL branch — the rebuild of
+("parity"), interleaved and ELL branches — the rebuild of
 ``fractionalStep/implicit/Cpp/guermondQuartapelle.cpp``: one pass per time
 step (no inner iterations, ``timeLoop`` :3308-3416),
 
@@ -21,7 +21,13 @@ a step are ``parity_apply`` (M u^k, G p, and A x twice per BiCGStab
 iteration plus once for its r0), ``div_compact`` and the pressure CG
 (``cg_init`` + one ``cg_iter`` per iteration by default, ``cg_solve`` with
 ``pressure_cg_fuse_loop``); plain torch ops build the convection planes and
-merge them onto the static planes with one matmul.  On the ELL layout (any
+merge them onto the static planes with one matmul.  On the interleaved
+layout (a box mesh with ``structured_layout="interleaved"``, or one where
+the parity LHS assembly cannot route, as on a one-element-thin box between
+opposing walls) fields are ``(3, s_pad)`` in flat grid order and the
+kernels are ``window_stencil`` (M u^k, G p, A x) and ``div_compact`` in its
+interleaved form, around the same CG; torch ops assemble A(u^k) into
+the window rows (27 strided index-adds).  On the ELL layout (any
 other mesh, or ``structured="never"``; the JAX package's
 ``_time_step_ell``) a step is torch ops only, as it is XLA ops only in the
 JAX package: A(u^k) assembled into CSR values through a reverse-incidence
@@ -33,7 +39,8 @@ check at :3347-3353 assigns ``maxAcc`` *signed* (a bug — its own explicit
 solver takes |.| at ``blascoCodinaHuerta.cpp:3049-3061``), which can
 spuriously stop the run; this rebuild uses the correct |.| semantics.
 
-Configurations that the JAX package runs on its interleaved step raise
+Configurations that the JAX package runs on its XLA structured path (F64,
+``pressure_backend="xla"``, multigrid on a box mesh) raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
@@ -49,7 +56,11 @@ from cfd_with_cuda_tpu_torch.fem.assembly import assemble_operators
 from cfd_with_cuda_tpu_torch.fem.jacobian import build_element_tables
 from cfd_with_cuda_tpu_torch.fem.sparse import ell_from_csr
 from cfd_with_cuda_tpu_torch.fem.shape import HEX_FACE_ALL_NODES, HEX_FACE_CORNERS
-from cfd_with_cuda_tpu_torch.fem.structured import detect_promoted_box, dia_from_csr
+from cfd_with_cuda_tpu_torch.fem.structured import (
+    detect_promoted_box,
+    dia_from_csr,
+    shard_pad_size,
+)
 from cfd_with_cuda_tpu_torch.mesh.profiles import apply_inlet_profile
 from cfd_with_cuda_tpu_torch.mesh.topology import (
     face_bc_to_node_bc,
@@ -61,30 +72,28 @@ from cfd_with_cuda_tpu_torch.ops import spmv
 from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
 from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
 from cfd_with_cuda_tpu_torch.ops.krylov import cg, solver_by_name
-from cfd_with_cuda_tpu_torch.ops.window_stencil import compact_gt_window
-from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, unsupported_on_box
-from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
+from cfd_with_cuda_tpu_torch.ops.stencil import (
+    assemble_window_values,
+    coarse_to_fine,
+    convection_elem_matrices,
+)
+from cfd_with_cuda_tpu_torch.ops.window_stencil import (
+    compact_gt_window,
+    div_compact_interleaved,
+    div_compact_interleaved_plain,
+    grad_window,
+    grad_window_plain,
+    window_spmv,
+    window_spmv_plain,
+)
+from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats
 
 __all__ = ["ImplicitState", "ImplicitGQSolver"]
 
-_OTHER_STEPS = "the interleaved implicit step: ROADMAP.md queue 1 item 7"
-
-
 class ImplicitState(NamedTuple):
-    uk: torch.Tensor         # (3, 8, Sp) parity / (3, NN) ell: u^k
-    pk: torch.Tensor         # (NNp,)     p^k (coarse grid order on parity)
+    uk: torch.Tensor         # (3, 8, Sp) parity / (3, s_pad) interleaved / (3, NN) ell: u^k
+    pk: torch.Tensor         # (NNp,)     p^k (coarse grid order on a box)
     pk_prev: torch.Tensor    # (NNp,)     p^{k-1}
-
-
-def _box_unsupported(cfg: SolverConfig) -> str | None:
-    """The ROADMAP item of the first config choice the port does not run on
-    a box mesh."""
-    why = unsupported_on_box(cfg)
-    if why is not None:
-        return why
-    if cfg.structured_layout == "interleaved":
-        return f"structured_layout='interleaved' ({_OTHER_STEPS})"
-    return None
 
 
 class ImplicitGQSolver(ChunkedTimeLoop):
@@ -97,10 +106,13 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         "g_pairs", "diag_planes", "mon_cls", "mon_q", "monitor_node_p",
         "conv_i_order", "conv_groups", "ppe_project",
     )
+    INTERLEAVED_STATIC_ATTRS = (
+        "nn", "nnp", "dt", "pin_grid", "perm", "perm_p", "fine_dims", "coarse_dims",
+        "elem_dims", "local_off", "a_offsets", "a_zero_off", "z_radius", "g_radius",
+        "s_pad", "conv_oij", "monitor_node", "monitor_node_p", "ppe_project",
+    )
     ELL_STATIC_ATTRS = ("nn", "nnp", "dt", "pin", "monitor_node", "monitor_node_p",
                         "ppe_project")
-
-    _box_unsupported = staticmethod(_box_unsupported)
 
     def _configure(self, deck, config, device, plain) -> None:
         super()._configure(deck, config, device, plain)
@@ -195,25 +207,24 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             self.ppe_project = thru > 1e-9 * umax
 
         mk_vals = ops.M + ops.K          # M/dt + K CSR values (:3921-3923)
-        if cfg.structured == "never" or not self._setup_parity(
+        if cfg.structured == "never" or not self._setup_box(
                 mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask):
             self._setup_ell(mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask)
         self.dt = float(deck.dt)
         self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                   for k, v in self.d.items()}
 
-    def _setup_parity(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> bool:
-        """DIA operators and the per-step assembly maps of a box grid in the
-        parity layout (``_try_structured`` of the JAX package, its parity
-        branch :544-663).  False, with nothing set, for a mesh that the JAX
+    def _setup_box(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> bool:
+        """DIA operators of a box grid and the per-step assembly maps of its
+        parity layout, or of its interleaved layout when asked for or when
+        the parity LHS assembly cannot route (``_try_structured`` of the JAX
+        package, :339-663, less the multigrid branch, which its kernel path
+        never takes).  False, with nothing set, for a mesh that the JAX
         package runs on its ELL step."""
         deck = self.deck
         cfg = self.config
         dtype = cfg.np_dtype()
         pat = ops.pattern_m
-        not_box = NotImplementedError(
-            f"not ported yet: this box mesh has no parity route ({_OTHER_STEPS})"
-        )
         box = detect_promoted_box(mesh.coords, self.nnp, mesh.ltog_node)
         if box is None or box.elem_perm is None:
             # as in the JAX package (implicit_gq.py:351-354): the per-step
@@ -221,8 +232,6 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             # elements do not tile it takes the ELL step, where the explicit
             # solver takes its interleaved layout
             return False
-        fx, fy, fz = box.fine_dims
-        cx, cy, cz = box.coarse_dims
         perm, perm_p, embed = box.perm, box.perm_p, box.embed
 
         mk_dia = dia_from_csr(pat.to_scipy(mk_vals), perm, perm, box.fine_dims)
@@ -237,131 +246,172 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         if (any(x is None for x in [mk_dia, m_dia, z_dia, *g_dias, *gt_dias])
                 or m_dia.flat_offsets != mk_dia.flat_offsets):
             return False
-        self._set_layout("parity")
 
         self.perm, self.perm_p = perm, perm_p
         self.fine_dims, self.coarse_dims = box.fine_dims, box.coarse_dims
         self.elem_dims = box.elem_dims
-        a_offsets = mk_dia.flat_offsets
-        a_zero_off = a_offsets.index(0)
+        self.a_offsets = mk_dia.flat_offsets
+        self.a_zero_off = self.a_offsets.index(0)
         self.z_radius = z_dia.radius
-        g_radius = max(g.radius for g in g_dias)
+        self.g_radius = max(g.radius for g in g_dias)
         gt_radius = max(g.radius for g in gt_dias)
 
-        permute_vec = box.permute_vec
-        permute_vec_p = box.permute_vec_p
-        size = box.size
-
-        # element tables to element-grid order + channel-ordered locals
-        gDSv_t = np.transpose(self.tables.gDSv, (3, 2, 1, 0))
-        gq_t = self.tables.gq_factor.T
-        g2 = np.empty_like(gDSv_t)
-        g2[..., box.elem_perm] = gDSv_t
-        q2 = np.empty_like(gq_t)
-        q2[..., box.elem_perm] = gq_t
-        gDSv_t, gq_t = g2[:, box.chan_order], q2
-        sv_t = self.tables.Sv[:, box.chan_order]
-
         dev = lambda x: np.asarray(x, dtype=dtype)
-        bc_mask = dev(permute_vec(np.where(is_bc, 0.0, 1.0)))
-        diag_add = np.zeros(size)
-        diag_add[perm[is_bc]] = 1.0
-        g_win = dev(np.stack([g.window_vals(g_radius, dtype) for g in g_dias]))
-        gt_win = dev(np.stack([g.window_vals(gt_radius, dtype) for g in gt_dias]))
+        sv_t, gdsv_t, gq_t = map(dev, box.elem_grid_tables(self.tables))
+        z_diag = dev(box.permute_vec_p(np.asarray(Z.diagonal())))
         z_win = dev(z_dia.window_vals(dtype=dtype))
-        z_diag = dev(permute_vec_p(np.asarray(Z.diagonal())))
         if cfg.pressure_cg_sym:
             # only the dq >= 0 half is kept (symmetry checked here)
             z_win = half_window(z_win, box.coarse_dims, z_dia.radius)
+        gt_win = dev(np.stack([g.window_vals(gt_radius, dtype) for g in gt_dias]))
+        common = {
+            "GT_cwin": dev(compact_gt_window(gt_win, box.fine_dims, box.coarse_dims)),
+            "Sv": sv_t,
+            "p_mask": dev(box.permute_vec_p(p_mask)),
+            # the pressure CG's plain (W^3, NNp) window (its dq >= 0 half
+            # under pressure_cg_sym) and inverse diagonal
+            "Z_win": z_win,
+            "Z_dinv": dev(1.0 / z_diag),
+        }
+        tabs = dict(
+            box=box, mk_dia=mk_dia, m_dia=m_dia, gt_win=gt_win, gDSv=gdsv_t,
+            gq=gq_t, g_win=dev(np.stack([g.window_vals(self.g_radius, dtype) for g in g_dias])),
+            bc_mask=dev(box.permute_vec(np.where(is_bc, 0.0, 1.0))),
+            bc_vel=dev(np.stack([box.permute_vec(bc_vel[:, i]) for i in range(3)])),
+        )
 
         self.pin_grid = int(perm_p[pin]) if pin >= 0 else -1
         mon = find_monitor_node(
             deck.coords,
             deck.monitor_xyz if deck.monitor_xyz is not None else (0.5,) * 3,
         )
-        monitor_node = int(perm[mon])
+        self.monitor_node = int(perm[mon])
         # the pressure field lives on the COARSE grid in perm_p order
         self.monitor_node_p = int(perm_p[mon])
 
-        (pcx, pcy, pcz), sp_c = pstl.parity_dims(box.fine_dims)
-        if (pcx, pcy, pcz) != (cx, cy, cz):
+        d = None
+        if cfg.structured_layout != "interleaved":
+            self._set_layout("parity")
+            d = self._parity_tables(is_bc, **tabs)
+        if d is None:
+            # the interleaved layout, asked for or the parity route's fallback
+            # (implicit_gq.py:589-598); a forced "parity" raises here
+            self._set_layout("interleaved")
+            d = self._interleaved_tables(is_bc, **tabs)
+        self.d = common | d
+        return True
+
+    def _parity_tables(self, is_bc, *, box, mk_dia, m_dia, g_win, gt_win, gDSv, gq,
+                       bc_mask, bc_vel) -> dict | None:
+        """The parity layout's tables (implicit_gq.py:544-663), or None when
+        the per-step parity LHS assembly cannot route: Dirichlet masking
+        zeroed an entire (class, offset) plane, as on a one-element-thin box
+        between opposing walls."""
+        dtype = self.config.np_dtype()
+        dev = lambda x: np.asarray(x, dtype=dtype)
+        fine, coarse = box.fine_dims, box.coarse_dims
+        not_box = ValueError("this box mesh has no parity route")    # asserted by JAX
+        (pcx, pcy, pcz), sp_c = pstl.parity_dims(fine)
+        if (pcx, pcy, pcz) != coarse:
             raise not_box
-        self.sp_c = sp_c
-        offs_a = pstl.decode_offsets(a_offsets, box.fine_dims)
+        offs_a = pstl.decode_offsets(self.a_offsets, fine)
         # static LHS part pre-masked (BC rows zeroed, unit diagonal there):
         # the per-step device work is ONLY the masked convection add
+        diag_add = np.zeros(box.size)
+        diag_add[box.perm[is_bc]] = 1.0
         mk_masked = dev(mk_dia.vals) * bc_mask[None]
-        mk_masked[a_zero_off] += dev(diag_add)
-        mkp, self.a_pairs = pstl.build_parity_apply_tables(mk_masked, offs_a, box.fine_dims)
-        self.diag_planes = pstl.diag_plane_indices(self.a_pairs)
+        mk_masked[self.a_zero_off] += dev(diag_add)
+        mkp, a_pairs = pstl.build_parity_apply_tables(mk_masked, offs_a, fine)
+        diag_planes = pstl.diag_plane_indices(a_pairs)
         # class-box pad slots carry no row: unit diagonal keeps the Jacobi
         # division finite (their residuals are identically 0)
         for p in range(8):
-            col = mkp[0, self.diag_planes[p]]
-            mkp[0, self.diag_planes[p]] = np.where(col == 0.0, 1.0, col)
+            col = mkp[0, diag_planes[p]]
+            mkp[0, diag_planes[p]] = np.where(col == 0.0, 1.0, col)
         try:
             # scatter-free per-step LHS assembly: the 729 convection planes
             # (8 contiguous shifts of the embedded-axis ae) merge onto the
             # static MKp planes with ONE matmul (conv_plane_merge_matrix)
-            (self.conv_i_order, self.conv_groups,
-             _unused_pairs2) = pstl.build_conv_plane_route(box.local_off, box.coarse_dims)
-            conv_sel = pstl.conv_plane_merge_matrix(
-                box.local_off, self.conv_i_order, self.a_pairs, box.coarse_dims
-            )
-        except ValueError as e:
-            # Dirichlet masking zeroed an entire (class, offset) plane (a
-            # one-element-thin box between opposing walls): the JAX package
-            # falls back to its interleaved layout for the whole solver
-            raise NotImplementedError(
-                f"not ported yet: the parity LHS assembly cannot route ({e}); "
-                f"{_OTHER_STEPS}"
-            ) from e
-        mp, self.m_pairs = pstl.build_parity_apply_tables(
-            dev(m_dia.vals), offs_a, box.fine_dims
-        )
+            conv_i_order, conv_groups, _unused_pairs2 = pstl.build_conv_plane_route(
+                box.local_off, coarse)
+            conv_sel = pstl.conv_plane_merge_matrix(box.local_off, conv_i_order, a_pairs, coarse)
+        except ValueError:
+            return None
+        self.sp_c, self.a_pairs, self.diag_planes = sp_c, a_pairs, diag_planes
+        self.conv_i_order, self.conv_groups = conv_i_order, conv_groups
+        mp, self.m_pairs = pstl.build_parity_apply_tables(dev(m_dia.vals), offs_a, fine)
+        r = self.g_radius
         offs_g = tuple(
             (dx, dy, dz)
-            for dz in range(-g_radius, g_radius + 1)
-            for dy in range(-g_radius, g_radius + 1)
-            for dx in range(-g_radius, g_radius + 1)
+            for dz in range(-r, r + 1)
+            for dy in range(-r, r + 1)
+            for dx in range(-r, r + 1)
         )
-        gp, self.g_pairs = pstl.build_parity_apply_tables(g_win, offs_g, box.fine_dims)
+        gp, self.g_pairs = pstl.build_parity_apply_tables(g_win, offs_g, fine)
         # grad reads ONLY the coarse pressure (class 0): the step passes it
         # as a (1, 1, Sp) plane
         if any(pp != 0 for cls_ in self.g_pairs for (_, pp, _) in cls_):
             raise not_box
-        bc_mask_p = pstl.parity_split_table(bc_mask, box.fine_dims, sp_c)
+        bc_mask_p = pstl.parity_split_table(bc_mask, fine, sp_c)
         # elemental Dirichlet row mask on the EMBEDDED flat axis, i channels
         # pre-permuted to conv_i_order (it multiplies ae's i axis, which the
         # step builds permuted); gathered ONCE at setup
         mask_e = np.zeros((27, sp_c), dtype)
-        for c, (p_idx, dqf) in enumerate(pstl.elem_channel_shifts(box.coarse_dims)):
+        for c, (p_idx, dqf) in enumerate(pstl.elem_channel_shifts(coarse)):
             mask_e[c, : sp_c - dqf] = bc_mask_p[p_idx, dqf:]
-        bc_vel_g = dev(np.stack([permute_vec(bc_vel[:, i]) for i in range(3)]))
-        self.d = {
+        fx, fy, _ = fine
+        cx, cy, _ = coarse
+        mon = self.monitor_node
+        mx, my, mz = mon % fx, (mon // fx) % fy, mon // (fx * fy)
+        self.mon_cls = ((mz & 1) * 2 + (my & 1)) * 2 + (mx & 1)
+        self.mon_q = ((mz >> 1) * cy + (my >> 1)) * cx + (mx >> 1)
+        return {
             "MKp": dev(mkp),
             "Mp": dev(mp),
             "Gp": dev(gp),
-            "GT_cwin": dev(compact_gt_window(gt_win, box.fine_dims, box.coarse_dims)),
             "bc_mask_p": bc_mask_p,
-            "bc_mask_e": mask_e[np.asarray(self.conv_i_order)],
-            "bc_vel_p": pstl.parity_split_table(bc_vel_g, box.fine_dims, sp_c),
+            "bc_mask_e": mask_e[np.asarray(conv_i_order)],
+            "bc_vel_p": pstl.parity_split_table(bc_vel, fine, sp_c),
             "conv_sel": dev(conv_sel),
-            "Sv": dev(sv_t),
             # element tables re-embedded on the coarse-flat axis
-            "gDSv_p": pstl.embed_elem_table(dev(gDSv_t), box.elem_dims, box.coarse_dims, sp_c),
-            "gq_p": pstl.embed_elem_table(dev(gq_t), box.elem_dims, box.coarse_dims, sp_c),
-            "p_mask": dev(permute_vec_p(p_mask)),
-            # the pressure CG's plain (W^3, NNp) window (its dq >= 0 half
-            # under pressure_cg_sym) and inverse diagonal
-            "Z_win": z_win,
-            "Z_dinv": dev(1.0 / z_diag),
+            "gDSv_p": pstl.embed_elem_table(gDSv, box.elem_dims, coarse, sp_c),
+            "gq_p": pstl.embed_elem_table(gq, box.elem_dims, coarse, sp_c),
         }
-        fxy = fx * fy
-        mx, my, mz = monitor_node % fx, (monitor_node // fx) % fy, monitor_node // fxy
-        self.mon_cls = ((mz & 1) * 2 + (my & 1)) * 2 + (mx & 1)
-        self.mon_q = ((mz >> 1) * cy + (my >> 1)) * cx + (mx >> 1)
-        return True
+
+    def _interleaved_tables(self, is_bc, *, box, mk_dia, m_dia, g_win, gt_win, gDSv, gq,
+                            bc_mask, bc_vel) -> dict:
+        """The interleaved layout's tables (implicit_gq.py:392-480): the MK
+        and M DIA tables, the row mask and unit-diagonal add of the per-step
+        LHS (padding rows get the unit diagonal), the G and G^T windows, all
+        padded to s_pad, and the element tables in element-grid order."""
+        cfg = self.config
+        dtype = cfg.np_dtype()
+        dev = lambda x: np.asarray(x, dtype=dtype)
+        size = box.size
+        self.s_pad = shard_pad_size(size, cfg, True)
+        pad = lambda v: np.pad(v, [(0, 0)] * (v.ndim - 1) + [(0, self.s_pad - size)])
+        diag_add = np.zeros(self.s_pad)
+        diag_add[box.perm[is_bc]] = 1.0
+        diag_add[size:] = 1.0          # padding rows -> identity (keeps Jacobi finite)
+        fx, fy, _ = box.fine_dims
+        self.local_off = box.local_off
+        # channel pair (i, j) -> the fixed A offset fo(j) - fo(i) it lands at
+        fo = [ox + fx * (oy + fy * oz) for (ox, oy, oz) in box.local_off]
+        slot = {o: k for k, o in enumerate(self.a_offsets)}
+        self.conv_oij = tuple(tuple(slot[fo[j] - fo[i]] for j in range(len(fo)))
+                              for i in range(len(fo)))
+        return {
+            "MK_vals": pad(dev(mk_dia.vals)),
+            "M_vals": pad(dev(m_dia.vals)),
+            "row_mask_grid": pad(bc_mask),
+            "diag_add_grid": dev(diag_add),
+            "G_win": pad(g_win),
+            "GT_win": pad(gt_win),
+            "bc_mask": pad(bc_mask),
+            "bc_vel": pad(bc_vel),
+            "gDSv": gDSv,
+            "gq": gq,
+        }
 
     def _setup_ell(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> None:
         """Slot-major ELL operators and the per-step assembly maps of the
@@ -436,21 +486,77 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         dtype = self.config.np_dtype()
         u = np.asarray(u).T
         p = np.asarray(p)
-        if self.layout == "parity":
-            ug = np.zeros((3, int(np.prod(self.fine_dims))), dtype=u.dtype)
+        if self.layout != "ell":
+            n = self.s_pad if self.layout == "interleaved" else int(np.prod(self.fine_dims))
+            ug = np.zeros((3, n), dtype=u.dtype)
             ug[:, self.perm] = u
             pg = np.empty_like(p)
             pg[self.perm_p] = p
-            u, p = pstl.parity_split_table(ug, self.fine_dims, self.sp_c), pg
+            u, p = ug, pg
+            if self.layout == "parity":
+                u = pstl.parity_split_table(u, self.fine_dims, self.sp_c)
         uk = torch.from_numpy(np.ascontiguousarray(u, dtype=dtype)).to(self.device)
         pk = torch.from_numpy(np.ascontiguousarray(p, dtype=dtype)).to(self.device)
         return ImplicitState(uk=uk, pk=pk, pk_prev=pk.clone())
 
     # ------------------------------------------------------------- one step
     def _time_step(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
-        if self.layout == "ell":
-            return self._time_step_ell(d, state)
-        return self._time_step_parity(d, state)
+        return {"parity": self._time_step_parity, "interleaved": self._time_step_interleaved,
+                "ell": self._time_step_ell}[self.layout](d, state)
+
+    def _pressure_update(self, d, div_uk, pk_prev, pk_prevprev):
+        """step2 of the box layouts: R2 = -(1/dt) G^T u^k, the pressure CG on
+        the coarse Z window, p^{k+1} = p^k + Pdiff.  Returns (p^{k+1}, CG
+        result)."""
+        cfg = self.config
+        cg_solve = fused_cg_plain if self.plain else fused_cg
+        r2 = (-1.0 / self.dt) * div_uk * d["p_mask"]
+        if self.ppe_project:
+            # all-Neumann + boundary thru-flow: remove the null-space
+            # (constant) component the discrete BC flux defect injects
+            r2 = r2 - torch.mean(r2)
+        if self.pin_grid >= 0:
+            r2[self.pin_grid] = 0.0
+        warm = bool(cfg.implicit_warm_start)
+        sol = cg_solve(
+            d["Z_win"], r2, d["Z_dinv"],
+            dims=self.coarse_dims, radius=self.z_radius,
+            tol=cfg.pressure_cg_tol, maxiter=cfg.pressure_cg_maxiter,
+            x0=(pk_prev - pk_prevprev) if warm else None,
+            unroll=max(1, int(cfg.pressure_cg_unroll)),
+            fuse_loop=cfg.pressure_cg_fuse_loop,
+            sym=cfg.pressure_cg_sym,
+            # MIXED policy: f64-accumulated dots inside the kernels
+            dot_mode="compensated" if cfg.krylov_dot_dtype() is not None else "plain",
+        )
+        pdiff = sol.x
+        if self.ppe_project:
+            # singular all-Neumann solve: pick the mean-zero representative
+            # so the arbitrary pressure level cannot drift across steps
+            pdiff = pdiff - torch.mean(pdiff)
+        return pk_prev + pdiff, sol
+
+    def _momentum_solve(self, a_mul, r1, uk_prev, a_diag):
+        """The batched 3-direction momentum solve of step1, Jacobi
+        preconditioned."""
+        cfg = self.config
+        warm = bool(cfg.implicit_warm_start)
+        return self._momentum_solver(
+            a_mul,
+            r1,
+            x0=uk_prev if warm else None,
+            tol=cfg.momentum_tol,
+            atol=cfg.momentum_abs_tol,
+            maxiter=cfg.momentum_maxiter,
+            # warm-started solves take AT LEAST one Krylov step: the
+            # ||b||-relative bound is inflated by the M/dt term and lets a
+            # warm solve exit at 0 iterations, freezing the time loop at an
+            # unconverged state; miniter keeps the reference's exact bound
+            # and merely forbids the zero-iteration exit
+            miniter=1 if warm else 0,
+            dot_dtype=cfg.krylov_dot_dtype(),
+            precond=lambda r: r / a_diag,
+        )
 
     def _time_step_parity(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
         """Class-major layout (ops/parity_stencil): the per-step LHS is the
@@ -464,7 +570,6 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         # versions on CPU tensors; `plain` forces the plain versions
         apply = pstl.parity_apply_plain if self.plain else pstl.parity_apply
         div_apply = pstl.parity_div_apply_plain if self.plain else pstl.parity_div_apply
-        cg_solve = fused_cg_plain if self.plain else fused_cg
 
         uk_prev, pk_prev, pk_prevprev = state       # uk (3, 8, Sp)
 
@@ -509,57 +614,74 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         r1 = m_mul(uk_prev) - grad(pdiff2)
         r1 = r1 * d["bc_mask_p"][None] + d["bc_vel_p"]
 
-        warm = bool(cfg.implicit_warm_start)
-        mom = self._momentum_solver(
-            a_mul,
-            r1.reshape(3, -1),
-            x0=uk_prev.reshape(3, -1) if warm else None,
-            tol=cfg.momentum_tol,
-            atol=cfg.momentum_abs_tol,
-            maxiter=cfg.momentum_maxiter,
-            # warm-started solves take AT LEAST one Krylov step: the
-            # ||b||-relative bound is inflated by the M/dt term and lets a
-            # warm solve exit at 0 iterations, freezing the time loop at an
-            # unconverged state; miniter keeps the reference's exact bound
-            # and merely forbids the zero-iteration exit
-            miniter=1 if warm else 0,
-            dot_dtype=cfg.krylov_dot_dtype(),
-            precond=lambda r: r / a_diag,
-        )
+        mom = self._momentum_solve(a_mul, r1.reshape(3, -1), uk_prev.reshape(3, -1), a_diag)
         uk = mom.x.reshape(3, 8, sp_c)
 
         # ---- step2: pressure CG on the coarse grid (the pressure grid IS
         # class 0)
-        r2 = (-1.0 / dt) * div(uk) * d["p_mask"]
-        if self.ppe_project:
-            # all-Neumann + boundary thru-flow: remove the null-space
-            # (constant) component the discrete BC flux defect injects
-            r2 = r2 - torch.mean(r2)
-        if self.pin_grid >= 0:
-            r2[self.pin_grid] = 0.0
-        pdiff0 = (pk_prev - pk_prevprev) if warm else None
-        sol = cg_solve(
-            d["Z_win"], r2, d["Z_dinv"],
-            dims=self.coarse_dims, radius=self.z_radius,
-            tol=cfg.pressure_cg_tol, maxiter=cfg.pressure_cg_maxiter,
-            x0=pdiff0,
-            unroll=max(1, int(cfg.pressure_cg_unroll)),
-            fuse_loop=cfg.pressure_cg_fuse_loop,
-            sym=cfg.pressure_cg_sym,
-            # MIXED policy: f64-accumulated dots inside the kernels
-            dot_mode="compensated" if cfg.krylov_dot_dtype() is not None else "plain",
-        )
-        pdiff = sol.x
-        if self.ppe_project:
-            # singular all-Neumann solve: pick the mean-zero representative
-            # so the arbitrary pressure level cannot drift across steps
-            pdiff = pdiff - torch.mean(pdiff)
-        pk = pk_prev + pdiff
+        pk, sol = self._pressure_update(d, div(uk), pk_prev, pk_prevprev)
 
         max_acc = torch.max(torch.abs(uk - uk_prev)) / dt
         probe = lambda c: uk[c, self.mon_cls, self.mon_q]
         stats = StepStats(
             u_mon=probe(0), v_mon=probe(1), w_mon=probe(2),
+            p_mon=pk[self.monitor_node_p], max_acc=max_acc,
+            iters=1, cg_iters=sol.iters, mom_iters=mom.iters,
+        )
+        return ImplicitState(uk=uk, pk=pk, pk_prev=pk_prev), stats
+
+    def _time_step_interleaved(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
+        """Flat grid-order layout (implicit_gq.py:836-1107, the kernel
+        branch): the per-step LHS assembled into the A window rows
+        (``assemble_window_values``), the momentum BiCGStab and M u^k through
+        ``window_spmv``, G through ``grad_window``, G^T through
+        ``div_compact_interleaved``."""
+        cfg = self.config
+        dt = self.dt
+        fine, nn, s_pad = self.fine_dims, self.nn, self.s_pad
+        # the wrappers run the kernels on CUDA tensors and the plain
+        # versions on CPU tensors; `plain` forces the plain versions
+        spmv_w = window_spmv_plain if self.plain else window_spmv
+        grad_w = grad_window_plain if self.plain else grad_window
+        div_c = div_compact_interleaved_plain if self.plain else div_compact_interleaved
+        uk_prev, pk_prev, pk_prevprev = state       # uk (3, s_pad)
+
+        # ---- per-step LHS: A = M/dt + K + A(u^k), BC rows zeroed with a
+        # unit diagonal (padding rows too); each element's (i, j) entry lands
+        # at the fixed window slot conv_oij[i][j]
+        ae = convection_elem_matrices(uk_prev[:, :nn], d["Sv"], d["gDSv"], d["gq"],
+                                      self.elem_dims, fine, stab_coef=cfg.conv_stab)
+        conv_vals = assemble_window_values(ae, self.local_off, self.conv_oij,
+                                           len(self.a_offsets), self.elem_dims, fine, s_pad)
+        a_vals = (d["MK_vals"] + conv_vals) * d["row_mask_grid"][None, :]
+        a_vals[self.a_zero_off] += d["diag_add_grid"]
+        a_diag = a_vals[self.a_zero_off]
+
+        a_mul = lambda x: spmv_w(a_vals, x, fine, offsets=self.a_offsets, trim=False,
+                                 name="window_spmv_mk_plus_a")
+        m_mul = lambda x: spmv_w(d["M_vals"], x, fine, offsets=self.a_offsets, trim=False,
+                                 name="window_spmv_m")
+
+        def grad(p):
+            pf = torch.nn.functional.pad(coarse_to_fine(p, self.coarse_dims, fine),
+                                         (0, s_pad - nn))
+            return grad_w(d["G_win"], pf, fine, self.g_radius, trim=False)
+
+        # ---- RHS = (M/dt) u^k - G (2 p^k - p^{k-1}); BC rows = BC values
+        pdiff2 = 2.0 * pk_prev - pk_prevprev
+        r1 = m_mul(uk_prev) - grad(pdiff2)
+        r1 = r1 * d["bc_mask"][None, :] + d["bc_vel"]
+        mom = self._momentum_solve(a_mul, r1, uk_prev, a_diag)
+        uk = mom.x
+
+        # ---- step2: pressure CG on the coarse grid
+        div_uk = div_c(d["GT_cwin"], uk, fine, self.coarse_dims)[: self.nnp]
+        pk, sol = self._pressure_update(d, div_uk, pk_prev, pk_prevprev)
+
+        max_acc = torch.max(torch.abs(uk - uk_prev)) / dt
+        mon = self.monitor_node
+        stats = StepStats(
+            u_mon=uk[0, mon], v_mon=uk[1, mon], w_mon=uk[2, mon],
             p_mon=pk[self.monitor_node_p], max_acc=max_acc,
             iters=1, cg_iters=sol.iters, mom_iters=mom.iters,
         )
@@ -640,7 +762,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         if self.layout == "parity":
             probe = lambda c: state.uk[c, self.mon_cls, self.mon_q]
         else:
-            probe = lambda c: state.uk[c, self.monitor_node]
+            probe = lambda c: state.uk[c, self.monitor_node]    # grid id on interleaved
         zero = torch.zeros((), dtype=state.uk.dtype, device=self.device)
         return StepStats(probe(0), probe(1), probe(2),
                          state.pk[self.monitor_node_p], zero, 0, 0, 0)
@@ -650,6 +772,9 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         """(u (NN,3), p (NNp,)) as numpy, deck node order."""
         if self.layout == "ell":
             return state.uk.cpu().numpy().T, state.pk.cpu().numpy()
-        u = pstl.parity_merge(state.uk, self.fine_dims).cpu().numpy()
+        if self.layout == "parity":
+            u = pstl.parity_merge(state.uk, self.fine_dims).cpu().numpy()
+        else:
+            u = state.uk[:, : self.nn].cpu().numpy()
         p = state.pk.cpu().numpy()
         return u[:, self.perm].T, p[self.perm_p]

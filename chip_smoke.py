@@ -5,7 +5,7 @@
     python3 chip_smoke.py --deck-n 4 --steps 8 --implicit-steps 8 \
         --bfs-dims 12x4x4 --bfs-steps 8 --bfs-implicit-steps 8   # a quick small run
 
-Drives the port's two main paths on the generated NE27000 lid-driven cavity
+Drives the port's main paths on the generated NE27000 lid-driven cavity
 (``cavity_deck(30, cluster=2.0)``, 61^3 velocity and 31^3 pressure nodes):
 the explicit BCH solver, ``ExplicitBCHSolver(deck, config).run(...)``, with
 the F32 / CG tol 1e-6 / warm-started, fused-CG configuration, and the
@@ -36,7 +36,21 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    against their plain paths, and on the NE27000 deck 20 steps at dt = 0.01
    from the stored developed state
    (``cfd_with_cuda_tpu/validation/data/cavity_re100_implicit_state.npz``);
-6. the unstructured path of both solvers on the backward-facing step
+6. the interleaved structured layout of both solvers on the same cavity
+   (``structured_layout="interleaved"``, fields (3, 227,328)):
+   ``kernels_interleaved`` (every launch form of the window kernel,
+   ``window_spmv`` for K, the "assemble" K + A, the implicit MK + A and M,
+   ``grad_window`` and ``div_window``, in f32 and the three modes in f64,
+   and the compact G^T on the interleaved field, against their plain
+   versions on the solvers' own tables; device, plain and cuSPARSE CSR
+   times and the byte bound), ``e2e_interleaved`` (rung 3 of bench.py's
+   ladder from rest: launch counts held against the sub-iteration history,
+   3 steps against the plain path and against the port's parity solver
+   from the same fields, 10 steps each of ``conv_mode="assemble"``, MIXED
+   and ``pressure_cg_sym`` against their plain paths) and
+   ``e2e_interleaved_implicit`` (the same for the implicit solver, without
+   "assemble");
+7. the unstructured path of both solvers on the backward-facing step
    ``bfs_deck(96, 40, 40)`` (138,400 hexes, 1,143,153 velocity and 147,477
    pressure nodes; natural outflow): ``bfs_setup`` (the explicit solver's
    host setup and its 275-slot banded pressure window), ``banded_cg``
@@ -67,8 +81,15 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32, outside the tensor cores
+FP64_FLOP_PER_S = 34e12          # H100 SXM fp64, outside the tensor cores (data sheet)
 WARMUP_STEPS = 5
 APPLY_TOL = 1e-5   # of the largest sum |w x|: FMA vs rounded product over <= 1241 terms, same order
+# the window kernel against its plain version, of the largest sum |w x|: the same <= 125
+# terms in the same order, the kernel's FMA against torch's rounded product: at most a
+# rounding per term, f32 (the parity applies read <= 8.2e-8 over up to 1241 terms) and f64
+# (the 1e-12 of the JAX package's f64 fixtures, tests/test_pallas_stencil.py:71)
+WINDOW_TOL = 1e-6
+WINDOW_TOL_F64 = 1e-12
 CG_X_TOL = 1e-3    # of max|x|: two f32 CGs whose dots sum in different orders, run to convergence
 # the same CG after a FIXED 0, 1 and 40 iterations (tol = 0), where nothing is forgiven
 # by convergence: x of max|x|, and |r| relative to itself, by depth.  0: one apply and
@@ -86,7 +107,9 @@ IMPLICIT_TOLS = dict(u=5e-5, p=5e-5, cg_iters=4, mom_iters=1)
 # 188-192 and falls below for good at k = 196, while kernel and plain |r| differ by 13-34 % at that
 # depth in either dot mode (python -m cfd_with_cuda_tpu_torch.cg_trace).  Whether a solve
 # stops in the dip or 12-16 iterations later hangs on rounding; the F32 and half-window
-# runs happen to take the same side on every step and keep the bound of 4
+# runs on the parity layout happen to take the same side on every step and keep the
+# bound of 4.  The interleaved layout's half-window run took the other side on one of
+# its 10 steps (180 against 196, fields within 1.2e-6) and takes this bound too
 MIXED_CG_ITERS_TOL = 16
 UNROLL = 4         # SolverConfig.pressure_cg_unroll
 SEEDED_U_MON = -0.2051389   # cavity_re100_implicit.npz: u_mon of the stored state at t = 250
@@ -150,9 +173,20 @@ def kernel_device_ms(fn, kernel_name: str, reps: int) -> float:
     return sum(spans) / len(spans) / 1e3
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """The least time of a function: the larger of its bytes over the HBM rate
+    and its operations over the peak rate of their type.  Every bound here
+    counts a weight table by its nonzero weights (``nnz``), the ones the
+    function needs; the phase lines give the whole table's time beside it
+    (``stream_bound_ms``), the bytes the kernels read."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nnz(table) -> int:
+    import torch
+
+    return int(torch.count_nonzero(table))
 
 
 # ---------------------------------------------------------------- phase 1
@@ -268,13 +302,17 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
         if lib_fn is not None:
             lib_ms = time_ms(lib_fn, 20)
             lib_err = float((lib_out() - y).abs().max())
-        m_all = wc.shape[1] * wc.shape[0] + (0 if wc2 is None else wc2.shape[1] * wc2.shape[0])
-        nbytes = 4 * (m_all * sp + x.numel() + co * 8 * sp)
-        flops = 2 * co * sp * (wc.shape[1] + (0 if wc2 is None else wc2.shape[1]))
+        tables = [wc] + ([] if wc2 is None else [wc2])
+        fields = x.numel() + co * 8 * sp
+        nbytes = 4 * (sum(nnz(t) for t in tables) + fields)
+        # a table shared over the channels is used once per channel
+        flops = sum(2 * nnz(t) * co // t.shape[0] for t in tables)
         b_ms, b_by = bound(nbytes, flops)
         results[name] = dict(max_abs_err=err, err_rel=rel, tol=APPLY_TOL, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms, library_abs_err=lib_err,
-                             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+                             bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                             stream_bound_ms=bound(4 * (sum(t.numel() for t in tables)
+                                                        + fields), 0)[0])
         del y, y_plain, y_abs
 
     # K u (one table, shared weights over 3 channels)
@@ -320,15 +358,16 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
     pairs = window_stencil.div_class_pairs(solver.coarse_dims)
     a_d = _div_csr(gt, pairs, sp)
     uf = u.reshape(-1)
-    nbytes = 4 * (3 * len(pairs) * sp + u.numel() + sp)
-    b_ms, b_by = bound(nbytes, 6 * len(pairs) * sp)
+    nbytes = 4 * (nnz(gt) + u.numel() + sp)
+    b_ms, b_by = bound(nbytes, 2 * nnz(gt))
     results["div_compact"] = dict(
         max_abs_err=err, err_rel=rel, tol=APPLY_TOL,
         ms=time_ms(lambda: pstl.parity_div_apply(gt, u, solver.coarse_dims), 20),
         plain_ms=time_ms(lambda: pstl.parity_div_apply_plain(gt, u, solver.coarse_dims), 3),
         library_ms=time_ms(lambda: torch.mv(a_d, uf), 20),
         library_abs_err=float((torch.mv(a_d, uf) - y).abs().max()),
-        bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=6 * len(pairs) * sp,
+        bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=2 * nnz(gt),
+        stream_bound_ms=bound(4 * (gt.numel() + u.numel() + sp), 0)[0],
     )
     del a_d
 
@@ -361,9 +400,9 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
             raise AssertionError(f"cg_solve {start}: stopped unconverged at k={k}")
         ms = time_ms(lambda: fused_cg_mod.fused_cg(win, b, dinv, x0=xs, **kw), 20)
         plain_ms = time_ms(lambda: fused_cg_mod.fused_cg_plain(win, b, dinv, x0=xs, **kw), 2)
-        w3 = win.shape[0]
-        nbytes = 4 * (w3 * nnp + (3 if xs is None else 4) * nnp) + 4 * w3 + 8
-        flops = k * (2 * w3 + 12) * nnp + (2 * w3 * nnp if xs is not None else 0) + 6 * nnp
+        w3, nz = win.shape[0], nnz(win)
+        nbytes = 4 * (nz + (3 if xs is None else 4) * nnp) + 4 * w3 + 8
+        flops = k * (2 * nz + 12 * nnp) + (2 * nz if xs is not None else 0) + 6 * nnp
         b_ms, b_by = bound(nbytes, flops)
         results[f"cg_solve_{start}"] = dict(
             max_abs_err=err, err_rel=rel, tol=CG_X_TOL, iters=k, iters_plain=k_ref,
@@ -566,11 +605,12 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
         loop_ms = time_ms(lambda: run(cg.fused_cg, n_it), 5)
         _, init_plain = _timed_once(lambda: run(cg.fused_cg_plain, 0))
         _, loop_plain = _timed_once(lambda: run(cg.fused_cg_plain, n_it))
-        rows = w.shape[0]
+        rows, nz, nz_full = w.shape[0], nnz(w), nnz(win)
         # init (warm): window + b, dinv, x0 read, x, r, p written; iter: window +
-        # x, r, p, dinv read, x, r, p written
-        ib, ib_by = bound(4 * (rows + 6) * n, (2 * rows + 8) * n)
-        tb, tb_by = bound(4 * (rows + 7) * n, (2 * rows + 12) * n)
+        # x, r, p, dinv read, x, r, p written; the operations of the full window
+        # (the half window applies both directions)
+        ib, ib_by = bound(4 * (nz + 6 * n), 2 * nz_full + 8 * n)
+        tb, tb_by = bound(4 * (nz + 7 * n), 2 * nz_full + 12 * n)
         results[f"launch_{name}"] = dict(
             window_rows=rows, fixed_depth_errs=errs, x_tol=CG_FIXED_X_TOL, r_tol=CG_FIXED_R_TOL,
             # the kernel alone (profiler), and the wrapper's call with its host
@@ -582,6 +622,7 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
             iter_ms=(loop_ms - init_wall_ms) / n_it,
             iter_plain_ms=(loop_plain - init_plain) / n_it,
             iter_abs_err=errs[n_it]["x_abs"], iter_bound_ms=tb, iter_bound_by=tb_by,
+            iter_stream_bound_ms=bound(4 * (rows + 7) * n, 0)[0],
         )
 
     # the half-window apply alone against the full-window apply
@@ -593,7 +634,7 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
     if not rel <= APPLY_TOL:
         raise AssertionError(f"{tag} sym apply vs the full window: {rel:.3e} > {APPLY_TOL}")
     a_z = _z_csr(win, offs, n)
-    sb, sb_by = bound(4 * (nh + 2) * n, 2 * nw * n)
+    sb, sb_by = bound(4 * (nnz(half) + 2 * n), 2 * nnz(win))
     results["sym_apply"] = dict(
         max_abs_err=err, err_rel=rel, tol=APPLY_TOL, window_rows=nh,
         # the kernel alone (profiler): the wrapper's host work outlasts it
@@ -603,7 +644,7 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
         plain_ms=time_ms(lambda: cg.window_apply_plain(half, v, offs[nw // 2:], True), 3),
         library_ms=time_ms(lambda: torch.mv(a_z, v), 20),
         library_abs_err=float((torch.mv(a_z, v) - y).abs().max()),
-        bound_ms=sb, bound_by=sb_by,
+        bound_ms=sb, bound_by=sb_by, stream_bound_ms=bound(4 * (nh + 2) * n, 0)[0],
     )
     del a_z
 
@@ -634,13 +675,19 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
 
 # ---------------------------------------------------------------- phase 5
 
-def _implicit_expect(hist, counts, **modes):
-    """Launch counts a run of the implicit solver implies, per its history."""
+def _implicit_expect(hist, counts, layout="parity", **modes):
+    """Launch counts a run of the implicit solver implies, per its history
+    and layout."""
     cg_it = sum(int(h["cg_iters"]) for h in hist)
     mom = sum(int(h["mom_iters"]) for h in hist)
     n = len(hist)
-    on_path = dict(cg_init=n, cg_iter=cg_it, div_compact=n, parity_apply_g=n,
-                   parity_apply_k=2 * n + 2 * mom)          # M u, A x0, 2 A per iteration
+    if layout == "parity":
+        on_path = dict(cg_init=n, cg_iter=cg_it, div_compact=n, parity_apply_g=n,
+                       parity_apply_k=2 * n + 2 * mom)      # M u, A x0, 2 A per iteration
+    else:
+        # M u^k once a step; A x0 once and A twice per BiCGStab iteration
+        on_path = dict(cg_init=n, cg_iter=cg_it, div_compact_interleaved=n, grad_window=n,
+                       window_spmv_m=n, window_spmv_mk_plus_a=n + 2 * mom)
     for name, on in modes.items():
         if on:
             on_path[name] = n + cg_it                       # every cg_init and cg_iter launch
@@ -656,7 +703,7 @@ def _implicit_vs_plain(what, solver, ImplicitGQSolver, cuda_lib, state, n_steps,
     the comparison and asserts only the counts and finite fields."""
     import numpy as np
 
-    attrs = {k: getattr(solver, k) for k in ImplicitGQSolver.STATIC_ATTRS}
+    attrs = solver.static_attrs()
     plain = ImplicitGQSolver.from_tables(solver.deck, solver.config, solver.d, attrs,
                                          device=solver.device, plain=True)
     cuda_lib.reset_launch_counts()
@@ -665,7 +712,7 @@ def _implicit_vs_plain(what, solver, ImplicitGQSolver, cuda_lib, state, n_steps,
     st_p, h_p = plain.run(state, n_steps=n_steps)
     if dict(cuda_lib.launch_counts) != counts:
         raise AssertionError(f"{what}: the plain path launched a kernel")
-    on_path, expect = _implicit_expect(h_k, counts, **modes)
+    on_path, expect = _implicit_expect(h_k, counts, solver.layout, **modes)
     if min(on_path.values()) <= 0 or counts != expect:
         raise AssertionError(f"{what}: launch counts {counts}, expected {expect}")
     u_k, p_k = solver.fields(st_k)
@@ -690,7 +737,11 @@ def _implicit_vs_plain(what, solver, ImplicitGQSolver, cuda_lib, state, n_steps,
 
 
 def phase_e2e_implicit(solver, ImplicitGQSolver, cuda_lib, cg, n_steps: int,
-                       DTypePolicy, strict: bool) -> dict:
+                       DTypePolicy, strict: bool, tag: str = "implicit") -> dict:
+    """Warm-up then timed steps from rest with the launch counts held against
+    the history; 3 steps against the plain path; 10 steps each of MIXED and
+    the half window against their plain paths.  ``tag`` names the phases
+    (``e2e_<tag>``, ``<tag>_kernel_vs_plain_3_steps``, ...)."""
     import torch
 
     state = solver.initial_state()
@@ -708,44 +759,50 @@ def phase_e2e_implicit(solver, ImplicitGQSolver, cuda_lib, cg, n_steps: int,
     counts = dict(cuda_lib.launch_counts)
     hist = hist_w + hist_t
     if len(hist) != n_steps:
-        raise AssertionError(f"implicit: ran {len(hist)} of {n_steps} steps")
-    on_path, expect = _implicit_expect(hist, counts)
+        raise AssertionError(f"{tag}: ran {len(hist)} of {n_steps} steps")
+    on_path, expect = _implicit_expect(hist, counts, solver.layout)
     if min(on_path.values()) <= 0 or counts != expect:
-        raise AssertionError(f"implicit: launch counts {counts}, expected {expect}")
+        raise AssertionError(f"{tag}: launch counts {counts}, expected {expect}")
     if not (torch.isfinite(state.uk).all() and torch.isfinite(state.pk).all()):
-        raise AssertionError("implicit: non-finite fields")
+        raise AssertionError(f"{tag}: non-finite fields")
     timed = hist_t
     out = dict(
-        phase="e2e_implicit", steps=n_steps, warmup_steps=warm,
+        phase=f"e2e_{tag}", layout=solver.layout, steps=n_steps, warmup_steps=warm,
         ms_per_step=(t2 - t1) / (n_steps - warm) * 1e3, warmup_s=t1 - t0,
         cg_iters_mean=sum(h["cg_iters"] for h in timed) / len(timed),
         mom_iters_mean=sum(h["mom_iters"] for h in timed) / len(timed),
         cg_iters_first_last=[int(hist[0]["cg_iters"]), int(hist[-1]["cg_iters"])],
         mom_iters_first_last=[int(hist[0]["mom_iters"]), int(hist[-1]["mom_iters"])],
         u_mon=hist[-1]["u_mon"], max_acc=hist[-1]["max_acc"], launches=counts,
-        launches_per_step="cg_init 1, cg_iter = cg_iters, div_compact 1, parity_apply_g 1, "
-                          "parity_apply_k 2 + 2 mom_iters",
+        launches_per_step=(
+            "cg_init 1, cg_iter = cg_iters, div_compact 1, parity_apply_g 1, "
+            "parity_apply_k 2 + 2 mom_iters" if solver.layout == "parity" else
+            "cg_init 1, cg_iter = cg_iters, div_compact_interleaved 1, grad_window 1, "
+            "window_spmv_m 1, window_spmv_mk_plus_a 1 + 2 mom_iters"),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
     )
     emit(out)
+    out["state"] = state
 
-    _implicit_vs_plain("implicit_kernel_vs_plain_3_steps", solver, ImplicitGQSolver, cuda_lib,
+    _implicit_vs_plain(f"{tag}_kernel_vs_plain_3_steps", solver, ImplicitGQSolver, cuda_lib,
                        state, 3, strict)
     # MIXED (compensated dots) and the half window share the F32 tables
-    attrs = {k: getattr(solver, k) for k in ImplicitGQSolver.STATIC_ATTRS}
+    attrs = solver.static_attrs()
     cfg = solver.config
     mixed = ImplicitGQSolver.from_tables(
         solver.deck, dataclasses.replace(cfg, dtype_policy=DTypePolicy.MIXED),
         solver.d, attrs, device=solver.device)
-    out["mixed"] = _implicit_vs_plain("implicit_mixed_vs_plain_10_steps", mixed,
+    out["mixed"] = _implicit_vs_plain(f"{tag}_mixed_vs_plain_10_steps", mixed,
                                       ImplicitGQSolver, cuda_lib, state, min(10, n_steps),
                                       strict, cg_iters_tol=MIXED_CG_ITERS_TOL, comp_dot=True)
     half = cg.half_window(solver.d["Z_win"].cpu().numpy(), solver.coarse_dims, solver.z_radius)
     sym = ImplicitGQSolver.from_tables(
         solver.deck, dataclasses.replace(cfg, pressure_cg_sym=True),
         {**solver.d, "Z_win": torch.from_numpy(half)}, attrs, device=solver.device)
-    out["sym"] = _implicit_vs_plain("implicit_sym_vs_plain_10_steps", sym, ImplicitGQSolver,
-                                    cuda_lib, state, min(10, n_steps), strict, sym_apply=True)
+    out["sym"] = _implicit_vs_plain(
+        f"{tag}_sym_vs_plain_10_steps", sym, ImplicitGQSolver, cuda_lib, state,
+        min(10, n_steps), strict, sym_apply=True,
+        cg_iters_tol=None if solver.layout == "parity" else MIXED_CG_ITERS_TOL)
     return out
 
 
@@ -791,7 +848,7 @@ def phase_seeded(deck, cfg, ImplicitGQSolver, n_steps: int = 20) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 
 def _bfs_deck(bfs_deck, dims, dt):
     return bfs_deck(*dims, dt=dt, **BFS_KW)
@@ -890,15 +947,17 @@ def phase_banded_cg(solver, cg, cuda_lib) -> dict:
                 rec.update(init_ms=time_ms(init, 20), iter_ms=time_ms(step, n_it))
             results[f"{form}_{dot_mode}"] = rec
 
-    ib, ib_by = bound(4 * (nw + 6) * n, (2 * nw + 8) * n)
-    tb, tb_by = bound(4 * (nw + 7) * n, (2 * nw + 12) * n)
+    nz = nnz(win)
+    ib, ib_by = bound(4 * (nz + 6 * n), 2 * nz + 8 * n)
+    tb, tb_by = bound(4 * (nz + 7 * n), 2 * nz + 12 * n)
     a_z = _z_csr(win, offs, n)
     lib_ms = time_ms(lambda: torch.mv(a_z, x0), 20)
     lib_err = float((torch.mv(a_z, x0) - cg.window_apply_plain(win, x0, offs)).abs().max())
     del a_z
     out = dict(phase="banded_cg", n=n, offsets=nw, max_halo=max(abs(o) for o in offs),
-               window_mb=4 * nw * n / 1e6, init_bound_ms=ib, init_bound_by=ib_by,
-               iter_bound_ms=tb, iter_bound_by=tb_by, library_csr_mv_ms=lib_ms,
+               window_mb=4 * nw * n / 1e6, window_nnz=nz, init_bound_ms=ib,
+               init_bound_by=ib_by, iter_bound_ms=tb, iter_bound_by=tb_by,
+               iter_stream_bound_ms=bound(4 * (nw + 7) * n, 0)[0], library_csr_mv_ms=lib_ms,
                library_abs_err=lib_err, checks=results)
     emit(out)
     return out
@@ -1079,6 +1138,412 @@ def phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, cfg, n_st
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 6
+
+def _window_csr(win, offs, n_in, row_of=None, col_base=0):
+    """A window table ``win (D, m)`` as CSR rows ``row_of[s]`` (default s) and
+    columns ``col_base + s + offs[k]`` (kept where 0 <= s + off < n_in and the
+    weight is not zero): the library yardstick's operator."""
+    import torch
+
+    dev = win.device
+    m = win.shape[-1]
+    s = torch.arange(m, device=dev)
+    off = torch.tensor(offs, device=dev)
+    cols = s[None] + off[:, None]
+    ok = (cols >= 0) & (cols < n_in) & (win != 0)
+    rows = (s if row_of is None else row_of)[None].expand_as(cols)
+    return rows[ok], (col_base + cols)[ok], win[ok]
+
+
+def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
+    """Every launch form of the window kernel (TPU kernel row 10) and the
+    compact divergence on an interleaved field (row 11) at the NE27000
+    interleaved shapes and the solvers' own tables, against their plain
+    versions on the card (f32, and the three modes in f64), with the kernel,
+    plain and library times and the bound (7/8 of a G window row and about
+    half of a K row are structural zeros, which the kernel streams)."""
+    import numpy as np
+    import torch
+
+    ws = window_stencil
+    rng = np.random.default_rng(20261017)
+    dev = xs.device
+    n, nn, fine = xs.s_pad, xs.nn, xs.fine_dims
+    rand = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    results = {}
+
+    def check(name, kernel, plain, absolute, tol, table, fields, lib=None):
+        """``table``: the weights the kernel reads; ``fields``: the elements of
+        the fields it reads and writes."""
+        y, y_plain, y_abs = kernel(), plain(), absolute()
+        torch.cuda.synchronize()
+        err, rel = _apply_err(y, y_plain, y_abs)
+        if not rel <= tol:
+            raise AssertionError(f"{name}: kernel vs plain {rel:.3e} > {tol}")
+        nz, size, b = nnz(table), table.numel(), table.element_size()
+        # one multiply-add per nonzero weight and output channel (the fields
+        # of an SPMV share one table)
+        flops = 2 * nz * (y.shape[0] if table.dim() == 2 else 1)
+        b_ms, b_by = bound(b * (nz + fields), flops,
+                           FP64_FLOP_PER_S if b == 8 else FP32_FLOP_PER_S)
+        out = dict(max_abs_err=err, err_rel=rel, tol=tol, ms=time_ms(kernel, 20),
+                   plain_ms=time_ms(plain, 3), bound_ms=b_ms, bound_by=b_by,
+                   bytes=b * (nz + fields), flops=flops, table_nnz=nz, table_size=size,
+                   stream_bound_ms=bound(b * (size + fields), 0)[0], library_ms=None,
+                   library_abs_err=None)
+        if lib is not None:
+            a, x, post = lib          # post: the sparse product in the kernel's layout
+            out["library_ms"] = time_ms(lambda: torch.sparse.mm(a, x), 20)
+            out["library_abs_err"] = float((post(torch.sparse.mm(a, x)) - y).abs().max())
+        results[name] = out
+        return out
+
+    def spmv_form(name, table, offs, x, tol, library=True):
+        c = x.shape[0]
+        lib = None
+        if library:
+            r, cl, v = _window_csr(table, offs, n)
+            lib = (_csr(r, cl, v, (n, n)), x.T.contiguous(), lambda r: r.T)
+        return check(
+            name,
+            lambda: ws.window_spmv(table, x, fine, offsets=offs, trim=False,
+                                   name=name.removeprefix("f64_")),
+            lambda: ws.window_spmv_plain(table, x, fine, offsets=offs, trim=False),
+            lambda: ws.window_spmv_plain(table.abs(), x.abs(), fine, offsets=offs, trim=False),
+            tol, table, 2 * c * n, lib)
+
+    u = rand(3, n)
+    d = xs.d
+    # ---- K u (the explicit path: 125 offsets, 3 channels)
+    spmv_form("window_spmv_k", d["K_vals"], xs.k_offsets, u, WINDOW_TOL)
+    # ---- (K + A) u, the explicit "assemble" form on a seeded A(u)
+    ae = stencil.convection_elem_matrices(1e-2 * rand(3, nn), d["Sv"], d["gDSv"], d["gq"],
+                                          xs.elem_dims, fine)
+    ka = d["K_vals"] + stencil.assemble_window_values(
+        ae, xs.local_off, xs.conv_oij, len(xs.k_offsets), xs.elem_dims, fine, n)
+    spmv_form("window_spmv_k_plus_a", ka, xs.k_offsets, u, WINDOW_TOL)
+    del ka
+    # ---- the implicit LHS (MK + A, masked, unit diagonal) and M, as the step builds them
+    di = isolver.d
+    ae = stencil.convection_elem_matrices(1e-2 * rand(3, nn), di["Sv"], di["gDSv"], di["gq"],
+                                          isolver.elem_dims, fine)
+    a_vals = (di["MK_vals"] + stencil.assemble_window_values(
+        ae, isolver.local_off, isolver.conv_oij, len(isolver.a_offsets), isolver.elem_dims,
+        fine, n)) * di["row_mask_grid"][None]
+    a_vals[isolver.a_zero_off] += di["diag_add_grid"]
+    spmv_form("window_spmv_mk_plus_a", a_vals, isolver.a_offsets, u, WINDOW_TOL)
+    del a_vals, ae
+    spmv_form("window_spmv_m", di["M_vals"], isolver.a_offsets, u, WINDOW_TOL)
+
+    # ---- G p on the embedded coarse pressure, G^T u on the fine grid
+    g_offs = ws.window_offsets(fine, xs.g_radius)
+    pf = torch.nn.functional.pad(
+        stencil.coarse_to_fine(rand(xs.nnp), xs.coarse_dims, fine), (0, n - nn))
+
+    def grad_lib(g):
+        rows, cols, vals = [], [], []
+        for k in range(3):
+            r, c, v = _window_csr(g[k], g_offs, n, row_of=torch.arange(n, device=dev) + k * n)
+            rows.append(r), cols.append(c), vals.append(v)
+        return _csr(torch.cat(rows), torch.cat(cols), torch.cat(vals), (3 * n, n))
+
+    def div_lib(gt):
+        rows, cols, vals = [], [], []
+        for k in range(3):
+            r, c, v = _window_csr(gt[k], g_offs, n, col_base=k * n)
+            rows.append(r), cols.append(c), vals.append(v)
+        return _csr(torch.cat(rows), torch.cat(cols), torch.cat(vals), (n, 3 * n))
+
+    def grad_div(prefix, g, gt, x_p, x_u, tol):
+        check(f"{prefix}grad_window",
+              lambda: ws.grad_window(g, x_p, fine, xs.g_radius, trim=False),
+              lambda: ws.grad_window_plain(g, x_p, fine, xs.g_radius, trim=False),
+              lambda: ws.grad_window_plain(g.abs(), x_p.abs(), fine, xs.g_radius, trim=False),
+              tol, g, n + 3 * n,
+              None if prefix else (grad_lib(g), x_p[:, None], lambda r: r.reshape(3, n)))
+        check(f"{prefix}div_window",
+              lambda: ws.div_window(gt, x_u, fine, xs.g_radius),
+              lambda: ws.div_window_plain(gt, x_u, fine, xs.g_radius),
+              lambda: ws.div_window_plain(gt.abs(), x_u.abs(), fine, xs.g_radius),
+              tol, gt, 3 * n + n,
+              None if prefix else (div_lib(gt), x_u.reshape(-1, 1), lambda r: r[:nn, 0]))
+
+    assert xs.g_radius == 2 and d["GT_win"].shape[1] == len(g_offs)
+    grad_div("", d["G_win"], d["GT_win"], pf, u, WINDOW_TOL)
+
+    # ---- the three modes in f64 (the f64 JAX fixtures' own 1e-12)
+    u64, pf64 = u.double(), pf.double()
+    spmv_form("f64_window_spmv_k", d["K_vals"].double(), xs.k_offsets, u64, WINDOW_TOL_F64,
+              library=False)
+    grad_div("f64_", d["G_win"].double(), d["GT_win"].double(), pf64, u64, WINDOW_TOL_F64)
+    del u64, pf64
+
+    # ---- row 11: G^T on the interleaved field through the compact coarse rows
+    gt = d["GT_cwin"]
+    cx, cy, cz = xs.coarse_dims
+    fx, fy, _ = fine
+    q = torch.arange(gt.shape[-1], device=dev)
+    qx, qy, qz = q % cx, (q // cx) % cy, q // (cx * cy)
+    emb = (2 * qz * fy + 2 * qy) * fx + 2 * qx       # the fine node of coarse row q
+    fcols = emb[None] + torch.tensor(g_offs, device=dev)[:, None]
+    rows, cols, vals = [], [], []
+    for k in range(3):
+        ok = (q < cx * cy * cz)[None] & (fcols >= 0) & (fcols < nn) & (gt[k] != 0)
+        rows.append(q[None].expand_as(fcols)[ok])
+        cols.append((fcols + k * n)[ok])
+        vals.append(gt[k][ok])
+    a_c = _csr(torch.cat(rows), torch.cat(cols), torch.cat(vals), (gt.shape[-1], 3 * n))
+    check("div_compact_interleaved",
+          lambda: ws.div_compact_interleaved(gt, u, fine, xs.coarse_dims)[:, None],
+          lambda: ws.div_compact_interleaved_plain(gt, u, fine, xs.coarse_dims)[:, None],
+          lambda: ws.div_compact_interleaved_plain(gt.abs(), u.abs(), fine,
+                                                   xs.coarse_dims)[:, None],
+          WINDOW_TOL, gt, 3 * n + gt.shape[-1], (a_c, u.reshape(-1, 1), lambda r: r))
+    del a_c
+    emit(dict(phase="kernels_interleaved",
+              shapes=dict(s_pad=n, nn=nn, nnp=xs.nnp, k_offsets=len(xs.k_offsets),
+                          a_offsets=len(isolver.a_offsets), g_window=len(g_offs),
+                          gt_compact_rows=int(gt.shape[-1])),
+              tols=dict(f32=WINDOW_TOL, f64=WINDOW_TOL_F64), checks=results))
+    return results
+
+
+def _explicit_interleaved_expect(hist, counts, conv_mode, **modes):
+    """Launch counts a run of the explicit interleaved solver implies: per
+    step of s sub-iterations, (K + A) u* every sub-iteration and K acc on all
+    but the last (matrix-free: window_spmv_k 2s - 1; "assemble":
+    window_spmv_k_plus_a s and window_spmv_k s - 1), grad_window s + 1 (G p^n
+    once, G pdot each), div_compact_interleaved s, cg_init s; cg_iter is
+    checked against the last solve's count of each step (the only one the
+    history keeps): at least their sum, in whole groups of the unroll."""
+    subs = [int(h["iters"]) for h in hist]
+    if conv_mode == "assemble":
+        spmv = dict(window_spmv_k=sum(s - 1 for s in subs), window_spmv_k_plus_a=sum(subs))
+    else:
+        spmv = dict(window_spmv_k=sum(2 * s - 1 for s in subs))
+    on_path = dict(spmv, grad_window=sum(s + 1 for s in subs),
+                   div_compact_interleaved=sum(subs), cg_init=sum(subs),
+                   cg_iter=counts.get("cg_iter", 0))
+    for name, on in modes.items():
+        if on:
+            on_path[name] = on_path["cg_init"] + on_path["cg_iter"]
+    expect = {k: on_path.get(k, 0) for k in counts}
+    last = sum(int(h["cg_iters"]) for h in hist)
+    # under "assemble" a run of one-sub-iteration steps applies K alone never
+    needed = [v for k, v in on_path.items()
+              if not (conv_mode == "assemble" and k == "window_spmv_k")]
+    ok = (counts == expect and min(needed) > 0
+          and on_path["cg_iter"] >= last and on_path["cg_iter"] % UNROLL == 0)
+    return on_path, ok
+
+
+def _compare_runs(what, h_a, h_b, fields_a, fields_b, tols, cg_tol):
+    """The comparison line of two runs from one state; raises past ``tols``."""
+    import numpy as np
+
+    (u_a, p_a), (u_b, p_b) = fields_a, fields_b
+    du, dp = float(np.abs(u_a - u_b).max()), float(np.abs(p_a - p_b).max())
+    mon = max(abs(a[f] - b[f]) for a, b in zip(h_a, h_b)
+              for f in ("u_mon", "v_mon", "w_mon", "p_mon"))
+    subs = [[int(r["iters"]) for r in h] for h in (h_a, h_b)]
+    cg = [[int(r["cg_iters"]) for r in h] for h in (h_a, h_b)]
+    cmp = dict(phase=what, du=du, dp=dp, dmon=mon, tols=dict(tols, cg_iters=cg_tol),
+               sub_iters=subs, cg_iters=cg, u_mon=h_a[-1]["u_mon"])
+    emit(cmp)
+    if not (np.isfinite(u_a).all() and np.isfinite(p_a).all() and du <= tols["u"]
+            and dp <= tols["p"] and mon <= tols["mon"] and subs[0] == subs[1]
+            and all(abs(a - b) <= cg_tol for a, b in zip(*cg))):
+        raise AssertionError(f"{what}: runs disagree: {cmp}")
+    return cmp
+
+
+def _explicit_vs_plain(what, solver, cls, cuda_lib, state, n_steps, tols, **modes):
+    """``n_steps`` of the kernel path and of the plain path from ``state``, the
+    kernel path's launch counts (set to 0 just before) against its history."""
+    attrs = solver.static_attrs()
+    plain = cls.from_tables(solver.deck, solver.config, solver.d, attrs, device=solver.device,
+                            plain=True)
+    cuda_lib.reset_launch_counts()
+    st_k, h_k = solver.run(state, n_steps=n_steps)
+    counts = dict(cuda_lib.launch_counts)
+    st_p, h_p = plain.run(state, n_steps=n_steps)
+    if dict(cuda_lib.launch_counts) != counts:
+        raise AssertionError(f"{what}: the plain path launched a kernel")
+    on_path, ok = _explicit_interleaved_expect(h_k, counts, solver.config.conv_mode, **modes)
+    if not ok:
+        raise AssertionError(f"{what}: launch counts {counts}, expected {on_path}")
+    cmp = _compare_runs(what, h_k, h_p, solver.fields(st_k), plain.fields(st_p), tols, UNROLL)
+    cmp["launches"] = counts
+    return cmp
+
+
+def phase_e2e_interleaved(solver, ExplicitBCHSolver, cuda_lib, fused_cg, n_steps, DTypePolicy,
+                          strict) -> dict:
+    """Rung 3 of bench.py's ladder (F32, CG tol 1e-6, warm start, the default
+    per-iteration CG, structured_layout="interleaved") from rest: warm-up
+    then timed steps with launch counts; 3 steps against the plain path and
+    against the port's parity solver from the same state; 10 steps each of
+    conv_mode="assemble", MIXED and pressure_cg_sym against their plain
+    paths."""
+    import torch
+
+    tols = STEP_TOLS if strict else dict(u=float("inf"), p=float("inf"), mon=float("inf"))
+    state = solver.initial_state()
+    warm = min(WARMUP_STEPS, n_steps - 1)
+    cuda_lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, hist_w = solver.run(state, n_steps=warm)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    state, hist_t = solver.run(state, n_steps=n_steps - warm)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    counts = dict(cuda_lib.launch_counts)
+    hist = hist_w + hist_t
+    if len(hist) != n_steps:
+        raise AssertionError(f"interleaved: ran {len(hist)} of {n_steps} steps")
+    on_path, ok = _explicit_interleaved_expect(hist, counts, solver.config.conv_mode)
+    if not ok:
+        raise AssertionError(f"interleaved: launch counts {counts}, expected {on_path}")
+    if not (torch.isfinite(state.un).all() and torch.isfinite(state.pn).all()):
+        raise AssertionError("interleaved: non-finite fields")
+    subs = [int(h["iters"]) for h in hist]
+    out = dict(
+        phase="e2e_interleaved", layout=solver.layout, steps=n_steps, warmup_steps=warm,
+        ms_per_step=(t2 - t1) / (n_steps - warm) * 1e3, warmup_s=t1 - t0,
+        sub_iters_hist={str(v): subs.count(v) for v in sorted(set(subs))},
+        cg_iters_last_solve_first_last=[int(hist[0]["cg_iters"]), int(hist[-1]["cg_iters"])],
+        u_mon=hist[-1]["u_mon"], launches=counts,
+        launches_per_step="s sub-iterations: window_spmv_k 2s - 1, grad_window s + 1, "
+                          "div_compact_interleaved s, cg_init s, cg_iter = the solves' iterations",
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    emit(out)
+    _explicit_vs_plain("interleaved_kernel_vs_plain_3_steps", solver, ExplicitBCHSolver,
+                       cuda_lib, state, 3, tols)
+
+    # ---- the parity layout from the same fields (both states rebuilt from
+    # (u, p): the carried sub-iteration and warm-start vectors start at 0)
+    cfg = solver.config
+    par = ExplicitBCHSolver(solver.deck, dataclasses.replace(cfg, structured_layout="auto"))
+    if par.layout != "parity":
+        raise AssertionError(f"the parity solver took {par.layout}")
+    u, p = solver.fields(state)
+    st_i, h_i = solver.run(solver.state_from_fields(u, p), n_steps=3)
+    st_p, h_p = par.run(par.state_from_fields(u, p), n_steps=3)
+    # the two layouts sum their window applies in other orders; the CG counts
+    # may then part by one group of the unroll
+    out["vs_parity"] = _compare_runs("interleaved_vs_parity_3_steps", h_i, h_p,
+                                     solver.fields(st_i), par.fields(st_p), tols, UNROLL)
+    del par
+    torch.cuda.empty_cache()
+
+    attrs = solver.static_attrs()
+    n10 = min(10, n_steps)
+    asm = ExplicitBCHSolver.from_tables(solver.deck, dataclasses.replace(cfg, conv_mode="assemble"),
+                                        solver.d, attrs, device=solver.device)
+    out["assemble"] = _explicit_vs_plain("interleaved_assemble_vs_plain_10_steps", asm,
+                                         ExplicitBCHSolver, cuda_lib, state, n10, tols)
+    mixed = ExplicitBCHSolver.from_tables(
+        solver.deck, dataclasses.replace(cfg, dtype_policy=DTypePolicy.MIXED), solver.d, attrs,
+        device=solver.device)
+    out["mixed"] = _explicit_vs_plain("interleaved_mixed_vs_plain_10_steps", mixed,
+                                      ExplicitBCHSolver, cuda_lib, state, n10, tols,
+                                      comp_dot=True)
+    half = fused_cg.half_window(solver.d["Z_win"].cpu().numpy(), solver.coarse_dims,
+                                solver.z_radius)
+    sym = ExplicitBCHSolver.from_tables(
+        solver.deck, dataclasses.replace(cfg, pressure_cg_sym=True),
+        {**solver.d, "Z_win": torch.from_numpy(half)}, attrs, device=solver.device)
+    out["sym"] = _explicit_vs_plain("interleaved_sym_vs_plain_10_steps", sym, ExplicitBCHSolver,
+                                    cuda_lib, state, n10, tols, sym_apply=True)
+    return out
+
+
+def phase_interleaved_vs_parity_implicit(isolver, ImplicitGQSolver, state, strict) -> dict:
+    """3 implicit steps of the interleaved solver and of the port's parity
+    solver from the same fields (p^{k-1} = p^k in both)."""
+    import torch
+
+    par = ImplicitGQSolver(isolver.deck, dataclasses.replace(isolver.config,
+                                                             structured_layout="auto"))
+    if par.layout != "parity":
+        raise AssertionError(f"the parity solver took {par.layout}")
+    u, p = isolver.fields(state)
+    st_i, h_i = isolver.run(isolver.state_from_fields(u, p), n_steps=3)
+    st_p, h_p = par.run(par.state_from_fields(u, p), n_steps=3)
+    tols = IMPLICIT_TOLS if strict else dict(u=float("inf"), p=float("inf"))
+    tols = dict(u=tols["u"], p=tols["p"], mon=tols["u"])
+    out = _compare_runs("interleaved_implicit_vs_parity_3_steps", h_i, h_p, isolver.fields(st_i),
+                        par.fields(st_p), tols, IMPLICIT_TOLS["cg_iters"])
+    mom = [[int(r["mom_iters"]) for r in h] for h in (h_i, h_p)]
+    if strict and any(abs(a - b) > IMPLICIT_TOLS["mom_iters"] for a, b in zip(*mom)):
+        raise AssertionError(f"interleaved vs parity implicit: BiCGStab counts {mom}")
+    del par
+    torch.cuda.empty_cache()
+    return out
+
+
+def interleaved_phases(args, cavity_deck, cuda_lib, fused_cg, window_stencil, stencil,
+                       ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig) -> list:
+    """Phase 7 on the cavity's interleaved layout: the rows of the ``kernels``
+    line it measures (TPU kernel rows 10 and 11)."""
+    import torch
+
+    full = args.deck_n == 30
+    deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
+    t0 = time.time()
+    xcfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                        pressure_warm_start=True, structured_layout="interleaved",
+                        steps_per_chunk=25)
+    xs = ExplicitBCHSolver(deck, xcfg)
+    t1 = time.time()
+    icfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                        pressure_warm_start=True, structured_layout="interleaved",
+                        steps_per_chunk=25)
+    isolver = ImplicitGQSolver(cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001),
+                               icfg)
+    emit(dict(phase="setup_interleaved", layouts=[xs.layout, isolver.layout], nn=xs.nn,
+              nnp=xs.nnp, s_pad=xs.s_pad, explicit_setup_s=t1 - t0,
+              implicit_setup_s=time.time() - t1,
+              table_mb=dict(explicit=sum(v.numel() * v.element_size() for v in xs.d.values()) / 1e6,
+                            implicit=sum(v.numel() * v.element_size()
+                                         for v in isolver.d.values()) / 1e6)))
+    if xs.layout != "interleaved" or isolver.layout != "interleaved":
+        raise AssertionError("structured_layout='interleaved' was not taken")
+    kint = phase_kernels_interleaved(xs, isolver, window_stencil, stencil)
+    torch.cuda.empty_cache()
+    xe2e = phase_e2e_interleaved(xs, ExplicitBCHSolver, cuda_lib, fused_cg, args.implicit_steps,
+                                 DTypePolicy, strict=full)
+    del xs
+    torch.cuda.empty_cache()
+    ie2e = phase_e2e_implicit(isolver, ImplicitGQSolver, cuda_lib, fused_cg, args.implicit_steps,
+                              DTypePolicy, strict=full, tag="interleaved_implicit")
+    phase_interleaved_vs_parity_implicit(isolver, ImplicitGQSolver, ie2e.pop("state"), full)
+    del isolver
+    torch.cuda.empty_cache()
+
+    pst = "cfd_with_cuda_tpu/ops/pallas_stencil.py"
+    lx, li = xe2e["launches"], ie2e["launches"]
+    return [
+        ("window_spmv_k", "window_stencil.cu", pst + ":132", lx["window_spmv_k"],
+         kint["window_spmv_k"]),
+        ("window_spmv_k_plus_a", "window_stencil.cu", pst + ":132",
+         xe2e["assemble"]["launches"]["window_spmv_k_plus_a"], kint["window_spmv_k_plus_a"]),
+        ("window_spmv_mk_plus_a", "window_stencil.cu", pst + ":132",
+         li["window_spmv_mk_plus_a"], kint["window_spmv_mk_plus_a"]),
+        ("window_spmv_m", "window_stencil.cu", pst + ":132", li["window_spmv_m"],
+         kint["window_spmv_m"]),
+        ("grad_window", "window_stencil.cu", pst + ":132", lx["grad_window"],
+         kint["grad_window"]),
+        ("div_compact_interleaved", "div_compact.cu", pst + ":271",
+         lx["div_compact_interleaved"], kint["div_compact_interleaved"]),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck-n", type=int, default=30, help="cavity elements per edge (30: NE27000)")
@@ -1102,7 +1567,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
-    from cfd_with_cuda_tpu_torch.ops import cuda_lib, fused_cg, parity_stencil, window_stencil
+    from cfd_with_cuda_tpu_torch.ops import (
+        cuda_lib,
+        fused_cg,
+        parity_stencil,
+        stencil,
+        window_stencil,
+    )
     from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
     from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
     from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
@@ -1112,6 +1583,11 @@ def main() -> int:
     rows = cavity_phases(
         args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
         ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
+    torch.cuda.empty_cache()
+    rows += interleaved_phases(
+        args, cavity_deck, cuda_lib, fused_cg, window_stencil, stencil,
+        ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
+    torch.cuda.empty_cache()
 
     # ---- the unstructured path of both solvers on the backward-facing step
     dims = tuple(int(v) for v in args.bfs_dims.split("x"))

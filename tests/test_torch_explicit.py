@@ -158,15 +158,26 @@ def test_steps_match_jax_other_cg_modes(mode):
     np.testing.assert_allclose(p_t, p_j, rtol=0, atol=p_tol)
 
 
+def test_assemble_request_takes_the_planes_route_as_jax_does(reference):
+    """conv_mode="assemble" on the parity layout: the JAX package streams the
+    convection planes for every mode but "matrix-free" up to 100,000 coarse
+    nodes (explicit_bch.py:906-909), so its rung-1 run here is the reference.
+    (The interleaved layout's assemble form, "matrix-free" on both layouts
+    and structured_layout="interleaved": tests/test_torch_interleaved_explicit.py.)"""
+    js, ref_rows, ref_state = reference
+    ts = ExplicitBCHSolver(_deck(), SolverConfig(dtype_policy=DTypePolicy.F32,
+                                                 conv_mode="assemble", **RUNG1), device="cpu")
+    assert ts.layout == "parity"
+    state, rows = _run_port(ts)
+    _compare(js, ref_rows, ref_state, ts, state, rows)
+
+
 # structured="never" runs (the unstructured path: tests/test_torch_unstructured_*.py);
 # F64 and the XLA CG run there too and raise only on a box mesh like this one
 @pytest.mark.parametrize("override,msg", [
     pytest.param(dict(dtype_policy=DTypePolicy.F64), "F64 on a box mesh", id="override0"),
     pytest.param(dict(pressure_precond="mg"), "multigrid preconditioner on a box mesh",
                  id="override1"),
-    pytest.param(dict(conv_mode="assemble"), "on a box mesh", id="override3"),
-    pytest.param(dict(structured_layout="interleaved"), "interleaved", id="override4"),
-    pytest.param(dict(conv_mode="matrix-free"), "on a box mesh", id="override5"),
     pytest.param(dict(spmd_devices=2), "multi-device", id="override6"),
     pytest.param(dict(setup_cache="auto"), "setup_cache", id="override7"),
     pytest.param(dict(pressure_backend="xla"), "XLA pressure CG .* on a box mesh",

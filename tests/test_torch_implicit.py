@@ -280,8 +280,6 @@ def test_runs_on_the_card_by_default_and_raises_without_one():
                  id="override1-queue 1 item 6"),
     pytest.param(dict(pressure_precond="mg"), "queue 1 item 6", "on a box mesh",
                  id="override2-queue 1 item 6"),
-    pytest.param(dict(structured_layout="interleaved"), "queue 1 item 7", "interleaved",
-                 id="override3-queue 1 item 7"),
     pytest.param(dict(momentum_solver="gmres"), "queue 1 item 6", "gmres",
                  id="override5-queue 1 item 6"),
     pytest.param(dict(spmd_devices=2), "queue 1 item 11", "multi-device",

@@ -29,8 +29,9 @@ scipy direct-solve oracle, with the deck, config and bounds of
 A box mesh whose elements do not tile the grid (one element's corners
 relabelled by a quarter turn) takes the ELL step in both packages, as the
 per-step assembly of the structured step needs element-grid structure;
-the explicit solver takes the interleaved layout there, which the port
-does not run yet.
+the explicit solver takes the interleaved layout there
+(``tests/test_torch_interleaved_explicit.py`` holds it against the JAX
+package).
 """
 
 import numpy as np
@@ -41,14 +42,12 @@ import jax
 
 from cfd_with_cuda_tpu.mesh.generators import bfs_deck as jax_bfs_deck
 from cfd_with_cuda_tpu.mesh.generators import cavity_deck as jax_cavity_deck
-from cfd_with_cuda_tpu.solvers.explicit_bch import ExplicitBCHSolver as JaxExplicit
 from cfd_with_cuda_tpu.oracle.implicit_oracle import ImplicitOracle
 from cfd_with_cuda_tpu.solvers.implicit_gq import ImplicitGQSolver as JaxSolver
 from cfd_with_cuda_tpu.utils.config import DTypePolicy as JaxPolicy
 from cfd_with_cuda_tpu.utils.config import SolverConfig as JaxConfig
 from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
 from cfd_with_cuda_tpu_torch.ops import cuda_lib
-from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 
@@ -210,12 +209,3 @@ def test_box_without_element_structure_takes_the_ell_step_as_jax_does(policy, to
     (u, p), (u_j, p_j) = ts.fields(st), js.fields(st_j)
     assert np.abs(u - u_j).max() <= tol * np.abs(u_j).max()
     assert np.abs(p - p_j).max() <= tol * np.abs(p_j).max()
-
-
-def test_box_without_element_structure_raises_for_the_explicit_interleaved_layout():
-    js = JaxExplicit(_turned_box(jax_cavity_deck),
-                     JaxConfig(dtype_policy=JaxPolicy.F32, setup_cache="off"))
-    assert js.structured and js.layout == "interleaved"
-    with pytest.raises(NotImplementedError, match="interleaved layout: ROADMAP.md"):
-        ExplicitBCHSolver(_turned_box(cavity_deck), SolverConfig(dtype_policy=DTypePolicy.F32),
-                          device="cpu")
