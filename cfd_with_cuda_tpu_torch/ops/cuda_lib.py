@@ -38,7 +38,9 @@ NVCC_FLAGS = (
 )
 
 # launch-count names: one per kernel launch form on the main paths
-# (the window SPMV once per operator the solvers apply with it).
+# (the window SPMV once per operator the solvers apply with it; the parity
+# apply per operator shape and field form, "_streamed" where the field is
+# staged through shared memory).
 # "comp_dot" counts every launch whose reductions are the compensated dot
 # (comp_dot_f32 alone, or cg_init / cg_iter / cg_solve in that mode) and
 # "sym_apply" every launch that applies the symmetric half window
@@ -46,6 +48,8 @@ NVCC_FLAGS = (
 # launch's own name.
 KERNELS = (
     "parity_apply_k", "parity_apply_g", "parity_apply_k_plus_a",
+    "parity_apply_k_streamed", "parity_apply_g_streamed", "parity_apply_k_plus_a_streamed",
+    "parity_window_apply",
     "div_compact", "cg_solve", "cg_init", "cg_iter", "comp_dot", "sym_apply",
     "window_spmv", "window_spmv_k", "window_spmv_k_plus_a", "window_spmv_mk_plus_a",
     "window_spmv_m", "grad_window", "div_window", "div_compact_interleaved",
@@ -57,6 +61,8 @@ launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "parity_apply_f32": ("parity_apply", [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P]),
+    "parity_apply_streamed_f32": ("parity_apply", [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I,
+                                                   _I, _P, _I, _I, _P]),
     "div_compact_f32": ("div_compact", [_P, _I, _P, _P, _P, _I, _P]),
     "div_compact_interleaved_f32": ("div_compact", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                                                     _I, _I, _P]),

@@ -16,7 +16,10 @@ nonzeros (``build_parity_apply_tables``).
 
 Host tables (numpy, setup time) are copies of the JAX package's; the
 per-step ops are torch.  :func:`parity_apply` is the one kernel here
-(``csrc/parity_apply.cu``); :func:`parity_div_apply` reaches the compact
+(``csrc/parity_apply.cu``), with the field read whole from L2 or staged
+block by block through shared memory (the JAX package's 6 MiB rule picks
+the form); :func:`parity_window_apply` (per-class tables, no solver calls
+it) runs its resident form; :func:`parity_div_apply` reaches the compact
 divergence kernel of ``ops/window_stencil.py``.
 """
 
@@ -42,9 +45,15 @@ __all__ = [
     "parity_split_table",
     "parity_pairs",
     "decode_offsets",
+    "parity_window_tables",
+    "compact_class_tables",
     "build_parity_apply_tables",
+    "stream_field",
+    "stream_runs",
     "parity_apply",
     "parity_apply_plain",
+    "parity_window_apply",
+    "parity_window_apply_plain",
     "parity_div_apply",
     "parity_div_apply_plain",
     "elem_channel_shifts",
@@ -143,6 +152,39 @@ def parity_pairs(offsets_xyz, coarse_dims):
     return tuple(pairs)
 
 
+def parity_window_tables(win: np.ndarray, offsets_xyz, fine_dims,
+                         sp: int | None = None) -> np.ndarray:
+    """(n_off, S-fine) window values -> (8, n_off, Sp) class-split (host).
+
+    The row axis splits by class exactly like a field; zero weights stay
+    zero, so tables with structural class sparsity (G: rows of class p only
+    couple offset parities equal to p) compact afterwards by dropping
+    all-zero (class, slot) planes (:func:`compact_class_tables`).
+    """
+    out = parity_split_table(win, fine_dims, sp)       # (n_off, 8, Sp)
+    return np.ascontiguousarray(np.moveaxis(out, -2, 0))
+
+
+def compact_class_tables(wp: np.ndarray, pairs):
+    """Drop all-zero (class, slot) planes from ``wp (8, n_off, Sp)``.
+
+    Returns (wp_c (8, m, Sp), pairs_c) with a common per-class slot count m
+    (zero-padded where a class has fewer live slots): G tables shrink from
+    125 to at most 27 slots, K (no structural sparsity) stays put.
+    """
+    live = [[t for t in pairs[p] if np.any(wp[p, t[0]])] for p in range(8)]
+    m = max(1, max(len(v) for v in live))
+    out = np.zeros((8, m, wp.shape[-1]), wp.dtype)
+    pairs_c = []
+    for p in range(8):
+        row = []
+        for j, (w, pp, dq) in enumerate(live[p]):
+            out[p, j] = wp[p, w]
+            row.append((j, pp, dq))
+        pairs_c.append(tuple(row))
+    return out, tuple(pairs_c)
+
+
 def build_parity_apply_tables(win, offsets_xyz, fine_dims, dtype=None):
     """Host, setup-time: window table -> concat-slot parity form.
 
@@ -229,30 +271,56 @@ def parity_apply_plain(wc, x, *, pairs, co=None, wc2=None, pairs2=None):
     return y
 
 
-# the one cache of route tables, by the identity of their (static,
-# setup-time) tuples: a solver passes the same tuple objects every call, so
-# a call costs a dict lookup on a few ints, not a hash of the ~10^3-entry
-# route.  The tuples are kept with the entry so an id cannot be reused while
-# it is cached.  The weights are not part of the key.
+# the one cache of what is built from a route (the kernels' route tables,
+# its halo), by the identity of its (static, setup-time) tuples: a solver
+# passes the same tuple objects every call, so a call costs a dict lookup on
+# a few ints, not a walk over the ~10^3-entry route.  The tuples are kept
+# with the entry so an id cannot be reused while it is cached.  The weights
+# are not part of the key.
 _routes_by_id: dict = {}
 
 
-def _route_for(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device) -> torch.Tensor:
-    key = (id(pairs), id(pairs2), m1, m2, px, device)
+def _cached(key, build, *keep):
     hit = _routes_by_id.get(key)
     if hit is None:
         if len(_routes_by_id) >= 64:
             _routes_by_id.clear()
-        hit = (_route_table(pairs, pairs2, m1, m2, px, device), pairs, pairs2)
+        hit = (build(), keep)
         _routes_by_id[key] = hit
     return hit[0]
 
 
-def _route_table(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device) -> torch.Tensor:
-    """int32 route of csrc/parity_apply.cu: 9 class offsets, then
-    (table, j, p_in, dq) per entry, each class's first-table entries
-    before its second-table ones.  Raises when a route reads outside the
-    weights (m1, m2 planes) or the field (px classes)."""
+# The JAX package's rule for ``stream_x=None`` (cfd_with_cuda_tpu/ops/
+# parity_stencil.py:329, 369-380): the field streams when its halo-extended
+# copy (C, P, Sp + 2 halo + 128), halo = max |dq| rounded up to 128, is over
+# 6 MiB.  The port takes the same form for the same shapes: NE27000 fields
+# stay resident, 39^3 is the first cavity to stream its velocity, NE85184
+# and NE125000 stream it; the (1, 1, Sp) coarse pressure of G never streams.
+_X_STREAM_BYTES = 6 * 2**20
+
+
+def stream_field(x_shape, itemsize: int, pairs, pairs2=None) -> bool:
+    """Whether :func:`parity_apply` with ``stream_x=None`` streams a field of
+    shape ``(C, P, Sp)`` through this route (the JAX package's rule)."""
+    c, px, sp = x_shape
+    halo = _round_up(_cached(("halo", id(pairs), id(pairs2)), lambda: _halo(pairs, pairs2),
+                             pairs, pairs2), 128)
+    return c * px * (sp + 2 * halo + 128) * itemsize > _X_STREAM_BYTES
+
+
+def _route_for(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device,
+               streamed: bool = False):
+    """The int32 route of the resident kernel, or (route, runs, n_runs) of
+    the streamed one, built at first use and cached with the route."""
+    build = _stream_tables if streamed else _route_table
+    return _cached((id(pairs), id(pairs2), m1, m2, px, device, streamed),
+                   lambda: build(pairs, pairs2, m1, m2, px, device), pairs, pairs2)
+
+
+def _route_entries(pairs, pairs2, m1: int, m2: int, px: int):
+    """(class heads, (table, j, p_in, dq) entries): each class's first-table
+    entries before its second-table ones.  Raises when a route reads outside
+    the weights (m1, m2 planes) or the field (px classes)."""
     heads, ents = [0], []
     for p in range(8):
         for tab, prs, m in ((0, pairs, m1), (1, pairs2, m2)):
@@ -263,32 +331,64 @@ def _route_table(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device)
                     raise ValueError("parity_apply: route reads outside the weights or field")
                 ents.append((tab, j, pp, dq))
         heads.append(len(ents))
+    return heads, ents
+
+
+def _route_table(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device) -> torch.Tensor:
+    """int32 route of csrc/parity_apply.cu: 9 class offsets, then
+    (table, j, p_in, dq) per entry."""
+    heads, ents = _route_entries(pairs, pairs2, m1, m2, px)
     flat = heads + [v for e in ents for v in e]
     return torch.tensor(flat, dtype=torch.int32, device=device)
 
 
-def _launch_name(x, wc2) -> str:
+# the streamed kernel's staging geometry (csrc/parity_apply.cu kStreamQ,
+# kRunSpan): a block of 64 q, runs of dq in [lo, lo + 2]
+STREAM_Q = 64
+RUN_SPAN = 2
+RUN_LEN = STREAM_Q + RUN_SPAN
+
+
+def stream_runs(pairs, pairs2, m1: int, m2: int, px: int):
+    """Host half of the streamed kernel: ``(heads, entries, runs)``.
+
+    Each input class's distinct shifts are grouped, in increasing order,
+    into runs ``(p_in, lo)`` holding dq in [lo, lo + RUN_SPAN]; a block
+    starting at q0 stages run r's ``RUN_LEN`` values x[c, p_in, q0 + lo + k]
+    at ``(c * n_runs + r) * RUN_LEN + k``.  Every entry becomes ``(table, j,
+    dq, spos)`` with spos = r * RUN_LEN + dq - lo, the staged position of
+    x[0, p_in, q0 + dq] (its channel c at + c * n_runs * RUN_LEN), in the
+    resident route's order."""
+    heads, ents = _route_entries(pairs, pairs2, m1, m2, px)
+    runs, where = [], {}
+    for pp in sorted({e[2] for e in ents}):
+        lo = None
+        for dq in sorted({e[3] for e in ents if e[2] == pp}):
+            if lo is None or dq > lo + RUN_SPAN:
+                lo = dq
+                runs.append((pp, lo))
+            where[pp, dq] = (len(runs) - 1) * RUN_LEN + dq - lo
+    return heads, [(tab, j, dq, where[pp, dq]) for tab, j, pp, dq in ents], runs
+
+
+def _stream_tables(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device):
+    heads, ents, runs = stream_runs(pairs, pairs2, m1, m2, px)
+    route = torch.tensor(heads + [v for e in ents for v in e], dtype=torch.int32, device=device)
+    run_t = torch.tensor([v for r in runs for v in r] or [0], dtype=torch.int32, device=device)
+    return route, run_t, len(runs)
+
+
+def _launch_name(x, wc2, streamed: bool) -> str:
     if wc2 is not None:
-        return "parity_apply_k_plus_a"
-    return "parity_apply_g" if x.shape[1] == 1 else "parity_apply_k"
+        name = "parity_apply_k_plus_a"
+    else:
+        name = "parity_apply_g" if x.shape[1] == 1 else "parity_apply_k"
+    return name + "_streamed" if streamed else name
 
 
-def parity_apply(wc, x, *, pairs, co=None, wc2=None, pairs2=None):
-    """y[c, p, q] = sum_{(j, p', dq) in pairs[p]} wc[c|0, j, q] * x[c|0, p', q+dq]
-
-    ``wc (cw, m, Sp)`` concat-slot weights (:func:`build_parity_apply_tables`),
-    ``x (C, P, Sp)`` class-split field (P=8, or P=1 when every pair reads
-    class 0 — the grad case, where the input IS the coarse pressure).
-    Output ``(co, 8, Sp)``, ``co = max(C, cw)`` by default.  ``x`` is zero
-    outside [0, Sp).  ``wc2``/``pairs2``: an optional second weight table
-    accumulated into the same output after the first (the per-step
-    convection planes, giving (K + A(un)) u in one launch).
-
-    A CPU tensor runs :func:`parity_apply_plain`; a CUDA tensor launches
-    ``csrc/parity_apply.cu``.
-    """
-    if x.device.type == "cpu":
-        return parity_apply_plain(wc, x, pairs=pairs, co=co, wc2=wc2, pairs2=pairs2)
+def _apply_kernel(wc, x, pairs, co, wc2, pairs2, stream_x):
+    """Check the arguments, launch one form of csrc/parity_apply.cu on CUDA
+    tensors, and return (y, streamed)."""
     if x.device.type != "cuda":
         raise ValueError(f"parity_apply: unsupported device {x.device}")
     c, px, sp = x.shape
@@ -306,16 +406,109 @@ def parity_apply(wc, x, *, pairs, co=None, wc2=None, pairs2=None):
             raise ValueError("parity_apply: weights must match the field's dtype/device and be contiguous")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"parity_apply: field must be contiguous f32, got {x.dtype}")
+    if stream_x is None:
+        stream_x = stream_field(x.shape, x.element_size(), pairs, pairs2)
     y = torch.empty((co, 8, sp), dtype=x.dtype, device=x.device)
     cw2, m2 = (wc2.shape[0], wc2.shape[1]) if wc2 is not None else (1, 0)
-    route = _route_for(pairs, pairs2, m, m2, px, x.device)
-    err = cuda_lib.function("parity_apply_f32")(
-        cuda_lib.ptr(wc), cw, m, cuda_lib.ptr(wc2), cw2, m2,
-        cuda_lib.ptr(x), c, px, cuda_lib.ptr(route), cuda_lib.ptr(y), co, sp,
-        cuda_lib.stream_ptr(x.device),
-    )
-    cuda_lib.check(err, "parity_apply")
-    cuda_lib.launch_counts[_launch_name(x, wc2)] += 1
+    common = (cuda_lib.ptr(wc), cw, m, cuda_lib.ptr(wc2), cw2, m2, cuda_lib.ptr(x), c, px)
+    if stream_x:
+        route, runs, n_runs = _route_for(pairs, pairs2, m, m2, px, x.device, streamed=True)
+        err = cuda_lib.function("parity_apply_streamed_f32")(
+            *common, cuda_lib.ptr(route), cuda_lib.ptr(runs), n_runs, RUN_LEN,
+            cuda_lib.ptr(y), co, sp, cuda_lib.stream_ptr(x.device),
+        )
+    else:
+        route = _route_for(pairs, pairs2, m, m2, px, x.device)
+        err = cuda_lib.function("parity_apply_f32")(
+            *common, cuda_lib.ptr(route), cuda_lib.ptr(y), co, sp,
+            cuda_lib.stream_ptr(x.device),
+        )
+    cuda_lib.check(err, "parity_apply (streamed)" if stream_x else "parity_apply")
+    return y, bool(stream_x)
+
+
+def parity_apply(wc, x, *, pairs, co=None, stream_x=None, wc2=None, pairs2=None):
+    """y[c, p, q] = sum_{(j, p', dq) in pairs[p]} wc[c|0, j, q] * x[c|0, p', q+dq]
+
+    ``wc (cw, m, Sp)`` concat-slot weights (:func:`build_parity_apply_tables`),
+    ``x (C, P, Sp)`` class-split field (P=8, or P=1 when every pair reads
+    class 0 — the grad case, where the input IS the coarse pressure).
+    Output ``(co, 8, Sp)``, ``co = max(C, cw)`` by default.  ``x`` is zero
+    outside [0, Sp).  ``wc2``/``pairs2``: an optional second weight table
+    accumulated into the same output after the first (the per-step
+    convection planes, giving (K + A(un)) u in one launch).
+
+    ``stream_x``: the field form of the kernel.  ``None`` takes the JAX
+    package's rule (:func:`stream_field`: the field is staged from device
+    memory block by block above 6 MiB, read whole from L2 below);
+    ``True`` / ``False`` force either.  The two forms agree bit for bit.
+
+    A CPU tensor runs :func:`parity_apply_plain` (either form); a CUDA
+    tensor launches ``csrc/parity_apply.cu``.
+    """
+    if x.device.type == "cpu":
+        return parity_apply_plain(wc, x, pairs=pairs, co=co, wc2=wc2, pairs2=pairs2)
+    y, streamed = _apply_kernel(wc, x, pairs, co, wc2, pairs2, stream_x)
+    cuda_lib.launch_counts[_launch_name(x, wc2, streamed)] += 1
+    return y
+
+
+def _no_accumulate(accumulate_in):
+    if accumulate_in is not None:
+        raise NotImplementedError(
+            "accumulate_in is reserved; use parity_div_apply for the "
+            "input-channel-summed (divergence) apply"
+        )
+
+
+def parity_window_apply_plain(wp, x, *, pairs, co=None, accumulate_in=None):
+    """Plain PyTorch version of :func:`parity_window_apply`: per class, the
+    route's terms summed in route order."""
+    _no_accumulate(accumulate_in)
+    c, _, sp = x.shape
+    co = co or c
+    halo = _halo(pairs)
+    x_ext = F.pad(x, (halo, halo))
+    y = x.new_empty((co, 8, sp))
+    for p in range(8):
+        acc = x.new_zeros((co, sp))
+        for w, pp, dq in pairs[p]:
+            acc = acc + wp[p, w] * x_ext[:, pp, halo + dq: halo + dq + sp]
+        y[:, p] = acc
+    return y
+
+
+def _class_route(pairs, m: int):
+    """``pairs`` on per-class tables ``(8, m, Sp)`` as a route on the one
+    table ``(1, 8 m, Sp)``: plane p * m + w (cached with the route)."""
+    return _cached(("class", id(pairs), m),
+                   lambda: tuple(tuple((p * m + w, pp, dq) for w, pp, dq in pairs[p])
+                                 for p in range(8)), pairs)
+
+
+def parity_window_apply(wp, x, *, pairs, co=None, accumulate_in=None):
+    """y[:, p, q] = sum_(w, p', dq) wp[p, w, q] * x[:, p', q + dq] for the
+    static routing ``pairs`` (from :func:`parity_pairs` /
+    :func:`compact_class_tables`): the class-split apply on per-class tables
+    with a common slot count, ``wp (8, m, Sp)`` shared over the channels of
+    ``x (C, 8, Sp)``; output ``(co, 8, Sp)``, co = C by default.  No solver
+    calls it.  ``accumulate_in`` (reserved: sum over the input channels) is
+    not implemented, as in the JAX package: :func:`parity_div_apply` is that
+    apply.
+
+    A CPU tensor runs :func:`parity_window_apply_plain`; a CUDA tensor
+    launches the resident form of ``csrc/parity_apply.cu`` on the one table
+    ``wp`` viewed as ``(1, 8 m, Sp)``, route plane p * m + w.
+    """
+    _no_accumulate(accumulate_in)
+    if x.device.type == "cpu":
+        return parity_window_apply_plain(wp, x, pairs=pairs, co=co)
+    if wp.ndim != 3 or wp.shape[0] != 8:
+        raise ValueError(f"parity_window_apply: tables {tuple(wp.shape)}, expected (8, m, Sp)")
+    m = wp.shape[1]
+    y, _ = _apply_kernel(wp.reshape(1, 8 * m, wp.shape[2]), x, _class_route(pairs, m),
+                         co or x.shape[0], None, None, stream_x=False)
+    cuda_lib.launch_counts["parity_window_apply"] += 1
     return y
 
 

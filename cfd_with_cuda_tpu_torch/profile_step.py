@@ -5,6 +5,7 @@
     python -m cfd_with_cuda_tpu_torch.profile_step --solver implicit
     python -m cfd_with_cuda_tpu_torch.profile_step --layout interleaved [--solver implicit]
     python -m cfd_with_cuda_tpu_torch.profile_step --deck bfs [--solver implicit]
+    python -m cfd_with_cuda_tpu_torch.profile_step --deck-n 44 [--solver implicit]  # NE85184
 
 ``--solver explicit`` (the default) runs the explicit BCH solver (F32, CG
 tol 1e-6, warm-started fused CG) on ``cavity_deck(deck_n, cluster=2.0)``
@@ -24,10 +25,17 @@ default per-iteration CG, warm-started solves) on the same deck:
 
 For each: ms/step over a timed window (host clock around work that ends
 in ``torch.cuda.synchronize()``), the sub-iteration histogram, mean CG and
-momentum iterations, and a ``torch.profiler`` trace of 5 steps: device
-time by kernel name and the device's busy share of the traced wall time
-(busy = union of kernel and copy intervals).  Prints one JSON line per
-regime, then the card's name and power limit.  Needs one CUDA card.
+momentum iterations, the kernel launches per step by launch form (the
+parity apply's resident and ``_streamed`` forms apart), and a
+``torch.profiler`` trace of 5 steps: device time by kernel name and the
+device's busy share of the traced wall time (busy = union of kernel and
+copy intervals).  Prints one JSON line per regime, then the card's name and
+power limit.  Needs one CUDA card.
+
+``--deck-n`` sets the cavity's elements per edge; the deck's dt is the JAX
+package's bench-matrix dt for that size (``scripts/bench_matrix.py:136-150``:
+5e-4 at 44, the NE85184 cavity, whose velocity field takes the streamed
+form; 4e-4 at 50; else 1e-3).
 
 ``--layout interleaved`` runs either solver on the cavity's interleaved
 structured layout (``structured_layout="interleaved"``) instead of the
@@ -65,7 +73,7 @@ import numpy as np
 import torch
 
 from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
-from cfd_with_cuda_tpu_torch.ops import spmv
+from cfd_with_cuda_tpu_torch.ops import cuda_lib, spmv
 from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
 from cfd_with_cuda_tpu_torch.ops.stencil import (
     assemble_window_values,
@@ -84,6 +92,9 @@ from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 
 PROFILE_STEPS = 5
+# dt of the JAX package's bench-matrix cavities by elements per edge (the
+# "ne85" and "ne125" rows, scripts/bench_matrix.py:144); 1e-3 otherwise
+BENCH_DT = {44: 5e-4, 50: 4e-4}
 SEEDED_STATE = (Path(__file__).resolve().parents[1] / "cfd_with_cuda_tpu" / "validation"
                 / "data" / "cavity_re100_implicit_state.npz")
 
@@ -135,7 +146,9 @@ def _trace(solver, state):
 
 
 def _regime(name, solver, state, n_timed, ops=None):
+    cuda_lib.reset_launch_counts()
     state, hist, ms = _timed(solver, state, n_timed)
+    launches = {k: v / n_timed for k, v in cuda_lib.launch_counts.items() if v}
     subs = [int(h["iters"]) for h in hist]
     state, top, busy, traced_ms, by_op = _trace(solver, state)
     out = dict(
@@ -143,7 +156,7 @@ def _regime(name, solver, state, n_timed, ops=None):
         sub_iters_hist={str(s): subs.count(s) for s in sorted(set(subs))},
         cg_iters_mean=sum(h["cg_iters"] for h in hist) / len(hist),
         mom_iters_mean=sum(h["mom_iters"] for h in hist) / len(hist),
-        traced_ms_per_step=traced_ms, device_busy_share=busy,
+        launches_per_step=launches, traced_ms_per_step=traced_ms, device_busy_share=busy,
         device_ms_per_step_by_kernel=top,
     )
     if ops is not None:
@@ -276,6 +289,7 @@ def main() -> None:
     ap.add_argument("--timed", type=int, default=None,
                     help="timed steps of the BFS regime (default 50 explicit, 15 implicit)")
     args = ap.parse_args()
+    dt = BENCH_DT.get(args.deck_n, 1e-3)
 
     if args.deck == "bfs":
         dims = tuple(int(v) for v in args.bfs_dims.split("x"))
@@ -292,12 +306,13 @@ def main() -> None:
         _regime("from_rest", solver, state, args.timed or (15 if implicit else 50),
                 ops=(_implicit_ops if implicit else _explicit_ops)(solver))
     elif args.solver == "explicit":
-        deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
+        deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=dt)
         cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
                            pressure_warm_start=True, pressure_cg_fuse_loop=True,
                            steps_per_chunk=50, structured_layout=args.layout)
         solver = ExplicitBCHSolver(deck, cfg)
-        print(json.dumps(dict(layout=solver.layout)), flush=True)
+        print(json.dumps(dict(deck=f"cavity_deck({args.deck_n}, cluster=2.0, dt={dt})",
+                              layout=solver.layout, nn=solver.nn, sp=solver.sp_c)), flush=True)
         ops = _interleaved_ops(solver, False) if args.layout == "interleaved" else None
         state, _ = solver.run(n_steps=5)           # warm-up: kernel build and first launches
         state = _regime("spin_up", solver, state, 50, ops=ops)
@@ -305,12 +320,13 @@ def main() -> None:
         state, _ = solver.run(state, n_steps=max(0, args.warm_steps - done))
         _regime("warm", solver, state, args.timed_warm, ops=ops)
     else:
-        deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
+        deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=dt)
         cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
                            pressure_warm_start=True, steps_per_chunk=25,
                            structured_layout=args.layout)
         solver = ImplicitGQSolver(deck, cfg)
-        print(json.dumps(dict(layout=solver.layout)), flush=True)
+        print(json.dumps(dict(deck=f"cavity_deck({args.deck_n}, cluster=2.0, dt={dt})",
+                              layout=solver.layout, nn=solver.nn, sp=solver.sp_c)), flush=True)
         ops = _interleaved_ops(solver, True) if args.layout == "interleaved" else None
         state, _ = solver.run(n_steps=5)
         _regime("from_rest", solver, state, 50, ops=ops)

@@ -10,7 +10,8 @@ sub-iterations per time step (reference ``blascoCodinaHuerta.cpp``
   layout ``(3, 8, Sp)``; per sub-iteration the CUDA kernels
   ``parity_apply`` ((K + A(un)) u*, G p, K acc) and ``div_compact`` (G^T
   onto the coarse pressure grid); once per step plain torch ops build the
-  convection planes A(un).
+  convection planes A(un).  Above 6 MiB (NE85184 and up, the JAX package's
+  rule) ``parity_apply`` stages the velocity field through shared memory.
   ``conv_mode="matrix-free"`` (and any deck whose coarse grid exceeds
   100,000 nodes, as in the JAX package) applies A(un) matrix-free instead:
   flat gather, one einsum, ``parity_scatter_elem_flat``.
@@ -485,17 +486,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         # above _PLANES_MAX_SP (explicit_bch.py:888-936)
         planes = cfg.conv_mode == "planes" or (
             cfg.conv_mode != "matrix-free" and sp_c <= _PLANES_MAX_SP)
-        sv, gtab, qtab = d["Sv"], d["gDSv_p"], d["gq_p"]
         gather = lambda u: pstl.parity_gather_elem_flat(u, self.coarse_dims)
-        u0_e = gather(un)
-        u0_gq = torch.einsum("ki,die->dke", sv, u0_e)
-        udotg = torch.einsum("dke,djke->jke", u0_gq, gtab)
-        if cfg.conv_stab:
-            # Temam (div u0) Sv_i Sv_j stabilization
-            div0 = torch.einsum("djke,dje->ke", gtab, u0_e)
-            udotg = udotg + cfg.conv_stab * div0[None] * sv.T[:, :, None]
-        sv_i = sv[:, list(self.conv_i_order)] if planes else sv
-        ae = torch.einsum("ki,ke,jke->ije", sv_i, qtab, udotg)
+        ae = self._parity_conv_ae(d, un, planes)
         if planes:
             conv_wc = pstl.conv_planes_from_ae(ae, groups=self.conv_groups)
             ka_mul = lambda u: apply(d["Kp"], u, pairs=self.k_pairs, co=3,
@@ -509,6 +501,21 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         masks = tuple(d[k][None] for k in ("bc_mask_p", "md_inv_p", "md_orig_inv_p"))
         return (k_mul, ka_mul, grad, div, self._box_pressure_solve(d), probe, masks,
                 self.pin_grid)
+
+    def _parity_conv_ae(self, d, un, planes: bool):
+        """A(un) per element, ``ae (27, 27, Sp)`` on the embedded element
+        axis; its i axis in ``conv_i_order`` for the planes route."""
+        cfg = self.config
+        sv, gtab, qtab = d["Sv"], d["gDSv_p"], d["gq_p"]
+        u0_e = pstl.parity_gather_elem_flat(un, self.coarse_dims)
+        u0_gq = torch.einsum("ki,die->dke", sv, u0_e)
+        udotg = torch.einsum("dke,djke->jke", u0_gq, gtab)
+        if cfg.conv_stab:
+            # Temam (div u0) Sv_i Sv_j stabilization
+            div0 = torch.einsum("djke,dje->ke", gtab, u0_e)
+            udotg = udotg + cfg.conv_stab * div0[None] * sv.T[:, :, None]
+        sv_i = sv[:, list(self.conv_i_order)] if planes else sv
+        return torch.einsum("ki,ke,jke->ije", sv_i, qtab, udotg)
 
     def _interleaved_operators(self, d, un):
         """The same on the interleaved layout (explicit_bch.py:839-867,

@@ -21,7 +21,9 @@ a step are ``parity_apply`` (M u^k, G p, and A x twice per BiCGStab
 iteration plus once for its r0), ``div_compact`` and the pressure CG
 (``cg_init`` + one ``cg_iter`` per iteration by default, ``cg_solve`` with
 ``pressure_cg_fuse_loop``); plain torch ops build the convection planes and
-merge them onto the static planes with one matmul.  On the interleaved
+merge them onto the static planes with one matmul.  Above 6 MiB (NE85184
+and up, the JAX package's rule) the M and A applies stage the velocity
+field through shared memory.  On the interleaved
 layout (a box mesh with ``structured_layout="interleaved"``, or one where
 the parity LHS assembly cannot route, as on a one-element-thin box between
 opposing walls) fields are ``(3, s_pad)`` in flat grid order and the
@@ -558,22 +560,10 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             precond=lambda r: r / a_diag,
         )
 
-    def _time_step_parity(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
-        """Class-major layout (ops/parity_stencil): the per-step LHS is the
-        static masked MKp planes plus the convection planes merged by one
-        matmul, the momentum BiCGStab applies the compacted table, and
-        grad/div read/emit the coarse pressure grid directly."""
+    def _parity_lhs(self, d, uk_prev):
+        """The per-step LHS planes, A = (M/dt + K)|masked + masked A(u^k),
+        on the MKp route ``a_pairs`` (1, m, Sp)."""
         cfg = self.config
-        dt = self.dt
-        sp_c = self.sp_c
-        # the wrappers run the kernels on CUDA tensors and the plain
-        # versions on CPU tensors; `plain` forces the plain versions
-        apply = pstl.parity_apply_plain if self.plain else pstl.parity_apply
-        div_apply = pstl.parity_div_apply_plain if self.plain else pstl.parity_div_apply
-
-        uk_prev, pk_prev, pk_prevprev = state       # uk (3, 8, Sp)
-
-        # ---- per-step LHS: A = (M/dt + K)|masked + masked A(u^k).
         # Flat ae build (embedded element axis, minor-axis shift gathers)
         # -> 729 convection weight planes (8 contiguous shifts) -> ONE
         # matmul merges them onto the static MKp planes.
@@ -595,7 +585,24 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         conv_wc = pstl.conv_planes_from_ae(ae, groups=self.conv_groups)
         # 0/1 selection in full f32 (TF32 is off): it must not round the planes
         conv_p = torch.matmul(d["conv_sel"], conv_wc[0])[None]
-        a_wc = d["MKp"] + conv_p
+        return d["MKp"] + conv_p
+
+    def _time_step_parity(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
+        """Class-major layout (ops/parity_stencil): the per-step LHS is the
+        static masked MKp planes plus the convection planes merged by one
+        matmul, the momentum BiCGStab applies the compacted table, and
+        grad/div read/emit the coarse pressure grid directly."""
+        cfg = self.config
+        dt = self.dt
+        sp_c = self.sp_c
+        # the wrappers run the kernels on CUDA tensors and the plain
+        # versions on CPU tensors; `plain` forces the plain versions
+        apply = pstl.parity_apply_plain if self.plain else pstl.parity_apply
+        div_apply = pstl.parity_div_apply_plain if self.plain else pstl.parity_div_apply
+
+        uk_prev, pk_prev, pk_prevprev = state       # uk (3, 8, Sp)
+
+        a_wc = self._parity_lhs(d, uk_prev)
         a_diag = a_wc[0, list(self.diag_planes)].reshape(1, -1)     # (1, 8*Sp)
 
         a_mul = lambda x: apply(

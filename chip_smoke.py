@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py                  # NE27000 cavity + NE144600-class BFS
+    python3 chip_smoke.py      # NE27000 and NE85184 cavities + NE144600-class BFS
     python3 chip_smoke.py --deck-n 4 --steps 8 --implicit-steps 8 \
-        --bfs-dims 12x4x4 --bfs-steps 8 --bfs-implicit-steps 8   # a quick small run
+        --bfs-dims 12x4x4 --bfs-steps 8 --bfs-implicit-steps 8 \
+        --ne85-n 4 --ne85-steps 8 --ne85-finite-steps 12 --ne85-implicit-steps 8   # quick
 
 Drives the port's main paths on the generated NE27000 lid-driven cavity
 (``cavity_deck(30, cluster=2.0)``, 61^3 velocity and 31^3 pressure nodes):
@@ -49,8 +50,24 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    from the same fields, 10 steps each of ``conv_mode="assemble"``, MIXED
    and ``pressure_cg_sym`` against their plain paths) and
    ``e2e_interleaved_implicit`` (the same for the implicit solver, without
-   "assemble");
-7. the unstructured path of both solvers on the backward-facing step
+   "assemble"); ``window_apply`` (the class-split window apply, TPU kernel
+   row 12, on the interleaved solver's ``K_vals`` and ``G_win`` split by
+   class: against its plain version and, after ``parity_merge``, against
+   ``window_spmv`` / ``grad_window``);
+7. the parity layout of both solvers on the NE85184 cavity
+   (``cavity_deck(44, cluster=2.0, dt=5e-4)``, the JAX package's "ne85"
+   bench row), where the JAX package's 6 MiB rule streams every velocity
+   field: ``e2e_ne85`` (explicit, 5 + 60 steps from rest, every K and K + A
+   launch in the streamed form as the sub-iteration history implies, 3
+   steps against the plain path, on untimed to step 200 with finite
+   fields), ``kernels_streamed`` (the streamed kernel, TPU kernel row 3, in
+   its K, K + A and MK + A forms on the solvers' own tables: bit for bit
+   against the resident form, against the plain version, cuSPARSE CSR
+   times) and ``e2e_ne85_implicit`` (20 steps from rest, the streamed M
+   and MK + A launches held against the history, 3 steps against the plain
+   path).  At NE27000 the streamed form is forced in ``kernels`` and held
+   bit for bit against the resident one;
+8. the unstructured path of both solvers on the backward-facing step
    ``bfs_deck(96, 40, 40)`` (138,400 hexes, 1,143,153 velocity and 147,477
    pressure nodes; natural outflow): ``bfs_setup`` (the explicit solver's
    host setup and its 275-slot banded pressure window), ``banded_cg``
@@ -123,6 +140,25 @@ BFS_KW = dict(lengths=(15.0, 2.0, 2.0), step_frac=(0.2, 0.5), viscosity=0.01)
 BFS_TOLS = dict(u=5e-5, p=5e-5, cg_iters=4, mom_iters=1)
 BFS_FIXED_DEPTHS = (0, 1, 40)
 BFS_OUTFLOW_STEPS = 1000
+# the NE85184 cavity, the "ne85" row of the JAX package's bench matrix
+# (scripts/bench_matrix.py:136-150): cavity_deck(44, cluster=2.0, viscosity=0.01,
+# dt=5e-4), 85,184 hexes, 704,969 / 91,125 nodes; dt is half NE27000's because
+# 1e-3 blew up near step 100 at 44^3.  Its 9.28 MB halo-extended velocity field
+# is over the JAX package's 6 MiB, so every K, K + A, MK + A and M apply streams
+NE85_N = 44
+NE85_DT = 5e-4
+# CG counts of the NE85184 implicit check of 3 kernel steps against 3 plain steps.  The
+# warm-started f32 CG stops at 1e-6 of |b|, while r0 = b - Z x0 (x0 the last step's
+# increment, nearly the solution) carries cancellation at f32 rounding, so two paths that
+# differ by rounding run different residual histories near the bound.  On the card
+# (python -m cfd_with_cuda_tpu_torch.cg_trace --deck-n 44 --policy f32
+# --from-rest 20 --steps 3 [--path plain]): on the plain path's second system
+# |r| / (tol |b|) is 0.86-1.26 from k = 212 to 232 and below 1 again only at 336, on
+# the kernel path's it is above 40 from k = 212 to 272 and first below 1 at 320; the
+# paths stopped at 212 and 320 with fields 7e-7 (u) and 1.8e-5 (p) apart.  The fields
+# keep IMPLICIT_TOLS; the counts may part by the span from the first dip to the last
+# crossing
+NE85_CG_ITERS_TOL = 128
 
 
 def emit(obj) -> None:
@@ -296,6 +332,12 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
         err, rel = _apply_err(y, y_plain, y_abs)
         if not rel <= APPLY_TOL:
             raise AssertionError(f"{name}: kernel vs plain {rel:.3e} > {APPLY_TOL}")
+        # the streamed form forced at these shapes (the rule keeps them resident)
+        y_s = pstl.parity_apply(wc, x, stream_x=True, **kw)
+        torch.cuda.synchronize()
+        if pstl.stream_field(x.shape, 4, pairs, pairs2) or not torch.equal(y_s, y):
+            raise AssertionError(f"{name}: streamed form differs from the resident form")
+        del y_s
         ms = time_ms(lambda: pstl.parity_apply(wc, x, **kw), 20)
         plain_ms = time_ms(lambda: pstl.parity_apply_plain(wc, x, **kw), 3)
         lib_ms, lib_err = None, None
@@ -309,6 +351,9 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
         flops = sum(2 * nnz(t) * co // t.shape[0] for t in tables)
         b_ms, b_by = bound(nbytes, flops)
         results[name] = dict(max_abs_err=err, err_rel=rel, tol=APPLY_TOL, ms=ms,
+                             streamed_bit_equal=True,
+                             streamed_ms=time_ms(lambda: pstl.parity_apply(wc, x, stream_x=True,
+                                                                           **kw), 20),
                              plain_ms=plain_ms, library_ms=lib_ms, library_abs_err=lib_err,
                              bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
                              stream_bound_ms=bound(4 * (sum(t.numel() for t in tables)
@@ -418,6 +463,18 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
 
 # ---------------------------------------------------------------- phase 3
 
+def _explicit_parity_expect(hist, counts, sfx=""):
+    """Launch counts a run of the explicit parity solver implies: per step of
+    s sub-iterations, K + A s, K s - 1, G s + 1, G^T s and the CG s; ``sfx``
+    ("_streamed" where the rule streams the field) names the K forms."""
+    subs = [int(h["iters"]) for h in hist]
+    on_path = {f"parity_apply_k_plus_a{sfx}": sum(subs),
+               f"parity_apply_k{sfx}": sum(v - 1 for v in subs),
+               "parity_apply_g": sum(v + 1 for v in subs), "div_compact": sum(subs),
+               "cg_solve": sum(subs)}
+    return on_path, {k: on_path.get(k, 0) for k in counts}
+
+
 def phase_e2e(solver, cuda_lib, n_steps: int, ExplicitBCHSolver, precision_deck: bool) -> dict:
     import numpy as np
     import torch
@@ -438,11 +495,7 @@ def phase_e2e(solver, cuda_lib, n_steps: int, ExplicitBCHSolver, precision_deck:
     if len(hist) != n_steps:
         raise AssertionError(f"ran {len(hist)} of {n_steps} steps")
     subs = [int(h["iters"]) for h in hist]
-    on_path = dict(
-        parity_apply_k_plus_a=sum(subs), parity_apply_k=sum(s - 1 for s in subs),
-        parity_apply_g=sum(s + 1 for s in subs), div_compact=sum(subs), cg_solve=sum(subs),
-    )
-    expect = {k: on_path.get(k, 0) for k in counts}      # the other kernels: not on this path
+    on_path, expect = _explicit_parity_expect(hist, counts)   # the other kernels: not on this path
     if min(on_path.values()) <= 0 or counts != expect:
         raise AssertionError(f"launch counts {counts}, expected {expect}")
     if not (torch.isfinite(state.un).all() and torch.isfinite(state.pn).all()):
@@ -675,15 +728,16 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
 
 # ---------------------------------------------------------------- phase 5
 
-def _implicit_expect(hist, counts, layout="parity", **modes):
+def _implicit_expect(hist, counts, layout="parity", k_name="parity_apply_k", **modes):
     """Launch counts a run of the implicit solver implies, per its history
-    and layout."""
+    and layout; ``k_name`` counts the parity layout's M and MK + A applies
+    (``parity_apply_k_streamed`` where the rule streams the field)."""
     cg_it = sum(int(h["cg_iters"]) for h in hist)
     mom = sum(int(h["mom_iters"]) for h in hist)
     n = len(hist)
     if layout == "parity":
-        on_path = dict(cg_init=n, cg_iter=cg_it, div_compact=n, parity_apply_g=n,
-                       parity_apply_k=2 * n + 2 * mom)      # M u, A x0, 2 A per iteration
+        on_path = {"cg_init": n, "cg_iter": cg_it, "div_compact": n, "parity_apply_g": n,
+                   k_name: 2 * n + 2 * mom}                 # M u, A x0, 2 A per iteration
     else:
         # M u^k once a step; A x0 once and A twice per BiCGStab iteration
         on_path = dict(cg_init=n, cg_iter=cg_it, div_compact_interleaved=n, grad_window=n,
@@ -695,7 +749,7 @@ def _implicit_expect(hist, counts, layout="parity", **modes):
 
 
 def _implicit_vs_plain(what, solver, ImplicitGQSolver, cuda_lib, state, n_steps,
-                       strict=True, cg_iters_tol=None, **modes) -> dict:
+                       strict=True, cg_iters_tol=None, k_name="parity_apply_k", **modes) -> dict:
     """``n_steps`` of the kernel path and of the plain path from ``state``; the
     kernel path's launch counts (set to 0 just before) against its history.
     ``strict=False`` (a deck other than NE27000, where a 4^3 mesh's ~25
@@ -712,7 +766,7 @@ def _implicit_vs_plain(what, solver, ImplicitGQSolver, cuda_lib, state, n_steps,
     st_p, h_p = plain.run(state, n_steps=n_steps)
     if dict(cuda_lib.launch_counts) != counts:
         raise AssertionError(f"{what}: the plain path launched a kernel")
-    on_path, expect = _implicit_expect(h_k, counts, solver.layout, **modes)
+    on_path, expect = _implicit_expect(h_k, counts, solver.layout, k_name, **modes)
     if min(on_path.values()) <= 0 or counts != expect:
         raise AssertionError(f"{what}: launch counts {counts}, expected {expect}")
     u_k, p_k = solver.fields(st_k)
@@ -737,11 +791,15 @@ def _implicit_vs_plain(what, solver, ImplicitGQSolver, cuda_lib, state, n_steps,
 
 
 def phase_e2e_implicit(solver, ImplicitGQSolver, cuda_lib, cg, n_steps: int,
-                       DTypePolicy, strict: bool, tag: str = "implicit") -> dict:
+                       DTypePolicy, strict: bool, tag: str = "implicit",
+                       k_name: str = "parity_apply_k", cg_iters_tol=None,
+                       variants: bool = True) -> dict:
     """Warm-up then timed steps from rest with the launch counts held against
-    the history; 3 steps against the plain path; 10 steps each of MIXED and
-    the half window against their plain paths.  ``tag`` names the phases
-    (``e2e_<tag>``, ``<tag>_kernel_vs_plain_3_steps``, ...)."""
+    the history; 3 steps against the plain path (CG counts within
+    ``cg_iters_tol``, default IMPLICIT_TOLS'); with ``variants``, 10 steps
+    each of MIXED and the half window against their plain paths.  ``tag``
+    names the phases (``e2e_<tag>``, ``<tag>_kernel_vs_plain_3_steps``, ...);
+    ``k_name`` counts the parity layout's M and MK + A applies."""
     import torch
 
     state = solver.initial_state()
@@ -760,7 +818,7 @@ def phase_e2e_implicit(solver, ImplicitGQSolver, cuda_lib, cg, n_steps: int,
     hist = hist_w + hist_t
     if len(hist) != n_steps:
         raise AssertionError(f"{tag}: ran {len(hist)} of {n_steps} steps")
-    on_path, expect = _implicit_expect(hist, counts, solver.layout)
+    on_path, expect = _implicit_expect(hist, counts, solver.layout, k_name)
     if min(on_path.values()) <= 0 or counts != expect:
         raise AssertionError(f"{tag}: launch counts {counts}, expected {expect}")
     if not (torch.isfinite(state.uk).all() and torch.isfinite(state.pk).all()):
@@ -776,7 +834,7 @@ def phase_e2e_implicit(solver, ImplicitGQSolver, cuda_lib, cg, n_steps: int,
         u_mon=hist[-1]["u_mon"], max_acc=hist[-1]["max_acc"], launches=counts,
         launches_per_step=(
             "cg_init 1, cg_iter = cg_iters, div_compact 1, parity_apply_g 1, "
-            "parity_apply_k 2 + 2 mom_iters" if solver.layout == "parity" else
+            f"{k_name} 2 + 2 mom_iters" if solver.layout == "parity" else
             "cg_init 1, cg_iter = cg_iters, div_compact_interleaved 1, grad_window 1, "
             "window_spmv_m 1, window_spmv_mk_plus_a 1 + 2 mom_iters"),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
@@ -785,7 +843,9 @@ def phase_e2e_implicit(solver, ImplicitGQSolver, cuda_lib, cg, n_steps: int,
     out["state"] = state
 
     _implicit_vs_plain(f"{tag}_kernel_vs_plain_3_steps", solver, ImplicitGQSolver, cuda_lib,
-                       state, 3, strict)
+                       state, 3, strict, cg_iters_tol=cg_iters_tol, k_name=k_name)
+    if not variants:
+        return out
     # MIXED (compensated dots) and the half window share the F32 tables
     attrs = solver.static_attrs()
     cfg = solver.config
@@ -848,7 +908,7 @@ def phase_seeded(deck, cfg, ImplicitGQSolver, n_steps: int = 20) -> dict:
     return out
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 8
 
 def _bfs_deck(bfs_deck, dims, dt):
     return bfs_deck(*dims, dt=dt, **BFS_KW)
@@ -1309,6 +1369,104 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
     return results
 
 
+def phase_window_apply(xs, pstl, window_stencil, stencil, cuda_lib) -> dict:
+    """TPU kernel row 12, ``parity_window_apply`` (no solver calls it), on the
+    NE27000 interleaved explicit solver's own ``K_vals`` and each direction of
+    ``G_win``, split by class and compacted as tests/test_parity_stencil.py:
+    46-116 does: the kernel against its plain version (APPLY_TOL) and, after
+    ``parity_merge``, against ``window_spmv`` / ``grad_window`` of the same
+    tables (WINDOW_TOL); device, plain and cuSPARSE CSR times and the byte
+    bound of K and of one G direction.  ``launches``: the kernel's launches
+    in the merged checks (one for K, one per G direction)."""
+    import numpy as np
+    import torch
+
+    ws = window_stencil
+    rng = np.random.default_rng(20261018)
+    dev = xs.device
+    fine, n, nn = xs.fine_dims, xs.s_pad, xs.nn
+    cdims, sp = pstl.parity_dims(fine)
+    rand = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def tables(win, offs):
+        wp = pstl.parity_window_tables(win.cpu().numpy(), offs, fine)
+        wp_c, pairs_c = pstl.compact_class_tables(wp, pstl.parity_pairs(offs, cdims))
+        return torch.from_numpy(wp_c).to(dev), pairs_c
+
+    def check(name, wp, x, pairs):
+        y = pstl.parity_window_apply(wp, x, pairs=pairs)
+        y_plain = pstl.parity_window_apply_plain(wp, x, pairs=pairs)
+        y_abs = pstl.parity_window_apply_plain(wp.abs(), x.abs(), pairs=pairs)
+        torch.cuda.synchronize()
+        err, rel = _apply_err(y, y_plain, y_abs)
+        if not rel <= APPLY_TOL:
+            raise AssertionError(f"{name}: kernel vs plain {rel:.3e} > {APPLY_TOL}")
+        m = wp.shape[1]
+        a = _route_csr([wp.reshape(1, 8 * m, sp)], [pstl._class_route(pairs, m)], sp, 8,
+                       per_channel=False)
+        xt = x.reshape(x.shape[0], 8 * sp).T.contiguous()
+        lib_err = float((torch.sparse.mm(a, xt).T.reshape(y.shape) - y).abs().max())
+        nz = nnz(wp)
+        fields = x.numel() + y.numel()
+        b_ms, b_by = bound(4 * (nz + fields), 2 * nz * x.shape[0])
+        out = dict(max_abs_err=err, err_rel=rel, tol=APPLY_TOL,
+                   ms=time_ms(lambda: pstl.parity_window_apply(wp, x, pairs=pairs), 20),
+                   plain_ms=time_ms(lambda: pstl.parity_window_apply_plain(wp, x, pairs=pairs), 3),
+                   library_ms=time_ms(lambda: torch.sparse.mm(a, xt), 20),
+                   library_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by, bytes=4 * (nz + fields),
+                   flops=2 * nz * x.shape[0], table_nnz=nz, table_size=wp.numel(), slots=m,
+                   stream_bound_ms=bound(4 * (wp.numel() + fields), 0)[0])
+        del a
+        return out
+
+    S = int(np.prod(fine))
+    results = {}
+    # ---- K: 125 slots, no structural class sparsity (it stays put)
+    wp, pairs = tables(xs.d["K_vals"], pstl.decode_offsets(xs.k_offsets, fine))
+    u = rand(3, 8, sp)
+    results["k"] = check("parity_window_apply_k", wp, u, pairs)
+    cuda_lib.reset_launch_counts()
+    y = pstl.parity_merge(pstl.parity_window_apply(wp, u, pairs=pairs), fine)
+    launches_k = cuda_lib.launch_counts["parity_window_apply"]
+    uf = torch.nn.functional.pad(pstl.parity_merge(u, fine), (0, n - S))
+    ref = ws.window_spmv(xs.d["K_vals"], uf, fine, offsets=xs.k_offsets, trim=False,
+                         name="window_spmv_k")[:, :S]
+    scale = ws.window_spmv_plain(xs.d["K_vals"].abs(), uf.abs(), fine, offsets=xs.k_offsets,
+                                 trim=False)[:, :S]
+    results["k"]["merged_vs_window_spmv"] = _apply_err(y, ref, scale)
+    del wp, u, y, uf, ref, scale
+    # ---- G, one direction at a time: the coarse pressure as class 0
+    r = xs.g_radius
+    offs = tuple((dx, dy, dz) for dz in range(-r, r + 1)
+                 for dy in range(-r, r + 1) for dx in range(-r, r + 1))
+    p = rand(xs.nnp)
+    x = torch.zeros(1, 8, sp, device=dev)
+    x[0, 0, : xs.nnp] = p
+    pf = torch.nn.functional.pad(stencil.coarse_to_fine(p, xs.coarse_dims, fine), (0, n - nn))
+    ref = ws.grad_window(xs.d["G_win"], pf, fine, r, trim=False)[:, :S]
+    scale = ws.grad_window_plain(xs.d["G_win"].abs(), pf.abs(), fine, r, trim=False)[:, :S]
+    merged, launches_g = [], 0
+    for dim in range(3):
+        wp, pairs = tables(xs.d["G_win"][dim], offs)
+        if dim == 0:
+            results["g"] = check("parity_window_apply_g", wp, x, pairs)
+        cuda_lib.reset_launch_counts()
+        y = pstl.parity_merge(pstl.parity_window_apply(wp, x, pairs=pairs), fine)[0]
+        launches_g += cuda_lib.launch_counts["parity_window_apply"]
+        merged.append(_apply_err(y, ref[dim], scale[dim]))
+        del wp, y
+    results["g"]["merged_vs_grad_window"] = merged
+    for name, errs in (("k", [results["k"]["merged_vs_window_spmv"]]), ("g", merged)):
+        if not all(rel <= WINDOW_TOL for _, rel in errs):
+            raise AssertionError(f"parity_window_apply {name} after parity_merge vs the window "
+                                 f"kernel: {errs} > {WINDOW_TOL}")
+    results["k"]["launches"], results["g"]["launches"] = launches_k, launches_g
+    emit(dict(phase="window_apply", shapes=dict(sp=sp, k_slots=results["k"]["slots"],
+                                                g_slots=results["g"]["slots"]),
+              tols=dict(vs_plain=APPLY_TOL, vs_window_kernel=WINDOW_TOL), checks=results))
+    return results
+
+
 def _explicit_interleaved_expect(hist, counts, conv_mode, **modes):
     """Launch counts a run of the explicit interleaved solver implies: per
     step of s sub-iterations, (K + A) u* every sub-iteration and K acc on all
@@ -1487,10 +1645,12 @@ def phase_interleaved_vs_parity_implicit(isolver, ImplicitGQSolver, state, stric
     return out
 
 
-def interleaved_phases(args, cavity_deck, cuda_lib, fused_cg, window_stencil, stencil,
-                       ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig) -> list:
-    """Phase 7 on the cavity's interleaved layout: the rows of the ``kernels``
-    line it measures (TPU kernel rows 10 and 11)."""
+def interleaved_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
+                       stencil, ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy,
+                       SolverConfig) -> list:
+    """Phase 6 on the cavity's interleaved layout: the rows of the ``kernels``
+    line it measures (TPU kernel rows 10, 11 and, on the interleaved solver's
+    tables split by class, 12)."""
     import torch
 
     full = args.deck_n == 30
@@ -1515,6 +1675,8 @@ def interleaved_phases(args, cavity_deck, cuda_lib, fused_cg, window_stencil, st
     if xs.layout != "interleaved" or isolver.layout != "interleaved":
         raise AssertionError("structured_layout='interleaved' was not taken")
     kint = phase_kernels_interleaved(xs, isolver, window_stencil, stencil)
+    torch.cuda.empty_cache()
+    wapp = phase_window_apply(xs, parity_stencil, window_stencil, stencil, cuda_lib)
     torch.cuda.empty_cache()
     xe2e = phase_e2e_interleaved(xs, ExplicitBCHSolver, cuda_lib, fused_cg, args.implicit_steps,
                                  DTypePolicy, strict=full)
@@ -1541,6 +1703,209 @@ def interleaved_phases(args, cavity_deck, cuda_lib, fused_cg, window_stencil, st
          kint["grad_window"]),
         ("div_compact_interleaved", "div_compact.cu", pst + ":271",
          lx["div_compact_interleaved"], kint["div_compact_interleaved"]),
+        ("parity_window_apply_k", "parity_apply.cu", "cfd_with_cuda_tpu/ops/parity_stencil.py:253",
+         wapp["k"]["launches"], wapp["k"]),
+        ("parity_window_apply_g", "parity_apply.cu", "cfd_with_cuda_tpu/ops/parity_stencil.py:253",
+         wapp["g"]["launches"], wapp["g"]),
+    ]
+
+
+# ---------------------------------------------------------------- phase 7
+
+def _streamed_check(pstl, wc, x, pairs, wc2=None, pairs2=None) -> dict:
+    """One launch form of the streamed-field kernel (TPU kernel row 3) on a
+    velocity field: bit for bit against the resident form, against the plain
+    version within APPLY_TOL; device ms of the streamed, resident and plain
+    forms and of cuSPARSE CSR of the same operator; the byte bound counting
+    the nonzero weights (the kernels stream the whole tables:
+    ``stream_bound_ms``)."""
+    import torch
+
+    kw = dict(pairs=pairs, co=3, wc2=wc2, pairs2=pairs2)
+    y = pstl.parity_apply(wc, x, stream_x=True, **kw)
+    y_res = pstl.parity_apply(wc, x, stream_x=False, **kw)
+    y_plain = pstl.parity_apply_plain(wc, x, **kw)
+    y_abs = pstl.parity_apply_plain(wc.abs(), x.abs(), pairs=pairs, co=3,
+                                    wc2=None if wc2 is None else wc2.abs(), pairs2=pairs2)
+    torch.cuda.synchronize()
+    err, rel = _apply_err(y, y_plain, y_abs)
+    if not torch.equal(y, y_res) or not rel <= APPLY_TOL:
+        raise AssertionError(f"streamed parity_apply: bit-equal to resident "
+                             f"{torch.equal(y, y_res)}, vs plain {rel:.3e} > {APPLY_TOL}")
+    del y_res, y_plain, y_abs
+    sp = x.shape[-1]
+    tables = [wc] + ([] if wc2 is None else [wc2])
+    a = _route_csr(tables, [pairs] + ([] if wc2 is None else [pairs2]), sp, 8, per_channel=False)
+    xt = x.reshape(3, 8 * sp).T.contiguous()
+    lib_err = float((torch.sparse.mm(a, xt).T.reshape(3, 8, sp) - y).abs().max())
+    nz = sum(nnz(t) for t in tables)
+    fields = x.numel() + y.numel()
+    b_ms, b_by = bound(4 * (nz + fields), 2 * nz * 3)
+    out = dict(
+        bit_equal_resident=True, max_abs_err=err, err_rel=rel, tol=APPLY_TOL,
+        ms=time_ms(lambda: pstl.parity_apply(wc, x, stream_x=True, **kw), 20),
+        resident_ms=time_ms(lambda: pstl.parity_apply(wc, x, stream_x=False, **kw), 20),
+        plain_ms=time_ms(lambda: pstl.parity_apply_plain(wc, x, **kw), 3),
+        library_ms=time_ms(lambda: torch.sparse.mm(a, xt), 20), library_abs_err=lib_err,
+        bound_ms=b_ms, bound_by=b_by, bytes=4 * (nz + fields), flops=2 * nz * 3, nnz=nz,
+        planes=sum(int(t.shape[1]) for t in tables),
+        stream_bound_ms=bound(4 * (sum(t.numel() for t in tables) + fields), 0)[0],
+    )
+    del a
+    return out
+
+
+def _ne85_deck(cavity_deck, n):
+    return cavity_deck(n, cluster=2.0, viscosity=0.01, dt=NE85_DT)
+
+
+def phase_e2e_ne85(solver, ExplicitBCHSolver, pstl, cuda_lib, n_steps, finite_steps,
+                   strict, deck_n) -> dict:
+    """The ``ne85`` row's config (F32, CG tol 1e-6, warm start, fused CG loop)
+    from rest: warm-up then timed steps with the launch counts held against
+    the sub-iteration history, every K and K + A apply in the form the rule
+    picks (streamed at NE85184); 3 steps against the plain path; then on,
+    untimed, to ``finite_steps`` with finite fields."""
+    import numpy as np
+    import torch
+
+    sp = solver.sp_c
+    streamed = pstl.stream_field((3, 8, sp), 4, solver.k_pairs, solver.conv_pairs2)
+    if streamed != pstl.stream_field((3, 8, sp), 4, solver.k_pairs):
+        raise AssertionError("ne85: K and K + A take different field forms")
+    sfx = "_streamed" if streamed else ""
+    state = solver.initial_state()
+    warm = min(WARMUP_STEPS, n_steps - 1)
+    cuda_lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, hist_w = solver.run(state, n_steps=warm)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    state, hist_t = solver.run(state, n_steps=n_steps - warm)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    counts = dict(cuda_lib.launch_counts)
+    hist = hist_w + hist_t
+    on_path, want = _explicit_parity_expect(hist, counts, sfx)
+    if len(hist) != n_steps or min(on_path.values()) <= 0 or counts != want:
+        raise AssertionError(f"ne85: {len(hist)} steps, launch counts {counts}, expected {want}")
+    if not (torch.isfinite(state.un).all() and torch.isfinite(state.pn).all()):
+        raise AssertionError("ne85: non-finite fields")
+    subs = [int(h["iters"]) for h in hist]
+    out = dict(
+        phase="e2e_ne85", deck=f"cavity_deck({deck_n}, cluster=2.0, dt={NE85_DT})",
+        streamed=streamed, steps=n_steps, warmup_steps=warm,
+        ms_per_step=(t2 - t1) / (n_steps - warm) * 1e3, warmup_s=t1 - t0,
+        sub_iters_hist={str(v): subs.count(v) for v in sorted(set(subs))},
+        cg_iters_first_last=[int(hist[0]["cg_iters"]), int(hist[-1]["cg_iters"])],
+        u_mon=hist[-1]["u_mon"], launches=counts,
+        launches_per_step=f"s sub-iterations: parity_apply_k_plus_a{sfx} s, parity_apply_k{sfx} "
+                          "s - 1, parity_apply_g s + 1, div_compact s, cg_solve s",
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    emit(out)
+    out["state"] = state
+
+    # ---- the kernel path against the plain path, 3 steps from this state
+    plain = ExplicitBCHSolver.from_tables(solver.deck, solver.config, solver.d,
+                                          solver.static_attrs(), device=solver.device, plain=True)
+    cuda_lib.reset_launch_counts()
+    st_k, h_k = solver.run(state, n_steps=3)
+    counts_k = dict(cuda_lib.launch_counts)
+    st_p, h_p = plain.run(state, n_steps=3)
+    want = _explicit_parity_expect(h_k, counts_k, sfx)[1]
+    if dict(cuda_lib.launch_counts) != counts_k or counts_k != want:
+        raise AssertionError(f"ne85 3 steps: launch counts {counts_k}, expected {want}")
+    tols = STEP_TOLS if strict else dict(u=float("inf"), p=float("inf"), mon=float("inf"))
+    _compare_runs("ne85_kernel_vs_plain_3_steps", h_k, h_p, solver.fields(st_k),
+                  plain.fields(st_p), tols, 1)
+    del plain, st_p
+
+    # ---- on, untimed, to finite_steps (dt 1e-3 blew up near step 100 here)
+    done = n_steps + 3
+    st, h = solver.run(st_k, n_steps=max(0, finite_steps - done))
+    u, p = solver.fields(st)
+    finite = bool(np.isfinite(u).all() and np.isfinite(p).all())
+    out["finite_to"] = dict(phase="ne85_finite", steps=max(done, finite_steps), finite=finite,
+                            u_mon=(h or h_k)[-1]["u_mon"], max_abs_u=float(np.abs(u).max()))
+    emit(out["finite_to"])
+    if not finite:
+        raise AssertionError(f"ne85: non-finite fields by step {finite_steps}")
+    return out
+
+
+def ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, ExplicitBCHSolver,
+                ImplicitGQSolver, DTypePolicy, SolverConfig) -> list:
+    """Phase 7, the parity layout of both solvers on the NE85184 cavity, where
+    the JAX package's rule streams every velocity field: ``kernels_streamed``
+    (TPU kernel row 3 in its K, K + A and MK + A forms on the solvers' own
+    tables, against the resident form and the plain version), ``e2e_ne85``
+    and ``e2e_ne85_implicit``.  The rows of the ``kernels`` line it measures."""
+    import numpy as np
+    import torch
+
+    pstl = parity_stencil
+    strict = args.ne85_n == NE85_N
+    rng = np.random.default_rng(20261019)
+    t0 = time.time()
+    cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                       pressure_warm_start=True, pressure_cg_fuse_loop=True,
+                       steps_per_chunk=25)
+    solver = ExplicitBCHSolver(_ne85_deck(cavity_deck, args.ne85_n), cfg)
+    sp = solver.sp_c
+    emit(dict(phase="setup_ne85", layout=solver.layout, nn=solver.nn, nnp=solver.nnp, sp=sp,
+              k_planes=int(solver.d["Kp"].shape[1]), setup_s=time.time() - t0))
+    if solver.layout != "parity":
+        raise AssertionError(f"ne85: the explicit solver took {solver.layout}")
+    e2e = phase_e2e_ne85(solver, ExplicitBCHSolver, pstl, cuda_lib, args.ne85_steps,
+                         args.ne85_finite_steps, strict, args.ne85_n)
+    if strict and not e2e["streamed"]:
+        raise AssertionError("ne85: the velocity field did not stream at NE85184")
+    # ---- K and K + A with this step's convection planes, a seeded velocity
+    u = torch.from_numpy(rng.standard_normal((3, 8, sp)).astype(np.float32)).to(solver.device)
+    ks = {"k": _streamed_check(pstl, solver.d["Kp"], u, solver.k_pairs)}
+    planes = pstl.conv_planes_from_ae(solver._parity_conv_ae(solver.d, e2e.pop("state").un, True),
+                                      groups=solver.conv_groups)
+    ks["k_plus_a"] = _streamed_check(pstl, solver.d["Kp"], u, solver.k_pairs, planes,
+                                     solver.conv_pairs2)
+    del solver, planes
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    icfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                        pressure_warm_start=True, steps_per_chunk=25)
+    isolver = ImplicitGQSolver(_ne85_deck(cavity_deck, args.ne85_n), icfg)
+    emit(dict(phase="setup_ne85_implicit", layout=isolver.layout, setup_s=time.time() - t0,
+              a_planes=int(isolver.d["MKp"].shape[1])))
+    if isolver.layout != "parity":
+        raise AssertionError(f"ne85: the implicit solver took {isolver.layout}")
+    # the M and MK + A applies in the form the rule picks: streamed at NE85184
+    streamed = pstl.stream_field((3, 8, isolver.sp_c), 4, isolver.a_pairs)
+    if streamed != pstl.stream_field((3, 8, isolver.sp_c), 4, isolver.m_pairs):
+        raise AssertionError("ne85 implicit: M and MK + A take different field forms")
+    if strict and not streamed:
+        raise AssertionError("ne85: the implicit velocity field did not stream at NE85184")
+    k_name = "parity_apply_k_streamed" if streamed else "parity_apply_k"
+    ie2e = phase_e2e_implicit(isolver, ImplicitGQSolver, cuda_lib, fused_cg,
+                              args.ne85_implicit_steps, DTypePolicy, strict, tag="ne85_implicit",
+                              k_name=k_name, cg_iters_tol=NE85_CG_ITERS_TOL, variants=False)
+    # ---- MK + A of this step's LHS
+    a_wc = isolver._parity_lhs(isolver.d, ie2e.pop("state").uk)
+    ks["mk_plus_a"] = _streamed_check(pstl, a_wc, u, isolver.a_pairs)
+    del isolver, a_wc, u
+    torch.cuda.empty_cache()
+    emit(dict(phase="kernels_streamed", deck_n=args.ne85_n, sp=sp, checks=ks))
+
+    src = "cfd_with_cuda_tpu/ops/parity_stencil.py:509"
+    lx, li = e2e["launches"], ie2e["launches"]
+    return [
+        ("parity_apply_k_streamed", "parity_apply.cu", src, lx["parity_apply_k_streamed"], ks["k"]),
+        ("parity_apply_k_plus_a_streamed", "parity_apply.cu", src,
+         lx["parity_apply_k_plus_a_streamed"], ks["k_plus_a"]),
+        ("parity_apply_mk_plus_a_streamed", "parity_apply.cu", src,
+         li["parity_apply_k_streamed"], ks["mk_plus_a"]),
     ]
 
 
@@ -1558,6 +1923,16 @@ def main() -> int:
                     help="explicit BFS steps from rest (warm-up included)")
     ap.add_argument("--bfs-implicit-steps", type=int, default=20,
                     help="implicit BFS steps from rest (warm-up included)")
+    ap.add_argument("--ne85-n", type=int, default=NE85_N,
+                    help="elements per edge of the NE85184 cavity phases (44; a smaller one "
+                         "asserts launch counts and finite fields only: below 39 the field "
+                         "stays resident)")
+    ap.add_argument("--ne85-steps", type=int, default=65,
+                    help="explicit NE85184 steps from rest (5 warm-up + 60 timed)")
+    ap.add_argument("--ne85-finite-steps", type=int, default=200,
+                    help="explicit NE85184 steps from rest with finite fields (untimed)")
+    ap.add_argument("--ne85-implicit-steps", type=int, default=20,
+                    help="implicit NE85184 steps from rest (warm-up included)")
     args = ap.parse_args()
 
     import torch
@@ -1585,8 +1960,11 @@ def main() -> int:
         ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
     torch.cuda.empty_cache()
     rows += interleaved_phases(
-        args, cavity_deck, cuda_lib, fused_cg, window_stencil, stencil,
+        args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil, stencil,
         ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
+    torch.cuda.empty_cache()
+    rows += ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, ExplicitBCHSolver,
+                        ImplicitGQSolver, DTypePolicy, SolverConfig)
     torch.cuda.empty_cache()
 
     # ---- the unstructured path of both solvers on the backward-facing step
