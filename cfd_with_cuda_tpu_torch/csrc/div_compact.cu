@@ -14,104 +14,169 @@
 // coarse offset) pairs of div_class_pairs (the radius-2 fine window seen
 // from the coarse rows).  The field is read in its (3, 8, sp) layout: the
 // TPU path's transpose to rows 3p + d (parity_stencil.py:544) is not
-// needed.
+// needed.  Per slot the three directions are summed first ((d0 + d1) + d2),
+// then added to the running sum, as the Pallas body does (jnp.sum over the
+// 3 rows, then acc + ...).
 //
 // What bounds it: the compact G^T weight stream, 3 x 125 planes (NE27000
-// f32: 46 MB per apply); the 2.9 MB field stays in L2.  Design: one thread
-// per coarse q, neighbouring threads on neighbouring q, so each weight
-// plane and each shifted field row is read coalesced; the slot table is
-// read uniformly by the warp.  Per slot the three directions are summed
-// first ((d0 + d1) + d2), then added to the running sum, as the Pallas body
-// does (jnp.sum over the 3 rows, then acc + ...).
+// f32: 46 MB per apply); the 2.9 MB field stays in L2.  A thread per row
+// walking its 125 slots in turn is latency-bound (125 dependent rounds of
+// HBM latency, ~0.065 ms at NE27000 on an H100 against a 0.013 ms byte
+// bound), so a block takes 32 coarse rows (one warp's width: weight and
+// field loads stay coalesced) with 8 warps, in two phases:
+//   1. each warp takes every 8th slot and, for its 32 rows, computes the
+//      slot's term v[s][r] = (g0 x0 + g1 x1) + g2 x2 (the Pallas body's
+//      per-slot sum) into shared memory, 4 slots' loads issued together
+//      (at most 64 registers a thread, so 4 blocks share an SM); a slot
+//      whose field index leaves the field writes -0.0f, which leaves any
+//      running sum exactly as skipping the slot would;
+//   2. warp 0 adds v[0..nw) in slot order to an accumulator that starts at
+//      +0 and writes y.
+// The sum runs over the same terms in slot order, each term the same
+// expression, so the result is that of a thread walking its row's slots in
+// turn, bit for bit, while a block keeps its 125 x 32 slot terms' loads in
+// flight together.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kRows = 32;                        // coarse rows of a block
+constexpr int kWarps = 8;
+constexpr int kThreads = kRows * kWarps;
+constexpr int kMaxSlots = 128;                   // 125 for the radius-2 window
+constexpr int kSlotsPerWarp = kMaxSlots / kWarps;
+constexpr int kChunk = 4;                        // slots whose loads are issued together
+constexpr int kBlocksPerSm = 4;                  // 64 registers a thread at most
 constexpr int kClasses = 8;
 
-// pairs: int32, 2 per slot: (class, flat coarse offset)
-template <typename T>
-__global__ void __launch_bounds__(kThreads) div_compact_kernel(
-    const T* __restrict__ gt, int nw, const T* __restrict__ u,
-    const int* __restrict__ pairs, T* __restrict__ y, int sp) {
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  if (q >= sp) return;
-  const size_t plane = static_cast<size_t>(sp);
-  const size_t dstride_w = static_cast<size_t>(nw) * plane;   // GT direction stride
-  const size_t dstride_u = kClasses * plane;                  // u direction stride
-  T acc = T(0);
-  for (int s = 0; s < nw; ++s) {
-    const int cls = pairs[2 * s];
-    const int qs = q + pairs[2 * s + 1];
-    if (qs < 0 || qs >= sp) continue;  // zero field outside [0, sp)
-    const T* g = gt + static_cast<size_t>(s) * plane + q;
-    const T* x = u + static_cast<size_t>(cls) * plane + qs;
-    const T t = g[0] * x[0] + g[dstride_w] * x[dstride_u];
-    acc += t + g[2 * dstride_w] * x[2 * dstride_u];
+// The class-major field u (3, 8, sp): slot (cls, off) of row q reads
+// u[d, cls, q + off], zero outside [0, sp).
+struct ClassMajor {
+  int sp;
+  static __device__ int2 slot(const int* tab, int s) {
+    return make_int2(tab[2 * s], tab[2 * s + 1]);
   }
-  y[q] = acc;
-}
+  __device__ int base(int q) const { return q; }
+  __device__ long long at(int base, int2 slot) const {
+    const int qs = base + slot.y;
+    return (qs < 0 || qs >= sp) ? -1 : static_cast<long long>(slot.x) * sp + qs;
+  }
+};
 
-// The interleaved form reads u (3, n_u), flat fine-grid order, where the
+// The interleaved field u (3, n_u), flat fine-grid order, where the
 // class-major form reads its class split: slot s of coarse row q is the fine
 // node emb(q) + foff_s, emb(q) = (2 qz fy + 2 qy) fx + 2 qx, foff_s the
 // slot's fine window offset (the same z-major radius-2 scan as the pairs).
 // It reads the value the split would hold there, or, where the fine offset
-// leaves the grid and wraps a row end, some other node's value under a
-// zero weight (the 3-D neighbour is absent, so G^T has no entry); the sum
-// runs in the same order, so the result equals the split form's without
-// the split's ~24 copies.  Rows q >= nq (the class box padding) are 0.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) div_compact_interleaved_kernel(
-    const T* __restrict__ gt, int nw, const T* __restrict__ u, int n_u,
-    const int* __restrict__ foffs, T* __restrict__ y, int sp, int cx, int cy,
-    int nq, int fx, int fy) {
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  if (q >= sp) return;
-  if (q >= nq) {
-    y[q] = T(0);
-    return;
+// leaves the grid and wraps a row end, some other node's value under a zero
+// weight (the 3-D neighbour is absent, so G^T has no entry); the sum runs in
+// the same order, so the result equals the split form's without the
+// split's ~24 copies.
+struct Interleaved {
+  int n_u, cx, cy, fx, fy;
+  static __device__ int2 slot(const int* tab, int s) { return make_int2(0, tab[s]); }
+  __device__ int base(int q) const {
+    const int qx = q % cx, qy = (q / cx) % cy, qz = q / (cx * cy);
+    return (2 * qz * fy + 2 * qy) * fx + 2 * qx;
   }
-  const int qx = q % cx, qy = (q / cx) % cy, qz = q / (cx * cy);
-  const int e = (2 * qz * fy + 2 * qy) * fx + 2 * qx;
+  __device__ long long at(int base, int2 slot) const {
+    const int j = base + slot.y;
+    return (j < 0 || j >= n_u) ? -1 : j;
+  }
+};
+
+// y[q] for the block's 32 rows; rows q >= nrows (the interleaved form's
+// class box padding) are 0.  dstride_u: u's direction stride.
+template <class Field>
+__device__ __forceinline__ void div_rows(const float* __restrict__ gt, int nw,
+                                         const float* __restrict__ u, size_t dstride_u,
+                                         const int* __restrict__ tab, const Field field,
+                                         float* __restrict__ y, int sp, int nrows) {
+  __shared__ float v[kMaxSlots][kRows];
+  __shared__ int2 slots[kMaxSlots];
+  for (int s = threadIdx.x; s < nw; s += kThreads) slots[s] = Field::slot(tab, s);
+  __syncthreads();
+  const int lane = threadIdx.x % kRows, warp = threadIdx.x / kRows;
+  const int q = blockIdx.x * kRows + lane;
+  const bool row = q < nrows;
+  const int base = row ? field.base(q) : 0;
   const size_t plane = static_cast<size_t>(sp);
   const size_t dstride_w = static_cast<size_t>(nw) * plane;   // GT direction stride
-  const size_t dstride_u = static_cast<size_t>(n_u);          // u direction stride
-  T acc = T(0);
-  for (int s = 0; s < nw; ++s) {
-    const int j = e + foffs[s];
-    if (j < 0 || j >= n_u) continue;   // zero field outside [0, n_u)
-    const T* g = gt + static_cast<size_t>(s) * plane + q;
-    const T* x = u + j;
-    const T t = g[0] * x[0] + g[dstride_w] * x[dstride_u];
-    acc += t + g[2 * dstride_w] * x[2 * dstride_u];
+
+  // phase 1: this warp's slots warp, warp + 8, ...; a chunk's loads are all
+  // issued before its sums
+#pragma unroll
+  for (int i0 = 0; i0 < kSlotsPerWarp; i0 += kChunk) {
+    float g0[kChunk], g1[kChunk], g2[kChunk], x0[kChunk], x1[kChunk], x2[kChunk];
+    bool live[kChunk];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int s = warp + kWarps * (i0 + i);
+      const long long a = (row && s < nw) ? field.at(base, slots[s]) : -1;
+      live[i] = a >= 0;
+      const float* g = gt + static_cast<size_t>(s) * plane + q;
+      const float* x = u + a;
+      g0[i] = live[i] ? g[0] : 0.0f;
+      g1[i] = live[i] ? g[dstride_w] : 0.0f;
+      g2[i] = live[i] ? g[2 * dstride_w] : 0.0f;
+      x0[i] = live[i] ? x[0] : 0.0f;
+      x1[i] = live[i] ? x[dstride_u] : 0.0f;
+      x2[i] = live[i] ? x[2 * dstride_u] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int s = warp + kWarps * (i0 + i);
+      if (s < nw) {
+        const float t = g0[i] * x0[i] + g1[i] * x1[i];
+        v[s][lane] = live[i] ? t + g2[i] * x2[i] : -0.0f;
+      }
+    }
   }
-  y[q] = acc;
+  __syncthreads();
+
+  // phase 2: the slot terms in slot order
+  if (warp == 0 && q < sp) {
+    float acc = 0.0f;
+    for (int s = 0; s < nw; ++s) acc += v[s][lane];
+    y[q] = row ? acc : 0.0f;
+  }
 }
 
-template <typename T>
-int launch(const T* gt, int nw, const T* u, const int* pairs, T* y, int sp,
-           void* stream) {
-  div_compact_kernel<T><<<(sp + kThreads - 1) / kThreads, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(gt, nw, u, pairs, y, sp);
-  return static_cast<int>(cudaGetLastError());
+// pairs: int32, 2 per slot: (class, flat coarse offset)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) div_compact_kernel(
+    const float* __restrict__ gt, int nw, const float* __restrict__ u,
+    const int* __restrict__ pairs, float* __restrict__ y, int sp) {
+  div_rows(gt, nw, u, kClasses * static_cast<size_t>(sp), pairs, ClassMajor{sp}, y, sp, sp);
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) div_compact_interleaved_kernel(
+    const float* __restrict__ gt, int nw, const float* __restrict__ u, int n_u,
+    const int* __restrict__ foffs, float* __restrict__ y, int sp, int cx, int cy,
+    int nq, int fx, int fy) {
+  div_rows(gt, nw, u, static_cast<size_t>(n_u), foffs, Interleaved{n_u, cx, cy, fx, fy},
+           y, sp, nq);
 }
 
 }  // namespace
 
 extern "C" int div_compact_f32(const float* gt, int nw, const float* u,
                                const int* pairs, float* y, int sp, void* stream) {
-  return launch<float>(gt, nw, u, pairs, y, sp, stream);
+  if (nw < 1 || nw > kMaxSlots || sp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  div_compact_kernel<<<(sp + kRows - 1) / kRows, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(gt, nw, u, pairs, y, sp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // coarse dims (cx, cy, nq = cx cy cz), fine dims (fx, fy); u (3, n_u)
 extern "C" int div_compact_interleaved_f32(const float* gt, int nw, const float* u, int n_u,
                                            const int* foffs, float* y, int sp, int cx,
                                            int cy, int nq, int fx, int fy, void* stream) {
-  div_compact_interleaved_kernel<float><<<(sp + kThreads - 1) / kThreads, kThreads, 0,
-                                          static_cast<cudaStream_t>(stream)>>>(
+  if (nw < 1 || nw > kMaxSlots || sp < 1 || nq > sp) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  div_compact_interleaved_kernel<<<(sp + kRows - 1) / kRows, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
       gt, nw, u, n_u, foffs, y, sp, cx, cy, nq, fx, fy);
   return static_cast<int>(cudaGetLastError());
 }

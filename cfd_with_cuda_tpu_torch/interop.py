@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from cfd_with_cuda_tpu_torch.ops.spmv import build_reverse_incidence
+from cfd_with_cuda_tpu_torch.ops.window_stencil import compact_g_window
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitState
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitState
 
@@ -86,15 +87,23 @@ def implicit_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, *,
     return _carry(d, _SHARED_IMPLICIT, attrs, sym)
 
 
+def _carry_interleaved(d, names, attrs, sym: bool) -> dict[str, torch.Tensor]:
+    """:func:`_carry`, and the class-compacted G window the port's
+    interleaved steps apply (``G_cwin``, from the carried ``G_win``)."""
+    out = _carry(d, names, attrs, sym)
+    out["G_cwin"] = compact_g_window(out["G_win"], attrs["fine_dims"], attrs["g_radius"])[0]
+    return out
+
+
 def interleaved_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, *,
                                 sym: bool = False) -> dict[str, torch.Tensor]:
     """The port's table dict from a JAX explicit solver's interleaved ``d``
     (``attrs``: ``ExplicitBCHSolver.INTERLEAVED_STATIC_ATTRS``, with
-    ``elem_structured`` and ``fine_dims``; ``sym`` as
+    ``elem_structured``, ``fine_dims`` and ``g_radius``; ``sym`` as
     :func:`tables_from_jax`).  On a box whose elements do not tile it the
     element tables go element-major and the grid-order ``ltog`` gets its
     reverse table, as the port's elemental convection takes them."""
-    out = _carry(d, _SHARED_INTERLEAVED, attrs, sym)
+    out = _carry_interleaved(d, _SHARED_INTERLEAVED, attrs, sym)
     if attrs["elem_structured"]:
         out |= _tensors({k: np.asarray(d[k]) for k in ("Sv", "gDSv", "gq")})
     else:
@@ -110,7 +119,7 @@ def implicit_interleaved_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, 
     """The port's table dict from a JAX implicit solver's interleaved ``d``
     (``attrs``: ``ImplicitGQSolver.INTERLEAVED_STATIC_ATTRS``; ``sym`` as
     :func:`tables_from_jax`)."""
-    return _carry(d, _SHARED_INTERLEAVED_IMPLICIT, attrs, sym)
+    return _carry_interleaved(d, _SHARED_INTERLEAVED_IMPLICIT, attrs, sym)
 
 
 def rev_from_jax(rev: np.ndarray, ne: int, s: int) -> np.ndarray:

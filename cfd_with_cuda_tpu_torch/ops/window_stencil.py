@@ -5,7 +5,9 @@ Port of ``cfd_with_cuda_tpu/ops/pallas_stencil.py``: ``window_offsets``,
 ``div_class_pairs``, ``compact_gt_window`` (host, setup time); the window
 applies of the interleaved layout, :func:`window_spmv`, :func:`grad_window`
 and :func:`div_window` (the ``_stencil_call`` body, CUDA kernel
-``csrc/window_stencil.cu``); and the compact G^T apply
+``csrc/window_stencil.cu``), G on the class-compacted window
+(:func:`compact_g_window`, :func:`grad_window_compact`: the kernel's GRAD
+form, which the solvers call); and the compact G^T apply
 (``div_compact_call``, CUDA kernel ``csrc/div_compact.cu``), on a
 class-split field (:func:`div_compact`, the parity layout) or read
 straight from an interleaved one (:func:`div_compact_interleaved`,
@@ -30,8 +32,9 @@ import torch.nn.functional as F
 from cfd_with_cuda_tpu_torch.ops import cuda_lib
 
 __all__ = [
-    "BLK", "window_offsets", "div_class_pairs", "compact_gt_window",
-    "window_spmv", "window_spmv_plain", "grad_window", "grad_window_plain",
+    "BLK", "window_offsets", "div_class_pairs", "compact_gt_window", "compact_g_slots",
+    "compact_g_window", "window_spmv", "window_spmv_plain", "grad_window", "grad_window_plain",
+    "grad_window_compact", "grad_window_compact_plain",
     "div_window", "div_window_plain", "div_compact", "div_compact_plain",
     "div_compact_interleaved", "div_compact_interleaved_plain",
 ]
@@ -94,6 +97,75 @@ def compact_gt_window(gt_win: np.ndarray, fine_dims, coarse_dims) -> np.ndarray:
     return np.pad(out, ((0, 0), (0, 0), (0, s_pad - s_c)))
 
 
+def compact_g_slots(fine_dims, radius: int):
+    """The class-compacted G window's slot table: for each parity class c =
+    (z & 1) * 4 + (y & 1) * 2 + (x & 1) of a fine row, the window slots (in
+    the z-major scan order of ``window_offsets``) whose offset lands on an
+    even node on all three axes, where the embedded coarse pressure lives.
+    Returns ``(slots (8, K), offsets (8, K), counts (8,))``, int32 numpy,
+    K the largest count (27 at radius 2: 3 slots per even axis, 2 per odd
+    one); entries past a class's count are 0."""
+    return _compact_g_slots(tuple(int(v) for v in fine_dims), int(radius))
+
+
+@functools.lru_cache(maxsize=16)
+def _compact_g_slots(fine_dims, radius):
+    offs = _window_offsets(fine_dims, radius)
+    steps = range(-radius, radius + 1)
+    scan = [(dx, dy, dz) for dz in steps for dy in steps for dx in steps]
+    lists = [[k for k, (dx, dy, dz) in enumerate(scan)
+              if (c & 1) == dx % 2 and (c >> 1 & 1) == dy % 2 and (c >> 2 & 1) == dz % 2]
+             for c in range(8)]
+    width = max(len(ks) for ks in lists)
+    slots = np.zeros((8, width), np.int32)
+    offsets = np.zeros((8, width), np.int32)
+    for c, ks in enumerate(lists):
+        slots[c, : len(ks)] = ks
+        offsets[c, : len(ks)] = [offs[k] for k in ks]
+    counts = np.array([len(ks) for ks in lists], np.int32)
+    for a in (slots, offsets, counts):
+        a.flags.writeable = False
+    return slots, offsets, counts
+
+
+def _row_classes(fine_dims, n: int, device) -> torch.Tensor:
+    """Parity class of each of the ``n`` flat fine rows (int64; rows past the
+    grid, the ``BLK`` padding, get the class their flat index gives)."""
+    fx, fy, _ = fine_dims
+    s = torch.arange(n, device=device)
+    return (s // (fx * fy) % 2) * 4 + (s // fx % fy % 2) * 2 + s % fx % 2
+
+
+def compact_g_window(g_win, fine_dims, radius: int):
+    """``(G_cwin (3, K, n), offsets (8, K), counts (8,))`` <- the fine G
+    window ``g_win (3, W^3, n)`` (setup time, or a CUDA tensor in
+    :func:`grad_window`).  ``G_cwin[d, j, s] = g_win[d, slot_{c(s)}[j], s]``
+    over the class slots of :func:`compact_g_slots`, zero past the class's
+    count; ``offsets`` and ``counts`` are that function's (int32 numpy).
+    ``G_cwin`` is a numpy array for a numpy ``g_win``, else a tensor on its
+    device.  Raises ``ValueError`` if a weight it drops is not exactly 0:
+    the compact apply then equals the full window's."""
+    slots, offsets, counts = compact_g_slots(fine_dims, radius)
+    w = torch.as_tensor(g_win)
+    if w.ndim != 3 or w.shape[0] != 3 or w.shape[1] != (2 * radius + 1) ** 3:
+        raise ValueError(f"compact_g_window: g_win of shape {tuple(w.shape)}")
+    n = w.shape[-1]
+    cls = _row_classes(fine_dims, n, w.device)
+    keep = torch.zeros((8, w.shape[1]), dtype=torch.bool)
+    for c in range(8):
+        keep[c, slots[c, : counts[c]].tolist()] = True
+    dropped = int(torch.count_nonzero((w != 0) & ~keep.to(w.device)[cls].T))
+    if dropped:
+        raise ValueError(f"compact_g_window: {dropped} nonzero weights lie outside their "
+                         "row's parity-class slots")
+    k = slots.shape[1]
+    idx = torch.from_numpy(slots.astype(np.int64)).to(w.device)[cls].T          # (K, n)
+    live = torch.arange(k, device=w.device)[:, None] < torch.from_numpy(
+        counts.astype(np.int64)).to(w.device)[cls][None]
+    g_cwin = torch.where(live, w.gather(1, idx.expand(3, k, n)), w.new_zeros(()))
+    return (g_cwin.numpy() if isinstance(g_win, np.ndarray) else g_cwin), offsets, counts
+
+
 def div_compact_plain(gt_cwin: torch.Tensor, up: torch.Tensor, pairs) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ``y[q] = sum_s sum_d
     gt_cwin[d, s, q] * up[d, cls_s, q + off_s]`` (zero outside [0, Sp)),
@@ -110,7 +182,9 @@ def div_compact_plain(gt_cwin: torch.Tensor, up: torch.Tensor, pairs) -> torch.T
 
 # ------------------------------------------------------------ window applies
 
-_SPMV, _GRAD, _DIV = 0, 1, 2      # csrc/window_stencil.cu modes
+# csrc/window_stencil.cu modes; GRAD is the plain version's only (on the
+# card G runs on the class-compacted table, :func:`grad_window_compact`)
+_SPMV, _GRAD, _DIV = 0, 1, 2
 
 
 def _operands(win, x, dims):
@@ -150,16 +224,16 @@ def _offsets_table(offsets, device: torch.device) -> torch.Tensor:
 
 
 def _stencil(mode, name, wb, xb, offsets, plain) -> torch.Tensor:
-    """The window apply of ``mode`` on ``wb (cw, W, n)``, ``xb (cx, n)``: the
-    plain version on a CPU tensor (or under ``plain``), the kernel on a CUDA
-    tensor."""
+    """The window apply of ``mode`` (SPMV or DIV) on ``wb (cw, W, n)``, ``xb
+    (cx, n)``: the plain version on a CPU tensor (or under ``plain``), the
+    kernel on a CUDA tensor."""
     offsets = tuple(int(o) for o in offsets)
     if plain or xb.device.type == "cpu":
         return _stencil_plain(mode, wb, xb, offsets)
     if xb.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xb.device}")
     cx, n = xb.shape
-    cw = (1, 3, 3)[mode]
+    cw = {_SPMV: 1, _DIV: 3}[mode]
     if wb.shape != (cw, len(offsets), n):
         raise ValueError(f"{name}: shapes {tuple(wb.shape)}, {tuple(xb.shape)}, "
                          f"{len(offsets)} offsets")
@@ -168,7 +242,7 @@ def _stencil(mode, name, wb, xb, offsets, plain) -> torch.Tensor:
     if wb.device != xb.device:
         raise ValueError(f"{name}: operands on different devices")
     wb, xb = wb.contiguous(), xb.contiguous()
-    co = (cx, 3, 1)[mode]
+    co = cx if mode == _SPMV else 1
     y = torch.empty((co, n), dtype=xb.dtype, device=xb.device)
     fn = cuda_lib.function("window_stencil_f32" if xb.dtype == torch.float32
                            else "window_stencil_f64")
@@ -221,20 +295,101 @@ def window_spmv_plain(win, x, dims, radius=None, *, offsets=None, trim=True,
 
 def _grad_window(g_win, p_fine, dims, radius, trim, plain):
     wb, xb, s, n = _operands(g_win, p_fine, dims)
-    y = _stencil(_GRAD, "grad_window", wb, xb, window_offsets(dims, radius), plain)
+    if plain or xb.device.type == "cpu":
+        y = _stencil_plain(_GRAD, wb, xb, window_offsets(dims, radius))
+    else:
+        # the card's one GRAD kernel reads the class-compacted table
+        y = _grad_compact(compact_g_window(wb, dims, radius)[0], xb, dims, radius, False)
     return _trimmed(y, s, n, trim)
 
 
 def grad_window(g_win, p_fine, dims, radius, *, trim=True):
     """``(3, S) <- [G1 p, G2 p, G3 p]``; ``g_win (3, W^3, S)``, ``p_fine
     (S,)`` the coarse field embedded on the fine grid
-    (``pallas_grad_window``)."""
+    (``pallas_grad_window``).  A CPU tensor runs :func:`grad_window_plain`;
+    a CUDA tensor compacts ``g_win`` (:func:`compact_g_window`) and launches
+    the kernel of :func:`grad_window_compact`."""
     return _grad_window(g_win, p_fine, dims, radius, trim, False)
 
 
 def grad_window_plain(g_win, p_fine, dims, radius, *, trim=True):
     """Plain PyTorch version of :func:`grad_window` on any device."""
     return _grad_window(g_win, p_fine, dims, radius, trim, True)
+
+
+@functools.lru_cache(maxsize=16)
+def _g_slot_tables(fine_dims, radius, device: torch.device):
+    _, offsets, counts = compact_g_slots(fine_dims, radius)
+    return (torch.from_numpy(np.array(offsets)).to(device),
+            torch.from_numpy(np.array(counts)).to(device))
+
+
+def _grad_compact_plain(g_cwin, xb, dims, offsets) -> torch.Tensor:
+    """Plain PyTorch version of the compact GRAD kernel: for j in order,
+    ``acc += g_cwin[:, j] * x[s + offsets[c(s), j]]`` on a zero-haloed field
+    (entries past a class's count are zero weights at offset 0)."""
+    n = xb.shape[-1]
+    halo = int(np.abs(offsets).max())
+    x_ext = F.pad(xb[0], (halo, halo))
+    cls = _row_classes(dims, n, xb.device)
+    cols = (torch.from_numpy(offsets.astype(np.int64)).to(xb.device)[cls].T
+            + torch.arange(halo, halo + n, device=xb.device))
+    acc = xb.new_zeros((3, n))
+    for j in range(offsets.shape[1]):
+        acc = acc + g_cwin[:, j] * x_ext[cols[j]]
+    return acc
+
+
+def _grad_compact(g_cwin, xb, dims, radius, plain) -> torch.Tensor:
+    """G on the class-compacted table ``g_cwin (3, K, n)``, ``xb (1, n)``:
+    the plain version on a CPU tensor (or under ``plain``), the kernel on a
+    CUDA tensor (launch count ``grad_window``)."""
+    dims = tuple(int(v) for v in dims)
+    _, offsets, _ = compact_g_slots(dims, radius)
+    if plain or xb.device.type == "cpu":
+        return _grad_compact_plain(g_cwin, xb, dims, offsets)
+    if xb.device.type != "cuda":
+        raise ValueError(f"grad_window_compact: unsupported device {xb.device}")
+    k, n = offsets.shape[1], xb.shape[-1]
+    if g_cwin.shape != (3, k, n) or xb.shape != (1, n):
+        raise ValueError(f"grad_window_compact: shapes {tuple(g_cwin.shape)}, "
+                         f"{tuple(xb.shape)}, {k} class slots")
+    if xb.dtype not in (torch.float32, torch.float64) or g_cwin.dtype != xb.dtype:
+        raise ValueError(f"grad_window_compact: dtypes {g_cwin.dtype}, {xb.dtype}")
+    if g_cwin.device != xb.device:
+        raise ValueError("grad_window_compact: operands on different devices")
+    g_cwin, xb = g_cwin.contiguous(), xb.contiguous()
+    y = torch.empty((3, n), dtype=xb.dtype, device=xb.device)
+    offs_t, counts_t = _g_slot_tables(dims, int(radius), xb.device)
+    fn = cuda_lib.function("grad_compact_f32" if xb.dtype == torch.float32
+                           else "grad_compact_f64")
+    err = fn(cuda_lib.ptr(g_cwin), k, cuda_lib.ptr(xb), cuda_lib.ptr(offs_t),
+             cuda_lib.ptr(counts_t), cuda_lib.ptr(y), n, dims[0], dims[1],
+             cuda_lib.stream_ptr(xb.device))
+    cuda_lib.check(err, "grad_window_compact")
+    cuda_lib.launch_counts["grad_window"] += 1
+    return y
+
+
+def _grad_window_compact(g_cwin, p_fine, dims, radius, trim, plain):
+    wb, xb, s, n = _operands(g_cwin, p_fine, dims)
+    return _trimmed(_grad_compact(wb, xb, dims, radius, plain), s, n, trim)
+
+
+def grad_window_compact(g_cwin, p_fine, dims, radius, *, trim=True):
+    """:func:`grad_window` on the class-compacted table ``g_cwin (3, K, S)``
+    of :func:`compact_g_window` (the solvers' ``d["G_cwin"]``).  A CPU
+    tensor runs :func:`grad_window_compact_plain`; a CUDA tensor launches
+    the GRAD kernel of ``csrc/window_stencil.cu`` (launch count
+    ``grad_window``).  Equal to :func:`grad_window` on the full table bit
+    for bit, up to the sign of an exact zero."""
+    return _grad_window_compact(g_cwin, p_fine, dims, radius, trim, False)
+
+
+def grad_window_compact_plain(g_cwin, p_fine, dims, radius, *, trim=True):
+    """Plain PyTorch version of :func:`grad_window_compact` on any device:
+    :func:`grad_window_plain`'s sum without its zero terms, bit for bit."""
+    return _grad_window_compact(g_cwin, p_fine, dims, radius, trim, True)
 
 
 def _div_window(gt_win, u, dims, radius, plain):

@@ -84,7 +84,7 @@ from cfd_with_cuda_tpu_torch.ops.stencil import (
 )
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     div_compact_interleaved,
-    grad_window,
+    grad_window_compact,
     window_spmv,
 )
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
@@ -165,6 +165,12 @@ def _regime(name, solver, state, n_timed, ops=None):
                    op_ms_alone=ops(state))
     print(json.dumps(out), flush=True)
     return state
+
+
+def _padded_size(solver) -> dict:
+    """The padded field length of the solver's box layout: Sp per class
+    (parity) or s_pad (interleaved)."""
+    return dict(sp=solver.sp_c) if solver.layout == "parity" else dict(s_pad=solver.s_pad)
 
 
 def _event_ms(fn, reps=10):
@@ -253,8 +259,8 @@ def _interleaved_ops(solver, implicit):
                                      (0, solver.s_pad - nn))
         out = dict(
             window_spmv=_event_ms(lambda: window_spmv(table, u, fine, offsets=offs, trim=False)),
-            grad_window=_event_ms(lambda: grad_window(d["G_win"], pf, fine, solver.g_radius,
-                                                      trim=False)),
+            grad_window=_event_ms(lambda: grad_window_compact(d["G_cwin"], pf, fine,
+                                                              solver.g_radius, trim=False)),
             div_compact_interleaved=_event_ms(lambda: div_compact_interleaved(
                 d["GT_cwin"], u, fine, solver.coarse_dims)),
             gather_elem=_event_ms(lambda: gather_elem_stencil(u[:, :nn], solver.elem_dims, fine)),
@@ -312,7 +318,8 @@ def main() -> None:
                            steps_per_chunk=50, structured_layout=args.layout)
         solver = ExplicitBCHSolver(deck, cfg)
         print(json.dumps(dict(deck=f"cavity_deck({args.deck_n}, cluster=2.0, dt={dt})",
-                              layout=solver.layout, nn=solver.nn, sp=solver.sp_c)), flush=True)
+                              layout=solver.layout, nn=solver.nn, **_padded_size(solver))),
+              flush=True)
         ops = _interleaved_ops(solver, False) if args.layout == "interleaved" else None
         state, _ = solver.run(n_steps=5)           # warm-up: kernel build and first launches
         state = _regime("spin_up", solver, state, 50, ops=ops)
@@ -326,7 +333,8 @@ def main() -> None:
                            structured_layout=args.layout)
         solver = ImplicitGQSolver(deck, cfg)
         print(json.dumps(dict(deck=f"cavity_deck({args.deck_n}, cluster=2.0, dt={dt})",
-                              layout=solver.layout, nn=solver.nn, sp=solver.sp_c)), flush=True)
+                              layout=solver.layout, nn=solver.nn, **_padded_size(solver))),
+              flush=True)
         ops = _interleaved_ops(solver, True) if args.layout == "interleaved" else None
         state, _ = solver.run(n_steps=5)
         _regime("from_rest", solver, state, 50, ops=ops)

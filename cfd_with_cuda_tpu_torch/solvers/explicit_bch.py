@@ -19,7 +19,8 @@ sub-iterations per time step (reference ``blascoCodinaHuerta.cpp``
   one whose elements do not tile it: fields ``(3, s_pad)`` in flat z-major
   grid order (the fine axis padded to a ``BLK`` multiple); per
   sub-iteration the CUDA kernels ``window_stencil`` (K u on the 125-offset
-  DIA table, G p on the 125-slot window) and ``div_compact`` in its
+  DIA table, G p on the class-compacted window of at most 27 slots a row)
+  and ``div_compact`` in its
   interleaved form (G^T onto the coarse grid).  Convection:
   ``conv_mode="assemble"`` adds A(un) into K's window rows once per step
   (one apply of K + A); otherwise the stride-2 elemental gather, one
@@ -83,11 +84,12 @@ from cfd_with_cuda_tpu_torch.ops.stencil import (
     convection_elem_matrices,
 )
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
+    compact_g_window,
     compact_gt_window,
     div_compact_interleaved,
     div_compact_interleaved_plain,
-    grad_window,
-    grad_window_plain,
+    grad_window_compact,
+    grad_window_compact_plain,
     window_spmv,
     window_spmv_plain,
 )
@@ -326,9 +328,12 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         permute_vec = box.permute_vec
         z_diag = box.permute_vec_p(np.asarray(Z.diagonal()))
         gt_win = dev(np.stack([g.window_vals(gt_radius, dtype) for g in gt_dias]))
+        g_win = pad(dev(np.stack([g.window_vals(self.g_radius, dtype) for g in g_dias])))
         d = {
             "K_vals": pad(dev(k_dia.vals)),
-            "G_win": pad(dev(np.stack([g.window_vals(self.g_radius, dtype) for g in g_dias]))),
+            "G_win": g_win,
+            # G's rows read the even fine nodes only: the class-compacted window
+            "G_cwin": compact_g_window(g_win, box.fine_dims, self.g_radius)[0],
             "GT_win": pad(gt_win),
             # divergence rows exist only at the embedded coarse positions
             "GT_cwin": dev(compact_gt_window(gt_win, box.fine_dims, box.coarse_dims)),
@@ -520,7 +525,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
     def _interleaved_operators(self, d, un):
         """The same on the interleaved layout (explicit_bch.py:839-867,
         937-977, 1105-1110): K and K + A through ``window_spmv``, G through
-        ``grad_window`` on the embedded pressure, G^T through
+        ``grad_window_compact`` on the embedded pressure, G^T through
         ``div_compact_interleaved``."""
         cfg = self.config
         fine, nn, s_pad = self.fine_dims, self.nn, self.s_pad
@@ -528,7 +533,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         # the wrappers run the kernels on CUDA tensors and the plain
         # versions on CPU tensors; `plain` forces the plain versions
         spmv_w = window_spmv_plain if self.plain else window_spmv
-        grad_w = grad_window_plain if self.plain else grad_window
+        grad_w = grad_window_compact_plain if self.plain else grad_window_compact
         div_c = div_compact_interleaved_plain if self.plain else div_compact_interleaved
 
         k_mul = lambda u: spmv_w(d["K_vals"], u, fine, offsets=self.k_offsets, trim=False,
@@ -536,7 +541,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
 
         def grad(p):
             pf = pad(coarse_to_fine(p, self.coarse_dims, fine))
-            return grad_w(d["G_win"], pf, fine, self.g_radius, trim=False)
+            return grad_w(d["G_cwin"], pf, fine, self.g_radius, trim=False)
 
         div = lambda u: div_c(d["GT_cwin"], u, fine, self.coarse_dims)[: self.nnp]
 

@@ -27,7 +27,8 @@ field through shared memory.  On the interleaved
 layout (a box mesh with ``structured_layout="interleaved"``, or one where
 the parity LHS assembly cannot route, as on a one-element-thin box between
 opposing walls) fields are ``(3, s_pad)`` in flat grid order and the
-kernels are ``window_stencil`` (M u^k, G p, A x) and ``div_compact`` in its
+kernels are ``window_stencil`` (M u^k, A x, and G p on the class-compacted
+window) and ``div_compact`` in its
 interleaved form, around the same CG; torch ops assemble A(u^k) into
 the window rows (27 strided index-adds).  On the ELL layout (any
 other mesh, or ``structured="never"``; the JAX package's
@@ -80,11 +81,12 @@ from cfd_with_cuda_tpu_torch.ops.stencil import (
     convection_elem_matrices,
 )
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
+    compact_g_window,
     compact_gt_window,
     div_compact_interleaved,
     div_compact_interleaved_plain,
-    grad_window,
-    grad_window_plain,
+    grad_window_compact,
+    grad_window_compact_plain,
     window_spmv,
     window_spmv_plain,
 )
@@ -408,6 +410,8 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             "row_mask_grid": pad(bc_mask),
             "diag_add_grid": dev(diag_add),
             "G_win": pad(g_win),
+            # G's rows read the even fine nodes only: the class-compacted window
+            "G_cwin": compact_g_window(pad(g_win), box.fine_dims, self.g_radius)[0],
             "GT_win": pad(gt_win),
             "bc_mask": pad(bc_mask),
             "bc_vel": pad(bc_vel),
@@ -641,7 +645,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         """Flat grid-order layout (implicit_gq.py:836-1107, the kernel
         branch): the per-step LHS assembled into the A window rows
         (``assemble_window_values``), the momentum BiCGStab and M u^k through
-        ``window_spmv``, G through ``grad_window``, G^T through
+        ``window_spmv``, G through ``grad_window_compact``, G^T through
         ``div_compact_interleaved``."""
         cfg = self.config
         dt = self.dt
@@ -649,7 +653,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         # the wrappers run the kernels on CUDA tensors and the plain
         # versions on CPU tensors; `plain` forces the plain versions
         spmv_w = window_spmv_plain if self.plain else window_spmv
-        grad_w = grad_window_plain if self.plain else grad_window
+        grad_w = grad_window_compact_plain if self.plain else grad_window_compact
         div_c = div_compact_interleaved_plain if self.plain else div_compact_interleaved
         uk_prev, pk_prev, pk_prevprev = state       # uk (3, s_pad)
 
@@ -672,7 +676,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         def grad(p):
             pf = torch.nn.functional.pad(coarse_to_fine(p, self.coarse_dims, fine),
                                          (0, s_pad - nn))
-            return grad_w(d["G_win"], pf, fine, self.g_radius, trim=False)
+            return grad_w(d["G_cwin"], pf, fine, self.g_radius, trim=False)
 
         # ---- RHS = (M/dt) u^k - G (2 p^k - p^{k-1}); BC rows = BC values
         pdiff2 = 2.0 * pk_prev - pk_prevprev

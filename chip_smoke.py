@@ -41,8 +41,10 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    (``structured_layout="interleaved"``, fields (3, 227,328)):
    ``kernels_interleaved`` (every launch form of the window kernel,
    ``window_spmv`` for K, the "assemble" K + A, the implicit MK + A and M,
-   ``grad_window`` and ``div_window``, in f32 and the three modes in f64,
-   and the compact G^T on the interleaved field, against their plain
+   G on the class-compacted window (``grad_window_compact``, its plain
+   version also bit for bit against ``grad_window_plain``) and
+   ``div_window``, in f32 and the three forms in f64, and the compact G^T
+   on the interleaved field, against their plain
    versions on the solvers' own tables; device, plain and cuSPARSE CSR
    times and the byte bound), ``e2e_interleaved`` (rung 3 of bench.py's
    ladder from rest: launch counts held against the sub-iteration history,
@@ -65,8 +67,9 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    against the resident form, against the plain version, cuSPARSE CSR
    times) and ``e2e_ne85_implicit`` (20 steps from rest, the streamed M
    and MK + A launches held against the history, 3 steps against the plain
-   path).  At NE27000 the streamed form is forced in ``kernels`` and held
-   bit for bit against the resident one;
+   path), and the compact G^T at those shapes.  At NE27000 the streamed
+   form is forced in ``kernels`` and held bit for bit against the resident
+   one;
 8. the unstructured path of both solvers on the backward-facing step
    ``bfs_deck(96, 40, 40)`` (138,400 hexes, 1,143,153 velocity and 147,477
    pressure nodes; natural outflow): ``bfs_setup`` (the explicit solver's
@@ -100,6 +103,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12          # H100 SXM fp32, outside the tensor cores
 FP64_FLOP_PER_S = 34e12          # H100 SXM fp64, outside the tensor cores (data sheet)
 WARMUP_STEPS = 5
+FLUSH_BYTES = 1 << 30     # read ahead of a timed call: 20x the 50 MB L2, ~0.3 ms a read
 APPLY_TOL = 1e-5   # of the largest sum |w x|: FMA vs rounded product over <= 1241 terms, same order
 # the window kernel against its plain version, of the largest sum |w x|: the same <= 125
 # terms in the same order, the kernel's FMA against torch's rounded product: at most a
@@ -198,15 +202,79 @@ def kernel_device_ms(fn, kernel_name: str, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # a trace may drop a launch or two; in a long process one now and then
+    # holds no device events at all, so a session that saw too few is redone
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name]
+        if len(spans) >= reps // 2:
+            return sum(spans) / len(spans) / 1e3
+    raise AssertionError(f"profiler saw {len(spans)} launches of {kernel_name} in {reps} calls")
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` with a cold L2, as a solver step finds a
+    table it last read before passing other tables through: each call is
+    queued behind two reads of a FLUSH_BYTES buffer (~0.6 ms, longer than a
+    call's host work, so the call's kernels run back to back after them) and
+    timed by CUDA events around the call alone."""
+    import torch
+
+    buf = torch.ones(FLUSH_BYTES // 4, device="cuda")   # f32: its sum writes one value
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        buf.sum()
+        buf.sum()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    del buf
+    return total / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events), the calls queued behind reads of a FLUSH_BYTES buffer that keep
+    the card busy until the host has enqueued them all, so that the
+    wrappers' host work does not enter (``fn`` must not wait for the card).
+    The reads double until they outlast the host's enqueueing; where they
+    never do, the last time is returned (it then reads the host as well, as
+    ``time_ms`` does) and a ``timing_note`` line says so."""
+    import torch
+
+    buf = torch.ones(FLUSH_BYTES // 4, device="cuda")   # f32: its sum writes one value
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    fn()
+    torch.cuda.synchronize()
+    reads = 16                       # ~5 ms of device work ahead of the calls
+    for _ in range(4):
+        ev[0].record()
+        for _ in range(reads):
+            buf.sum()
+        ev[1].record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name]
-    if len(spans) < reps // 2:        # the trace may drop a launch or two, not most
-        raise AssertionError(f"profiler saw {len(spans)} launches of {kernel_name} in {reps} calls")
-    return sum(spans) / len(spans) / 1e3
+        if host_ms < 0.8 * ev[0].elapsed_time(ev[1]):
+            break
+        reads *= 2
+    else:
+        emit(dict(phase="timing_note", queued=False, host_ms=host_ms, reads=reads // 2))
+    del buf
+    return ev[1].elapsed_time(ev[2]) / reps
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
@@ -312,6 +380,42 @@ def _apply_err(y, y_plain, y_abs):
     return err, err / float(y_abs.abs().max())
 
 
+def _div_compact_check(pstl, window_stencil, gt, u, coarse_dims) -> dict:
+    """The class-major compact G^T apply (TPU kernel row 4) on ``u (3, 8,
+    Sp)``: against its plain version (APPLY_TOL); the kernel's and cuSPARSE
+    CSR's device times (``queued_ms``; the CUDA-event times per call beside them,
+    which also read the wrapper's host work; and with a cold L2: the 46 MB
+    table may stay in the 50 MB L2 when launches run back to back), the plain
+    version's time; the bound of the nonzero weights."""
+    import torch
+
+    sp = u.shape[-1]
+    y = pstl.parity_div_apply(gt, u, coarse_dims)
+    y_plain = pstl.parity_div_apply_plain(gt, u, coarse_dims)
+    y_abs = pstl.parity_div_apply_plain(gt.abs(), u.abs(), coarse_dims)
+    err, rel = _apply_err(y, y_plain, y_abs)
+    if not rel <= APPLY_TOL:
+        raise AssertionError(f"div_compact: kernel vs plain {rel:.3e} > {APPLY_TOL}")
+    a_d = _div_csr(gt, window_stencil.div_class_pairs(coarse_dims), sp)
+    uf = u.reshape(-1)
+    nbytes = 4 * (nnz(gt) + u.numel() + sp)
+    b_ms, b_by = bound(nbytes, 2 * nnz(gt))
+    kernel = lambda: pstl.parity_div_apply(gt, u, coarse_dims)
+    out = dict(
+        max_abs_err=err, err_rel=rel, tol=APPLY_TOL,
+        ms=queued_ms(kernel, 20), event_ms=time_ms(kernel, 20), cold_ms=cold_ms(kernel, 20),
+        plain_ms=time_ms(lambda: pstl.parity_div_apply_plain(gt, u, coarse_dims), 3),
+        library_ms=queued_ms(lambda: torch.mv(a_d, uf), 20),
+        library_event_ms=time_ms(lambda: torch.mv(a_d, uf), 20),
+        library_cold_ms=cold_ms(lambda: torch.mv(a_d, uf), 20),
+        library_abs_err=float((torch.mv(a_d, uf) - y).abs().max()),
+        bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=2 * nnz(gt),
+        stream_bound_ms=bound(4 * (gt.numel() + u.numel() + sp), 0)[0],
+    )
+    del a_d
+    return out
+
+
 def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
     import numpy as np
     import torch
@@ -393,32 +497,12 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
     del a_ka, planes
 
     # G^T u (compact divergence)
-    gt = d["GT_cwin"]
-    y = pstl.parity_div_apply(gt, u, solver.coarse_dims)
-    y_plain = pstl.parity_div_apply_plain(gt, u, solver.coarse_dims)
-    y_abs = pstl.parity_div_apply_plain(gt.abs(), u.abs(), solver.coarse_dims)
-    err, rel = _apply_err(y, y_plain, y_abs)
-    if not rel <= APPLY_TOL:
-        raise AssertionError(f"div_compact: kernel vs plain {rel:.3e} > {APPLY_TOL}")
-    pairs = window_stencil.div_class_pairs(solver.coarse_dims)
-    a_d = _div_csr(gt, pairs, sp)
-    uf = u.reshape(-1)
-    nbytes = 4 * (nnz(gt) + u.numel() + sp)
-    b_ms, b_by = bound(nbytes, 2 * nnz(gt))
-    results["div_compact"] = dict(
-        max_abs_err=err, err_rel=rel, tol=APPLY_TOL,
-        ms=time_ms(lambda: pstl.parity_div_apply(gt, u, solver.coarse_dims), 20),
-        plain_ms=time_ms(lambda: pstl.parity_div_apply_plain(gt, u, solver.coarse_dims), 3),
-        library_ms=time_ms(lambda: torch.mv(a_d, uf), 20),
-        library_abs_err=float((torch.mv(a_d, uf) - y).abs().max()),
-        bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=2 * nnz(gt),
-        stream_bound_ms=bound(4 * (gt.numel() + u.numel() + sp), 0)[0],
-    )
-    del a_d
+    results["div_compact"] = _div_compact_check(pstl, window_stencil, d["GT_cwin"], u,
+                                                solver.coarse_dims)
 
     # pressure CG, cold and warm, on a divergence-shaped right-hand side
     nnp = solver.nnp
-    b = y_plain[:nnp].clone()
+    b = pstl.parity_div_apply_plain(d["GT_cwin"], u, solver.coarse_dims)[:nnp].clone()
     if solver.pin_grid >= 0:
         b[solver.pin_grid] = 0.0
     cfg = solver.config
@@ -690,9 +774,8 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
     sb, sb_by = bound(4 * (nnz(half) + 2 * n), 2 * nnz(win))
     results["sym_apply"] = dict(
         max_abs_err=err, err_rel=rel, tol=APPLY_TOL, window_rows=nh,
-        # the kernel alone (profiler): the wrapper's host work outlasts it
-        ms=kernel_device_ms(lambda: cg.window_apply_sym(half, v, dims=dims, radius=radius),
-                            "window_apply_sym_kernel", 20),
+        # the kernel's device time: the wrapper's host work outlasts it
+        ms=queued_ms(lambda: cg.window_apply_sym(half, v, dims=dims, radius=radius), 20),
         call_ms=time_ms(lambda: cg.window_apply_sym(half, v, dims=dims, radius=radius), 20),
         plain_ms=time_ms(lambda: cg.window_apply_plain(half, v, offs[nw // 2:], True), 3),
         library_ms=time_ms(lambda: torch.mv(a_z, v), 20),
@@ -717,7 +800,7 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
     db, db_by = bound(8 * n + 4, 2 * n)
     results["comp_dot"] = dict(
         max_abs_err=abs(got - exact), err_ulp_worst=worst, tol_ulp=2, n=n,
-        ms=kernel_device_ms(lambda: cg.comp_dot_f32(a_d, b_d), "comp_dot_kernel", 20),
+        ms=queued_ms(lambda: cg.comp_dot_f32(a_d, b_d), 20),
         call_ms=time_ms(lambda: cg.comp_dot_f32(a_d, b_d), 20),
         plain_ms=time_ms(lambda: cg.comp_dot_plain(a_d, b_d), 20),
         library_ms=None, bound_ms=db, bound_by=db_by,
@@ -1217,12 +1300,13 @@ def _window_csr(win, offs, n_in, row_of=None, col_base=0):
 
 
 def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
-    """Every launch form of the window kernel (TPU kernel row 10) and the
-    compact divergence on an interleaved field (row 11) at the NE27000
-    interleaved shapes and the solvers' own tables, against their plain
-    versions on the card (f32, and the three modes in f64), with the kernel,
-    plain and library times and the bound (7/8 of a G window row and about
-    half of a K row are structural zeros, which the kernel streams)."""
+    """Every launch form of the window kernel (TPU kernel row 10; G on the
+    class-compacted window) and the compact divergence on an interleaved
+    field (row 11) at the NE27000 interleaved shapes and the solvers' own
+    tables, against their plain versions on the card (f32, and the three
+    forms in f64), with the kernel, plain and library times and the bound
+    (about half of the weights of a K row and of a compacted G row are
+    zeros, which the kernels stream)."""
     import numpy as np
     import torch
 
@@ -1233,9 +1317,13 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
     rand = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
     results = {}
 
-    def check(name, kernel, plain, absolute, tol, table, fields, lib=None):
+    def check(name, kernel, plain, absolute, tol, table, fields, lib=None, queued=False):
         """``table``: the weights the kernel reads; ``fields``: the elements of
-        the fields it reads and writes."""
+        the fields it reads and writes.  Under ``queued`` (the kernels faster
+        than their wrappers' host work) ``ms`` and ``library_ms`` are device
+        times of back-to-back calls (``queued_ms``), the CUDA-event times per
+        call beside them, and ``cold_ms`` / ``library_cold_ms`` the times with
+        a cold L2."""
         y, y_plain, y_abs = kernel(), plain(), absolute()
         torch.cuda.synchronize()
         err, rel = _apply_err(y, y_plain, y_abs)
@@ -1256,6 +1344,13 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
             a, x, post = lib          # post: the sparse product in the kernel's layout
             out["library_ms"] = time_ms(lambda: torch.sparse.mm(a, x), 20)
             out["library_abs_err"] = float((post(torch.sparse.mm(a, x)) - y).abs().max())
+        if queued:
+            out["event_ms"], out["ms"] = out["ms"], queued_ms(kernel, 20)
+            out["cold_ms"] = cold_ms(kernel, 20)
+            if lib is not None:
+                out["library_event_ms"] = out["library_ms"]
+                out["library_ms"] = queued_ms(lambda: torch.sparse.mm(a, x), 20)
+                out["library_cold_ms"] = cold_ms(lambda: torch.sparse.mm(a, x), 20)
         results[name] = out
         return out
 
@@ -1315,13 +1410,28 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
             rows.append(r), cols.append(c), vals.append(v)
         return _csr(torch.cat(rows), torch.cat(cols), torch.cat(vals), (n, 3 * n))
 
-    def grad_div(prefix, g, gt, x_p, x_u, tol):
-        check(f"{prefix}grad_window",
-              lambda: ws.grad_window(g, x_p, fine, xs.g_radius, trim=False),
-              lambda: ws.grad_window_plain(g, x_p, fine, xs.g_radius, trim=False),
-              lambda: ws.grad_window_plain(g.abs(), x_p.abs(), fine, xs.g_radius, trim=False),
-              tol, g, n + 3 * n,
-              None if prefix else (grad_lib(g), x_p[:, None], lambda r: r.reshape(3, n)))
+    def grad_div(prefix, g, gc, gt, x_p, x_u, tol):
+        """G on the class-compacted table ``gc`` (the kernel the solvers and
+        ``grad_window`` launch; bound of G's nonzero weights, and of the
+        compacted table it reads as ``stream_bound_ms``), its plain version
+        against ``grad_window_plain`` on the full window ``g`` bit for bit;
+        G^T on the full window in DIV mode."""
+        out = check(f"{prefix}grad_window",
+                    lambda: ws.grad_window_compact(gc, x_p, fine, xs.g_radius, trim=False),
+                    lambda: ws.grad_window_compact_plain(gc, x_p, fine, xs.g_radius, trim=False),
+                    lambda: ws.grad_window_plain(g.abs(), x_p.abs(), fine, xs.g_radius,
+                                                 trim=False),
+                    tol, gc, n + 3 * n,
+                    None if prefix else (grad_lib(g), x_p[:, None], lambda r: r.reshape(3, n)),
+                    queued=True)
+        full = ws.grad_window_plain(g, x_p, fine, xs.g_radius, trim=False)
+        if not torch.equal(ws.grad_window_compact_plain(gc, x_p, fine, xs.g_radius, trim=False),
+                           full):
+            raise AssertionError(f"{prefix}grad_window: the compact plain version differs "
+                                 "from the full window's")
+        out["full_window_nnz"] = nnz(g)
+        out["full_window_stream_bound_ms"] = bound(g.element_size() * (g.numel() + 4 * n), 0)[0]
+        del full
         check(f"{prefix}div_window",
               lambda: ws.div_window(gt, x_u, fine, xs.g_radius),
               lambda: ws.div_window_plain(gt, x_u, fine, xs.g_radius),
@@ -1330,13 +1440,14 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
               None if prefix else (div_lib(gt), x_u.reshape(-1, 1), lambda r: r[:nn, 0]))
 
     assert xs.g_radius == 2 and d["GT_win"].shape[1] == len(g_offs)
-    grad_div("", d["G_win"], d["GT_win"], pf, u, WINDOW_TOL)
+    grad_div("", d["G_win"], d["G_cwin"], d["GT_win"], pf, u, WINDOW_TOL)
 
     # ---- the three modes in f64 (the f64 JAX fixtures' own 1e-12)
     u64, pf64 = u.double(), pf.double()
     spmv_form("f64_window_spmv_k", d["K_vals"].double(), xs.k_offsets, u64, WINDOW_TOL_F64,
               library=False)
-    grad_div("f64_", d["G_win"].double(), d["GT_win"].double(), pf64, u64, WINDOW_TOL_F64)
+    grad_div("f64_", d["G_win"].double(), d["G_cwin"].double(), d["GT_win"].double(), pf64,
+             u64, WINDOW_TOL_F64)
     del u64, pf64
 
     # ---- row 11: G^T on the interleaved field through the compact coarse rows
@@ -1359,7 +1470,8 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
           lambda: ws.div_compact_interleaved_plain(gt, u, fine, xs.coarse_dims)[:, None],
           lambda: ws.div_compact_interleaved_plain(gt.abs(), u.abs(), fine,
                                                    xs.coarse_dims)[:, None],
-          WINDOW_TOL, gt, 3 * n + gt.shape[-1], (a_c, u.reshape(-1, 1), lambda r: r))
+          WINDOW_TOL, gt, 3 * n + gt.shape[-1], (a_c, u.reshape(-1, 1), lambda r: r),
+          queued=True)
     del a_c
     emit(dict(phase="kernels_interleaved",
               shapes=dict(s_pad=n, nn=nn, nnp=xs.nnp, k_offsets=len(xs.k_offsets),
@@ -1836,12 +1948,13 @@ def phase_e2e_ne85(solver, ExplicitBCHSolver, pstl, cuda_lib, n_steps, finite_st
     return out
 
 
-def ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, ExplicitBCHSolver,
-                ImplicitGQSolver, DTypePolicy, SolverConfig) -> list:
+def ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
+                ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig) -> list:
     """Phase 7, the parity layout of both solvers on the NE85184 cavity, where
     the JAX package's rule streams every velocity field: ``kernels_streamed``
     (TPU kernel row 3 in its K, K + A and MK + A forms on the solvers' own
-    tables, against the resident form and the plain version), ``e2e_ne85``
+    tables, against the resident form and the plain version; and the compact
+    G^T, row 4, at these shapes), ``e2e_ne85``
     and ``e2e_ne85_implicit``.  The rows of the ``kernels`` line it measures."""
     import numpy as np
     import torch
@@ -1870,7 +1983,11 @@ def ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, ExplicitB
                                       groups=solver.conv_groups)
     ks["k_plus_a"] = _streamed_check(pstl, solver.d["Kp"], u, solver.k_pairs, planes,
                                      solver.conv_pairs2)
-    del solver, planes
+    del planes
+    # ---- the compact G^T (TPU kernel row 4) at these shapes
+    ks["div_compact"] = _div_compact_check(pstl, window_stencil, solver.d["GT_cwin"], u,
+                                           solver.coarse_dims)
+    del solver
     torch.cuda.empty_cache()
 
     t0 = time.time()
@@ -1963,8 +2080,8 @@ def main() -> int:
         args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil, stencil,
         ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
     torch.cuda.empty_cache()
-    rows += ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, ExplicitBCHSolver,
-                        ImplicitGQSolver, DTypePolicy, SolverConfig)
+    rows += ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
+                        ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
     torch.cuda.empty_cache()
 
     # ---- the unstructured path of both solvers on the backward-facing step
