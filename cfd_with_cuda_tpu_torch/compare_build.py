@@ -1,27 +1,51 @@
-"""Hold the G and compact G^T kernels against an earlier build of the same
-functions, on the same inputs, on the card.
+"""Hold the port's kernels against an earlier build of the same functions,
+on the same inputs, on the card.
 
-    git archive <commit> cfd_with_cuda_tpu_torch/csrc | tar -x -C <dir>
-    python -m cfd_with_cuda_tpu_torch.compare_build --against <dir>
+    git archive <commit> cfd_with_cuda_tpu_torch/csrc | tar -x -C _parent
+    python -m cfd_with_cuda_tpu_torch.compare_build --against _parent
 
-Builds ``<dir>/cfd_with_cuda_tpu_torch/csrc/{window_stencil,div_compact}.cu``
-with this checkout's ``nvcc`` flags into ``_build/against/`` and, on the
-interleaved explicit solver's tables of the NE27000 cavity
-``cavity_deck(30, cluster=2.0)`` and seeded fields, calls both builds:
+(``_parent/`` is git-ignored.)  Builds the earlier checkout's
+``csrc/{window_stencil,div_compact,cg_solve,cg_iter}.cu`` (each with that
+checkout's ``cg_common.cuh``) with this checkout's ``nvcc`` flags into
+``_build/against/`` and calls both builds on the same inputs:
 
-* G p: the earlier build's full-window GRAD mode (``window_stencil_f32`` /
-  ``_f64`` mode 1 on ``G_win``) against this checkout's
-  ``grad_window_compact`` on ``G_cwin`` (TPU kernel row 10), f32 and f64;
-* G^T u: ``div_compact_f32`` on the class split of u (row 4) and
-  ``div_compact_interleaved_f32`` (row 11), the same C entry points in
-  both builds.
+* G on the class-compacted window (TPU kernel row 10) in f32 and f64 and
+  both compact G^T forms (rows 4 and 11), on the interleaved explicit
+  solver's tables of the NE27000 cavity ``cavity_deck(30, cluster=2.0)``
+  and seeded fields: the largest |difference|, bit equality (and value
+  equality, the sign of an exact zero apart), and each build's device ms
+  (CUDA events, the calls queued behind other device work) and ms per call
+  (CUDA events) over REPS launches;
+* the pressure CG (rows 5, 6 and 9) on four windows: the NE27000 explicit
+  Z (125 slots), the NE27000 implicit Z (27 slots), the banded window of
+  the backward-facing step ``bfs_deck(96, 40, 40)`` (275 slots x 147,477
+  rows) and the NE85184 explicit Z (``cavity_deck(44, cluster=2.0)``, 125
+  slots x 91,125 rows), each with a seeded right-hand side.  Every form:
+  ``cg_init`` + ``cg_iter`` (the per-group loop) and ``cg_solve``; the full
+  window and its dq >= 0 half (``sym``); plain and compensated dots; cold
+  and warm starts converged at tol 1e-6 (unroll 4), and a fixed 0, 1 and 40
+  iterations (tol 0, one group).  For each: x, the count and |r| equal bit
+  for bit or not.  Per window and build: the block count of each kernel
+  (read from a profiler trace), the launch plan (grouped builds), and the
+  time of an iteration split into its parts: device ms per iteration of
+  ``cg_solve`` and of ``cg_iter`` (CUDA events around calls queued behind
+  other device work, 40 iterations less none; ``cg_iter`` launched raw, in
+  groups of 4 or one an iteration as the build runs it), the same with the
+  window cut to its centre slot and dinv = 1 (``nw1``: the apply all but
+  gone), the loop's ms per iteration on the host clock (CUDA events around
+  the calls: launches and host reads included), and, from this checkout's
+  ``csrc/cg_probe.cu`` (a timing probe built for this tool alone) at that
+  block count (CUDA events over 200 rounds), one grid barrier and the two
+  reductions of an iteration.  Every time in turns: earlier, this, this,
+  earlier.
 
-For each: the largest |difference|, whether the results are equal bit for
-bit and, where they are not, whether they are equal as values (the sign of
-an exact zero apart); and each build's device ms (profiler) and ms per call
-(CUDA events) over REPS launches, timed in turns: earlier, this,
-this, earlier.  Prints one JSON line, then the card's name and power limit.
-Needs one CUDA card.
+Prints one JSON line per part, then the card's name and power limit.
+Needs one CUDA card.  A build whose ``cg_iter.cu`` exports
+``cg_work_rows`` (this one) runs one ``cg_iter`` launch per group of
+``unroll`` iterations on a (5, ld) work buffer; an earlier one runs one
+launch per iteration on (3, n) (the interface before grouped launches,
+kept here only to hold the grouped kernels against their first form):
+each build is driven by its own host loop, the one its wrapper had.
 """
 
 from __future__ import annotations
@@ -35,27 +59,49 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cfd_with_cuda_tpu_torch.mesh.generators import cavity_deck
+from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
 from cfd_with_cuda_tpu_torch.ops import cuda_lib
+from cfd_with_cuda_tpu_torch.ops import fused_cg as tcg
 from cfd_with_cuda_tpu_torch.ops import window_stencil as ws
 from cfd_with_cuda_tpu_torch.ops.parity_stencil import parity_split
 from cfd_with_cuda_tpu_torch.ops.stencil import coarse_to_fine
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
+from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 
-_SOURCES = ("window_stencil", "div_compact")
+_SOURCES = ("window_stencil", "div_compact", "cg_solve", "cg_iter")
 DECK_N = 30         # cavity elements per edge: NE27000
-REPS = 20           # launches per timing
-_GRAD_MODE = 1      # the full-window GRAD mode of the earlier window_stencil.cu
+NE85_N = 44         # NE85184
+BFS_DIMS = (96, 40, 40)
+BFS_KW = dict(lengths=(15.0, 2.0, 2.0), step_frac=(0.2, 0.5), viscosity=0.01)
+REPS = 20           # launches per timing of G / G^T
+CG_REPS = 5         # calls per timing of a CG form
+TOL, MAXITER, UNROLL = 1e-6, 1000, 4
+DEPTHS = (0, 1, 40)
+PROBE_REPS = 200
+_PROBE_SIGNATURE = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3   # csrc/cg_probe.cu
+
+# the C interface of the CG kernels before grouped launches: one cg_iter launch per iteration
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_PER_ITERATION_SIGNATURES = {
+    "cg_solve_f32": ("cg_solve", [_P, _P, _I] + [_P] * 10 + [_I, _I, _D, _I, _I, _P]),
+    "cg_solve_max_blocks": ("cg_solve", []),
+    "cg_init_f32": ("cg_iter", [_P, _P, _I] + [_P] * 8 + [_I, _I, _I, _P]),
+    "cg_iter_f32": ("cg_iter", [_P, _P, _I] + [_P] * 7 + [_I, _I, _I, _P]),
+    "cg_iter_max_blocks": ("cg_iter", []),
+}
 
 
-def build_against(checkout: Path) -> dict[str, ctypes.CDLL]:
-    """The earlier checkout's two kernel libraries, built in parallel."""
+def build_tools(checkout: Path) -> tuple[dict[str, ctypes.CDLL], ctypes.CDLL]:
+    """(the earlier checkout's kernel libraries, this checkout's timing
+    probe), one ``nvcc`` each, all started together."""
     out = cuda_lib.BUILD_DIR / "against"
     out.mkdir(parents=True, exist_ok=True)
+    sources = {name: checkout / "cfd_with_cuda_tpu_torch" / "csrc" / f"{name}.cu"
+               for name in _SOURCES}
+    sources["probe"] = cuda_lib.CSRC / "cg_probe.cu"
     procs = {}
-    for name in _SOURCES:
-        src = checkout / "cfd_with_cuda_tpu_torch" / "csrc" / f"{name}.cu"
+    for name, src in sources.items():
         lib = out / f"lib{name}.so"
         cmd = [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-o", str(lib), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -64,17 +110,91 @@ def build_against(checkout: Path) -> dict[str, ctypes.CDLL]:
     for name, (proc, lib) in procs.items():
         text, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the earlier {name}.cu:\n{text}")
+            raise RuntimeError(f"nvcc failed for {sources[name]}:\n{text}")
         libs[name] = ctypes.CDLL(str(lib))
-    return libs
+    return libs, libs.pop("probe")
 
 
-def _entry(libs, name: str):
-    """An entry point of the earlier build, typed as this checkout's."""
-    source, argtypes = cuda_lib._SIGNATURES[name]
-    fn = getattr(libs[source], name)
-    fn.restype, fn.argtypes = ctypes.c_int, argtypes
-    return fn
+class Build:
+    """One build's C entry points, typed by its interface."""
+
+    def __init__(self, label: str, libs: dict[str, ctypes.CDLL]):
+        self.label, self.libs = label, libs
+        self.grouped = hasattr(libs["cg_iter"], "cg_work_rows")
+        self._fns = {}
+
+    def fn(self, name: str):
+        if name not in self._fns:
+            sigs = cuda_lib._SIGNATURES if self.grouped else {**cuda_lib._SIGNATURES,
+                                                               **_PER_ITERATION_SIGNATURES}
+            source, argtypes = sigs[name]
+            f = getattr(self.libs[source], name)
+            f.restype, f.argtypes = ctypes.c_int, argtypes
+            self._fns[name] = f
+        return self._fns[name]
+
+    def cg(self, win, offs, b, dinv, x0, *, tol, maxiter, unroll, comp, sym, fuse_loop):
+        """(x, k, |r|) of one solve, driven as this build's wrapper drives it
+        (``win``/``offs`` already the half under ``sym``)."""
+        if self.grouped:
+            res = tcg._cuda_cg(self.fn, win, b, dinv, offs, tol=tol, maxiter=maxiter, x0=x0,
+                               unroll=unroll, comp=comp, sym=sym, fuse_loop=fuse_loop)
+            return res.x, int(res.iters), res.residual
+        return _per_iteration_cg(self.fn, win, offs, b, dinv, x0, tol=tol, maxiter=maxiter,
+                                 unroll=unroll, comp=comp, sym=sym, fuse_loop=fuse_loop)
+
+    def plan(self, n, offs, comp, sym, fuse_loop):
+        """{"blocks", "form", "ring_stages"}: the grid, the kernel form (0, 1:
+        built for 5 or 3 blocks an SM) and the weight ring's depth that the
+        build's launcher of ``cg_solve`` (``fuse_loop``) or ``cg_iter`` picks
+        (grouped builds)."""
+        if not self.grouped:
+            return None
+        tab = tcg.stage_table(offs, sym)
+        out = (ctypes.c_int * 3)()
+        name = "cg_solve_plan" if fuse_loop else "cg_iter_plan"
+        cuda_lib.check(self.fn(name)(int(n), len(offs), len(tab), int(tab[1]), int(comp),
+                                     int(sym), out), name)
+        return dict(blocks=int(out[0]), form=int(out[1]), ring_stages=int(out[2]))
+
+
+def _per_iteration_cg(fn, win, offs, b, dinv, x0, *, tol, maxiter, unroll, comp, sym,
+                      fuse_loop):
+    """The host side of the per-iteration wrapper: one cg_iter launch per iteration
+    and a host read of |r| per group of ``unroll``, or one cg_solve."""
+    ptr, n, dev = cuda_lib.ptr, b.shape[0], b.device
+    part_dtype = torch.float64 if comp else torch.float32
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    x = torch.empty_like(b)
+    work = torch.empty((3, n), dtype=b.dtype, device=dev)
+    stream = cuda_lib.stream_ptr(dev)
+    if fuse_loop:
+        part = torch.empty(6 * fn("cg_solve_max_blocks")(), dtype=part_dtype, device=dev)
+        k = torch.empty((), dtype=torch.int32, device=dev)
+        rn = torch.empty((), dtype=b.dtype, device=dev)
+        cuda_lib.check(fn("cg_solve_f32")(
+            ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
+            ptr(work[0]), ptr(work[1]), ptr(work[2]), ptr(part), ptr(k), ptr(rn),
+            n, int(maxiter), float(tol), int(comp), int(sym), stream), "earlier cg_solve")
+        return x, int(k), rn
+    part = torch.empty(3 * fn("cg_iter_max_blocks")(), dtype=part_dtype, device=dev)
+    scal = torch.empty(3, dtype=b.dtype, device=dev)
+    cuda_lib.check(fn("cg_init_f32")(
+        ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
+        ptr(work[0]), ptr(work[1]), ptr(part), ptr(scal), n, int(comp), int(sym), stream),
+        "earlier cg_init")
+    rn_h, bn_h = scal[1:3].cpu().numpy()
+    bound = np.maximum(np.float32(tol) * bn_h, np.float32(0.0))
+    maxiter_eff = -(-int(maxiter) // unroll) * unroll
+    args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work[0]), ptr(work[1]),
+            ptr(work[2]), ptr(part), ptr(scal), n, int(comp), int(sym), stream)
+    k = 0
+    while k < maxiter_eff and rn_h > bound:
+        for _ in range(unroll):
+            cuda_lib.check(fn("cg_iter_f32")(*args), "earlier cg_iter")
+        k += unroll
+        rn_h = np.float32(scal[1].item())
+    return x, k, scal[1]
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -89,30 +209,213 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int) -> float:
-    """Mean device time of one call: the summed spans of the kernels that
-    ``reps`` calls run (torch.profiler), over ``reps``."""
+def _queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events), the calls
+    queued behind ~5 ms of reads of a 1 GB buffer so that the host has
+    enqueued them all before the card reaches them (``fn`` must not wait
+    for the card)."""
+    buf = torch.ones(1 << 28, device="cuda")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(16):
+        buf.sum()
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    del buf
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def _grids(fn, names) -> dict[str, int | None]:
+    """The grid size of each kernel in ``names`` that ``fn`` launches, read
+    from an exported torch.profiler trace (None where three sessions saw no
+    launch of it: in a long process a session now and then holds no device
+    events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    trace = cuda_lib.BUILD_DIR / "compare_trace.json"
+    grids = {w: None for w in names}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())
+        trace.unlink()
+        events = events["traceEvents"] if isinstance(events, dict) else events
+        for e in events:
+            for w in names:
+                if e.get("cat") == "kernel" and w in e.get("name", ""):
+                    grids[w] = int(e.get("args", {}).get("grid", [0])[0])
+        if all(v is not None for v in grids.values()):
+            break
+    return grids
+
+
+def _raw_cg(build: Build, win, offs, b, dinv, x0, iters: int):
+    """A call that enqueues the build's ``cg_init`` and ``iters`` iterations
+    of ``cg_iter`` launches (groups of UNROLL in a grouped build, one an
+    iteration before) with no host read, for timing the kernels alone;
+    tol is never looked at, so ``iters`` always run."""
+    fn, ptr, n, dev = build.fn, cuda_lib.ptr, b.shape[0], b.device
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    x, scal = torch.empty_like(b), torch.empty(3, dtype=b.dtype, device=dev)
+    part = torch.empty(6 * fn("cg_iter_max_blocks")(), dtype=b.dtype, device=dev)
+    stream = cuda_lib.stream_ptr(dev)
+    if build.grouped:
+        tab = tcg.stage_table(offs, False)
+        stab = torch.from_numpy(tab).to(dev)
+        rows, ld = tcg.cg_work_layout(n)
+        work = torch.empty((len(rows), ld), dtype=b.dtype, device=dev)
+        st = (ptr(stab), len(tab), int(tab[1]))
+        init_args = (ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
+                     ptr(work), ld, ptr(part), ptr(scal), n, 0, 0, *st, stream)
+        iter_args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work), ld,
+                     ptr(part), ptr(scal), n, UNROLL, 0, 0, *st, stream)
+        launches, keep = iters // UNROLL, (stab, work)
+    else:
+        work = torch.empty((3, n), dtype=b.dtype, device=dev)
+        init_args = (ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
+                     ptr(work[0]), ptr(work[1]), ptr(part), ptr(scal), n, 0, 0, stream)
+        iter_args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work[0]),
+                     ptr(work[1]), ptr(work[2]), ptr(part), ptr(scal), n, 0, 0, stream)
+        launches, keep = iters, (work,)
+    init, step = fn("cg_init_f32"), fn("cg_iter_f32")
+
+    def run():
+        cuda_lib.check(init(*init_args), "cg_init")
+        for _ in range(launches):
+            cuda_lib.check(step(*iter_args), "cg_iter")
+    run.buffers = (offs_t, x, scal, part, *keep)   # alive as long as the call is
+    return run
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view(torch.int32)
+
+
+def _cg_forms(builds, win, offs, b, dinv, x0) -> dict:
+    """Every form in both builds: bit equality of x, k and |r|."""
+    try:
+        half = tcg._sym_offsets(offs)
+    except ValueError:       # a band whose offsets are not mirror-symmetric
+        half = None
+    win_h = None if half is None else win[len(offs) - len(half):].contiguous()
+    out = {}
+    for fuse_loop in (False, True):
+        for sym in (False, True) if half is not None else (False,):
+            for comp in (False, True):
+                w, o = (win_h, half) if sym else (win, offs)
+                name = (f"{'cg_solve' if fuse_loop else 'cg_iter'}"
+                        f"{'_sym' if sym else ''}{'_comp' if comp else ''}")
+                runs = [("cold", dict(x0=None, tol=TOL, maxiter=MAXITER, unroll=UNROLL)),
+                        ("warm", dict(x0=x0, tol=TOL, maxiter=MAXITER, unroll=UNROLL))]
+                runs += [(f"fixed_{k}", dict(x0=x0, tol=0.0, maxiter=k, unroll=max(k, 1)))
+                         for k in DEPTHS]
+                for start, kw in runs:
+                    (xa, ka, ra), (xb, kb, rb) = [
+                        bd.cg(w, o, b, dinv, comp=comp, sym=sym, fuse_loop=fuse_loop, **kw)
+                        for bd in builds]
+                    out[f"{name}_{start}"] = dict(
+                        iters=[ka, kb], x_bits=torch.equal(_bits(xa), _bits(xb)),
+                        k_equal=ka == kb, rn_bits=torch.equal(_bits(ra), _bits(rb)),
+                        max_abs_diff=float((xa - xb).abs().max()))
+    return out
+
+
+def _split(build: Build, probe_fn, win, offs, b, dinv, x0) -> dict:
+    """One build's iteration on one window split into its parts (module
+    docstring): device ms per iteration of both loop forms, of the same with
+    the centre slot alone, the loop's host-clock ms per iteration, and one
+    grid barrier and one iteration's two reductions at the build's block
+    count."""
+    n, dev = b.shape[0], b.device
+    c0 = list(offs).index(0)
+    # the centre slot alone, under a preconditioner that does not invert it
+    # (with dinv = 1 / diag one iteration would end the solve at |r| = 0)
+    win1, offs1, dinv1 = win[c0:c0 + 1].contiguous(), (0,), torch.ones_like(dinv)
+    depth = DEPTHS[-1]
+
+    def run(w, o, k, fuse_loop):
+        d = dinv1 if len(o) == 1 else dinv
+        return lambda: build.cg(w, o, b, d, x0=x0, tol=0.0, maxiter=k, unroll=UNROLL,
+                                comp=False, sym=False, fuse_loop=fuse_loop)
+
+    def per_iter(w, o, fuse_loop):
+        """Device ms an iteration: calls queued behind other device work, where
+        the wrappers' host time cannot enter, at depth 40 less depth 0."""
+        if fuse_loop:
+            deep, start = run(w, o, depth, True), run(w, o, 0, True)
+        else:
+            d = dinv1 if len(o) == 1 else dinv
+            deep, start = (_raw_cg(build, w, o, b, d, x0, k) for k in (depth, 0))
+        return (_queued_ms(deep, CG_REPS) - _queued_ms(start, CG_REPS)) / depth
+
+    raw = _raw_cg(build, win, offs, b, dinv, x0, UNROLL)
+    grids = _grids(lambda: (run(win, offs, 0, True)(), raw()),
+                   ("cg_solve_kernel", "cg_init_kernel", "cg_iter_kernel"))
+    blocks = grids["cg_iter_kernel"] or min(-(-n // tcg.BLOCK_ROWS), 1024)
+    part = torch.empty(3 * blocks, dtype=torch.float32, device=dev)
+    sink = torch.empty(1, dtype=torch.float32, device=dev)
+    stream = cuda_lib.stream_ptr(dev)
+    probe = []
+    for mode in (0, 1):
+        args = (blocks, PROBE_REPS, mode, 0, cuda_lib.ptr(part), cuda_lib.ptr(sink), stream)
+        probe.append(_event_ms(lambda: cuda_lib.check(probe_fn(*args), "cg_probe"), 3)
+                     / PROBE_REPS)
+    loop_host = (_event_ms(run(win, offs, depth, False), CG_REPS)
+                 - _event_ms(run(win, offs, 0, False), CG_REPS)) / depth
+    return dict(
+        blocks=grids, plan_iter=build.plan(n, offs, False, False, False),
+        plan_solve=build.plan(n, offs, False, False, True),
+        solve_ms_per_iter=per_iter(win, offs, True),
+        solve_nw1_ms_per_iter=per_iter(win1, offs1, True),
+        solve_nw1_iters=int(run(win1, offs1, depth, True)()[1]),
+        iter_ms_per_iter=per_iter(win, offs, False),
+        iter_nw1_ms_per_iter=per_iter(win1, offs1, False),
+        init_ms=_queued_ms(_raw_cg(build, win, offs, b, dinv, x0, 0), CG_REPS),
+        loop_host_ms_per_iter=loop_host,
+        probe_blocks=blocks, grid_sync_ms=probe[0], reductions_ms=probe[1] - 2 * probe[0],
+    )
+
+
+def cg_window(builds, probe_fn, tag, win, offs, dinv, seed) -> dict:
+    """Forms, block counts and the split on one window, times in turns."""
+    n, dev = win.shape[1], win.device
+    rng = np.random.default_rng(seed)
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    b[0] = 0.0
+    cold = builds[1].cg(win, offs, b, dinv, x0=None, tol=TOL, maxiter=MAXITER, unroll=UNROLL,
+                        comp=False, sym=False, fuse_loop=True)[0]
+    noise = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    x0 = (cold * (1 + 1e-3 * noise)).contiguous()
+    forms = _cg_forms(builds, win, offs, b, dinv, x0)
+    earlier, this = builds
+    turns = [(bd, _split(bd, probe_fn, win, offs, b, dinv, x0))
+             for bd in (earlier, this, this, earlier)]
+    split = {bd.label: [s for b2, s in turns if b2 is bd] for bd in builds}
+    return dict(phase="cg_window", window=tag, rows=n, slots=len(offs),
+                max_halo=max(abs(o) for o in offs),
+                all_bit_equal=all(v["x_bits"] and v["k_equal"] and v["rn_bits"]
+                                  for v in forms.values()),
+                forms=forms, split=split)
 
 
 def _compare(earlier, this, reps: int) -> dict:
-    """Both builds' results and times on the same inputs: device time
-    (profiler) and time per call (CUDA events, which also read the host's
-    launch rate), each in turns earlier, this, this, earlier."""
+    """Both builds' results and times on the same inputs: device time (calls
+    queued behind other device work) and time per call (CUDA events, which
+    also read the host's launch rate), each in turns earlier, this, this,
+    earlier."""
     a, b = earlier(), this()
     torch.cuda.synchronize()
     ints = torch.int32 if a.dtype == torch.float32 else torch.int64
     order = (earlier, this, this, earlier)
-    dev = [_device_ms(fn, reps) for fn in order]
+    dev = [_queued_ms(fn, reps) for fn in order]
     ev = [_event_ms(fn, reps) for fn in order]
     return dict(max_abs_diff=float((a - b).abs().max()),
                 bit_equal=torch.equal(a.view(ints), b.view(ints)),
@@ -121,18 +424,9 @@ def _compare(earlier, this, reps: int) -> dict:
                 earlier_event_ms=[ev[0], ev[3]], this_event_ms=[ev[1], ev[2]])
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", required=True, type=Path,
-                    help="an earlier checkout (at least its cfd_with_cuda_tpu_torch/csrc)")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("compare_build: no CUDA device available")
-
-    libs = build_against(args.against)
-    cuda_lib.build_all()
-    cfg = SolverConfig(dtype_policy=DTypePolicy.F32, structured_layout="interleaved")
-    s = ExplicitBCHSolver(cavity_deck(DECK_N, cluster=2.0, viscosity=0.01, dt=0.001), cfg)
+def stencil_checks(earlier: Build, s) -> dict:
+    """G and both compact G^T forms of both builds on the interleaved
+    explicit solver ``s``'s NE27000 tables."""
     d, fine, coarse, n = s.d, s.fine_dims, s.coarse_dims, s.s_pad
     rng = np.random.default_rng(20261020)
     dev = s.device
@@ -140,35 +434,30 @@ def main() -> int:
         coarse_to_fine(torch.from_numpy(rng.standard_normal(s.nnp).astype(np.float32)).to(dev),
                        coarse, fine), (0, n - s.nn))
     u = torch.from_numpy(rng.standard_normal((3, n)).astype(np.float32)).to(dev)
-    stream = cuda_lib.stream_ptr(dev)
-    ptr = cuda_lib.ptr
+    stream, ptr = cuda_lib.stream_ptr(dev), cuda_lib.ptr
     out = {}
-
-    # ---- G p, f32 and f64
-    offs = torch.tensor(ws.window_offsets(fine, s.g_radius), dtype=torch.int32, device=dev)
+    offs_t, counts_t = ws._g_slot_tables(tuple(fine), int(s.g_radius), dev)
     for tag, dt in (("f32", torch.float32), ("f64", torch.float64)):
-        g, gc, x = d["G_win"].to(dt), d["G_cwin"].to(dt), pf.to(dt)
-        fn = _entry(libs, f"window_stencil_{tag}")
+        gc, xb = d["G_cwin"].to(dt), pf.to(dt)[None].contiguous()
+        fn = earlier.fn(f"grad_compact_{tag}")
         y = torch.empty((3, n), dtype=dt, device=dev)
 
-        def earlier(g=g, x=x, y=y, fn=fn):
-            cuda_lib.check(fn(_GRAD_MODE, ptr(g), ptr(x), 1, ptr(offs), len(offs), ptr(y), n,
-                              stream), "earlier GRAD")
+        def earlier_g(gc=gc, xb=xb, y=y, fn=fn):
+            cuda_lib.check(fn(ptr(gc), gc.shape[1], ptr(xb), ptr(offs_t), ptr(counts_t), ptr(y),
+                              n, fine[0], fine[1], stream), "earlier grad_compact")
             return y
 
         out[f"grad_{tag}"] = _compare(
-            earlier, lambda gc=gc, x=x: ws.grad_window_compact(gc, x, fine, s.g_radius,
-                                                               trim=False), REPS)
-        del g, gc, x, y
-
-    # ---- G^T u, class-major (row 4) and interleaved (row 11)
+            earlier_g, lambda gc=gc, xb=xb: ws.grad_window_compact(gc, xb[0], fine, s.g_radius,
+                                                                   trim=False), REPS)
+        del gc, xb, y
     gt = d["GT_cwin"]
     sp = gt.shape[-1]
     pairs = ws.div_class_pairs(coarse)
     pairs_t = torch.tensor(pairs, dtype=torch.int32, device=dev).reshape(-1)
     up = parity_split(u, fine, sp).contiguous()
     y_c = torch.empty(sp, device=dev)
-    fn_c = _entry(libs, "div_compact_f32")
+    fn_c = earlier.fn("div_compact_f32")
 
     def earlier_c():
         cuda_lib.check(fn_c(ptr(gt), len(pairs), ptr(up), ptr(pairs_t), ptr(y_c), sp, stream),
@@ -179,7 +468,7 @@ def main() -> int:
     foffs = torch.tensor(ws.window_offsets(fine, 2), dtype=torch.int32, device=dev)
     (cx, cy, cz), (fx, fy, _) = coarse, fine
     y_i = torch.empty(sp, device=dev)
-    fn_i = _entry(libs, "div_compact_interleaved_f32")
+    fn_i = earlier.fn("div_compact_interleaved_f32")
 
     def earlier_i():
         cuda_lib.check(fn_i(ptr(gt), len(foffs), ptr(u), n, ptr(foffs), ptr(y_i), sp, cx, cy,
@@ -188,9 +477,67 @@ def main() -> int:
 
     out["div_compact_interleaved"] = _compare(
         earlier_i, lambda: ws.div_compact_interleaved(gt, u, fine, coarse), REPS)
+    return dict(phase="stencils", deck_n=DECK_N, s_pad=n, sp=sp, checks=out)
 
-    print(json.dumps(dict(deck_n=DECK_N, s_pad=n, sp=sp, against=str(args.against),
-                          checks=out)), flush=True)
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", required=True, type=Path,
+                    help="an earlier checkout (at least its cfd_with_cuda_tpu_torch/csrc)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_build: no CUDA device available")
+
+    against, probe = build_tools(args.against)
+    earlier = Build("earlier", against)
+    probe_fn = probe.cg_probe_f32
+    probe_fn.restype, probe_fn.argtypes = ctypes.c_int, _PROBE_SIGNATURE
+    cuda_lib.build_all()
+    this = Build("this", {name: cuda_lib._library(name) for name in _SOURCES})
+    builds = (earlier, this)
+    _emit(dict(phase="builds", against=str(args.against),
+               grouped=dict(earlier=earlier.grouped, this=this.grouped)))
+    f32 = dict(dtype_policy=DTypePolicy.F32)
+    ok = True
+
+    # NE27000: the interleaved explicit solver (G, G^T and the 125-slot Z),
+    # then the implicit parity solver's 27-slot Z
+    deck = cavity_deck(DECK_N, cluster=2.0, viscosity=0.01, dt=0.001)
+    s = ExplicitBCHSolver(deck, SolverConfig(structured_layout="interleaved", **f32))
+    _emit(stencil_checks(earlier, s))
+    offs = ws.window_offsets(s.coarse_dims, s.z_radius)
+    windows = [("ne27000_z125", s.d["Z_win"], offs, s.d["Z_dinv"])]
+    del s
+    s = ImplicitGQSolver(deck, SolverConfig(**f32))
+    windows.append(("ne27000_z27", s.d["Z_win"], ws.window_offsets(s.coarse_dims, s.z_radius),
+                    s.d["Z_dinv"]))
+    del s
+    for seed, (tag, win, offs_w, dinv) in enumerate(windows):
+        line = cg_window(builds, probe_fn, tag, win, offs_w, dinv, 20261100 + seed)
+        ok &= line["all_bit_equal"]
+        _emit(line)
+    del windows, win, dinv
+    torch.cuda.empty_cache()
+
+    # the BFS band, then the NE85184 explicit Z
+    s = ExplicitBCHSolver(bfs_deck(*BFS_DIMS, dt=0.002, **BFS_KW), SolverConfig(**f32))
+    line = cg_window(builds, probe_fn, "bfs_band", s.d["Z_bwin"], s.z_offs, s.d["Z_dinv"],
+                     20261110)
+    ok &= line["all_bit_equal"]
+    _emit(line)
+    del s
+    torch.cuda.empty_cache()
+    s = ExplicitBCHSolver(cavity_deck(NE85_N, cluster=2.0, viscosity=0.01, dt=5e-4),
+                          SolverConfig(**f32))
+    line = cg_window(builds, probe_fn, "ne85184_z125", s.d["Z_win"],
+                     ws.window_offsets(s.coarse_dims, s.z_radius), s.d["Z_dinv"], 20261120)
+    ok &= line["all_bit_equal"]
+    _emit(line)
+    _emit(dict(phase="summary", cg_all_bit_equal=ok))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel cfd_with_cuda_tpu/ops/pallas_cg.py::
 // _cg_solve_kernel (pallas_call at :549, fused_cg(fuse_loop=True)), with
 // _apply_window in its full and symmetric modes (:230) and _plain_dot (:226)
-// or _comp_dot (:194); the apply and the reductions are in cg_common.cuh.
+// or _comp_dot (:194); the apply, the reductions and the iteration are in
+// cg_common.cuh.
 //
 //   warm: r0 = b - Z x0, x = x0;  cold: r0 = b, x = 0
 //   z0 = r0 * dinv, p = z0, rz = r0.z0, rn = |r0|, bound = max(tol |b|, 0)
@@ -15,17 +16,23 @@
 // alpha and beta go through safe_div (0 when |den| <= 1e-35, :136-138), and
 // a NaN residual ends the loop (the comparison is false), as on the TPU.
 //
-// What bounds it: each iteration reads the (nw, n) window (NE27000 f32:
-// 125 x 29791 = 14.9 MB, 63 planes = 7.5 MB in the symmetric mode, which
-// the 50 MB L2 holds across iterations) and does two grid-wide reductions;
-// at that size the solve is latency-bound by the three grid-wide barriers
-// per iteration, not by bytes.  Design: a cooperative persistent kernel,
-// grid = min(co-resident blocks, ceil(n / 256)), each thread owning rows i
-// in a grid-stride loop.  grid.sync() separates the Z p apply, the two
-// reduction phases and the p update.  Every block holds bitwise the same
-// alpha, beta, |r| and loop decision (cg_common.cuh).  k and |r| are written
-// to device memory once, after the loop; the host reads them after the
-// solve.
+// What bounds it (H100 80GB HBM3, 700 W; python -m
+// cfd_with_cuda_tpu_torch.compare_build, PERF.md section 6): an iteration is
+// the apply plus a fixed part.  The fixed part (the window cut to its centre
+// slot) is 5-6 us at 117 blocks (NE27000) and 8-9 us at 356 (NE85184): two
+// grid barriers (1.2 us each at 117 blocks, 1.5 at 356), the two reductions
+// (1.0-1.1 us, 2.4) and the vector phase's L2 round trips.  The apply reads the
+// (nw, n) window: from L2 on the box windows (125 x 29,791 f32 = 14.9 MB,
+// 6-8 us with one block an SM), from HBM on the BFS band (162 MB: 49.7 us at
+// 3.35 TB/s; ~73 us).  The per-iteration build spent 27.5 of its 35.6 us
+// there (NE27000, 125 slots): one thread a row walked the slots as a chain
+// of dependent loads, and a third barrier ordered the new p.  Design: the
+// iteration of cg_common.cuh (offsets, weight ring and p's clusters in
+// shared memory; p formed while staged, two barriers an iteration) in one
+// cooperative launch, grid = min(co-resident blocks, ceil(n / 256)), each
+// thread owning rows i in a grid-stride loop.  Every block holds bitwise the
+// same alpha, beta, |r| and loop decision.  k and |r| are written once,
+// after the loop.
 
 #include "cg_common.cuh"
 
@@ -33,131 +40,85 @@ namespace {
 
 using namespace cgk;
 
-template <bool COMP, bool SYM>
-__global__ void __launch_bounds__(kThreads) cg_solve_kernel(
-    const float* __restrict__ win, const int* __restrict__ offs, int nw,
-    const float* __restrict__ b, const float* __restrict__ dinv,
-    const float* __restrict__ x0, float* x, float* r, float* p, float* q,
-    typename Acc<COMP>::type* part, int* k_out, float* rn_out, int n,
-    int maxiter, float tol) {
-  using A = typename Acc<COMP>::type;
-  cg::grid_group grid = cg::this_grid();
-  __shared__ A smem[3 * kThreads];
+template <bool COMP, bool SYM, int FORM>
+__global__ void __launch_bounds__(kThreads, FORM == kStaged3 ? 3 : 5)
+    cg_solve_kernel(const __grid_constant__ CgArgs a) {
+  __shared__ typename Acc<COMP>::type red[3 * kThreads];
   __shared__ float bcast[3];
-  const int nb = gridDim.x;
-  const int stride = nb * kThreads;
-  const int first = blockIdx.x * kThreads + threadIdx.x;
-  // partial slots: [0, nb) p.ap, [nb, 3nb) r.z and r.r, [3nb, 6nb) init
-  A* part_pap = part;
-  A* part_rz = part + nb;
-  A* part_init = part + 3 * nb;
-
-  {  // ---- init
-    A v[3] = {A(0), A(0), A(0)};  // r.z, r.r, b.b
-    for (int i = first; i < n; i += stride) {
-      const float bi = b[i];
-      float ri;
-      if (x0 != nullptr) {
-        ri = bi - apply_row<SYM>(win, offs, nw, x0, i, n);
-        x[i] = x0[i];
-      } else {
-        ri = bi;
-        x[i] = 0.0f;
-      }
-      const float zi = ri * dinv[i];
-      r[i] = ri;
-      p[i] = zi;
-      v[0] += prod<A>(ri, zi);
-      v[1] += prod<A>(ri, ri);
-      v[2] += prod<A>(bi, bi);
-    }
-    block_partials<A, 3>(v, smem, part_init + blockIdx.x, nb);
-  }
-  grid.sync();
+  Engine<COMP, SYM> eng(a, red, bcast);
+  eng.prefetch();
   float tot[3];
-  grid_totals<A, 3>(part_init, nb, bcast, tot);
+  eng.start(true, tot);
   float rz = tot[0];
   float rn = sqrtf(tot[1]);
-  const float bnd = tol * sqrtf(tot[2]);
+  const float bnd = a.tol * sqrtf(tot[2]);
   const float bound = bnd < 0.0f ? 0.0f : bnd;  // max(., 0) keeping NaN, as jnp.maximum
-
+  float beta = 0.0f;
   int k = 0;
-  while (k < maxiter && rn > bound) {
-    {  // ---- ap = Z p, p.ap
-      A v[1] = {A(0)};
-      for (int i = first; i < n; i += stride) {
-        const float api = apply_row<SYM>(win, offs, nw, p, i, n);
-        q[i] = api;
-        v[0] += prod<A>(__ldcg(p + i), api);
-      }
-      block_partials<A, 1>(v, smem, part_pap + blockIdx.x, nb);
-    }
-    grid.sync();
-    float pap[1];
-    grid_totals<A, 1>(part_pap, nb, bcast, pap);
-    const float alpha = safe_div(rz, pap[0]);
-    {  // ---- x, r, z = r * dinv (kept in q), r.z, r.r
-      A v[2] = {A(0), A(0)};
-      for (int i = first; i < n; i += stride) {
-        const float pi = __ldcg(p + i);
-        x[i] = __ldcg(x + i) + alpha * pi;
-        const float ri = __ldcg(r + i) - alpha * __ldcg(q + i);
-        r[i] = ri;
-        const float zi = ri * dinv[i];
-        q[i] = zi;
-        v[0] += prod<A>(ri, zi);
-        v[1] += prod<A>(ri, ri);
-      }
-      block_partials<A, 2>(v, smem, part_rz + blockIdx.x, nb);
-    }
-    grid.sync();
-    float rr[2];
-    grid_totals<A, 2>(part_rz, nb, bcast, rr);
-    const float beta = safe_div(rr[0], rz);
-    for (int i = first; i < n; i += stride) p[i] = __ldcg(q + i) + beta * __ldcg(p + i);
+  while (k < a.maxiter && rn > bound) {
+    eng.iteration(k, true, rz, beta, rn);
     ++k;
-    rz = rr[0];
-    rn = sqrtf(rr[1]);
-    grid.sync();  // p complete before the next apply reads its neighbours
   }
+  __pipeline_wait_prior(0);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    *k_out = k;
-    *rn_out = rn;
+    *a.k_out = k;
+    *a.rn_out = rn;
   }
 }
 
+using Kernel = void (*)(CgArgs);
+
 template <bool COMP, bool SYM>
-int launch(const float* win, const int* offs, int nw, const float* b,
-           const float* dinv, const float* x0, float* x, float* r, float* p,
-           float* q, void* part_v, int* k_out, float* rn_out, int n,
-           int maxiter, double tol, void* stream) {
-  static int resident[kMaxDev] = {0};
-  auto* part = static_cast<typename Acc<COMP>::type*>(part_v);
-  float tol_f = static_cast<float>(tol);
-  void* args[] = {&win, &offs, &nw, &b, &dinv, &x0, &x, &r, &p, &q, &part,
-                  &k_out, &rn_out, &n, &maxiter, &tol_f};
-  return coop_launch(cg_solve_kernel<COMP, SYM>, resident, n, args, stream);
+KernelSet<Kernel> forms() {
+  return {{cg_solve_kernel<COMP, SYM, kStaged5>, cg_solve_kernel<COMP, SYM, kStaged3>}};
+}
+
+KernelSet<Kernel> pick(int comp, int sym) {
+  if (comp) return sym ? forms<true, true>() : forms<true, false>();
+  return sym ? forms<false, true>() : forms<false, false>();
 }
 
 }  // namespace
 
 extern "C" int cg_solve_max_blocks() { return kMaxBlocks; }
+extern "C" int cg_work_rows() { return kWorkRows; }
 
-// `part` holds 6 * cg_solve_max_blocks() partials: f32 when comp == 0, f64
-// when comp != 0.  sym != 0: `win`/`offs` are the dq >= 0 half.
-extern "C" int cg_solve_f32(const float* win, const int* offs, int nw,
-                            const float* b, const float* dinv, const float* x0,
-                            float* x, float* r, float* p, float* q, void* part,
-                            int* k_out, float* rn_out, int n, int maxiter,
-                            double tol, int comp, int sym, void* stream) {
-#define CG_SOLVE_GO(C, S) \
-  return launch<C, S>(win, offs, nw, b, dinv, x0, x, r, p, q, part, k_out, \
-                      rn_out, n, maxiter, tol, stream)
-  if (comp) {
-    if (sym) CG_SOLVE_GO(true, true);
-    CG_SOLVE_GO(true, false);
-  }
-  if (sym) CG_SOLVE_GO(false, true);
-  CG_SOLVE_GO(false, false);
-#undef CG_SOLVE_GO
+// `work` holds cg_work_rows() rows of stride ld >= n (r, z, ap, p0, p1);
+// `part` 6 * cg_solve_max_blocks() partials: f32 when comp == 0, f64 when
+// comp != 0.  sym != 0: `win`/`offs` are the dq >= 0 half.  stab: the
+// window's stage table (ops/fused_cg.py::stage_table; required), stab_ints
+// its length, svecs the float4s it stages a block.  Returns
+// cudaErrorInvalidConfiguration where the staged clusters fit no block.
+extern "C" int cg_solve_f32(const float* win, const int* offs, int nw, const float* b,
+                            const float* dinv, const float* x0, float* x, float* work, int ld,
+                            void* part, int* k_out, float* rn_out, int n, int maxiter,
+                            double tol, int comp, int sym, const int* stab, int stab_ints,
+                            int svecs, void* stream) {
+  CgArgs a{};
+  a.win = win;
+  a.offs = offs;
+  a.stab = stab;
+  a.b = b;
+  a.dinv = dinv;
+  a.x0 = x0;
+  a.x = x;
+  a.work = work;
+  a.part = part;
+  a.k_out = k_out;
+  a.rn_out = rn_out;
+  a.nw = nw;
+  a.n = n;
+  a.ld = ld;
+  a.maxiter = maxiter;
+  a.stab_ints = stab_ints;
+  a.svecs = svecs;
+  a.tol = static_cast<float>(tol);
+  return cg_launch(pick(comp, sym), a, stream);
+}
+
+// out[0] = the block count, out[1] = the form (0: built for 5 blocks an SM,
+// 1: for 3), out[2] = the ring depth
+extern "C" int cg_solve_plan(int n, int nw, int stab_ints, int svecs, int comp, int sym,
+                             int* out) {
+  return report_plan(pick(comp, sym), n, nw, stab_ints, svecs, out);
 }

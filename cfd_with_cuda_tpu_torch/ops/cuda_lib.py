@@ -66,11 +66,16 @@ _SIGNATURES = {
     "div_compact_f32": ("div_compact", [_P, _I, _P, _P, _P, _I, _P]),
     "div_compact_interleaved_f32": ("div_compact", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                                                     _I, _I, _P]),
-    "cg_solve_f32": ("cg_solve", [_P, _P, _I] + [_P] * 10 + [_I, _I, _D, _I, _I, _P]),
+    "cg_solve_f32": ("cg_solve", [_P, _P, _I] + [_P] * 5 + [_I, _P, _P, _P, _I, _I, _D, _I,
+                                                              _I, _P, _I, _I, _P]),
     "cg_solve_max_blocks": ("cg_solve", []),
-    "cg_init_f32": ("cg_iter", [_P, _P, _I] + [_P] * 8 + [_I, _I, _I, _P]),
-    "cg_iter_f32": ("cg_iter", [_P, _P, _I] + [_P] * 7 + [_I, _I, _I, _P]),
+    "cg_solve_plan": ("cg_solve", [_I] * 6 + [_P]),
+    "cg_init_f32": ("cg_iter", [_P, _P, _I] + [_P] * 5 + [_I, _P, _P] + [_I] * 3
+                    + [_P, _I, _I, _P]),
+    "cg_iter_f32": ("cg_iter", [_P, _P, _I, _P, _P, _P, _I, _P, _P] + [_I] * 4
+                    + [_P, _I, _I, _P]),
     "cg_iter_max_blocks": ("cg_iter", []),
+    "cg_iter_plan": ("cg_iter", [_I] * 6 + [_P]),
     "comp_dot_f32": ("cg_iter", [_P, _P, _P, _P, _I, _P]),
     "window_apply_sym_f32": ("cg_iter", [_P, _P, _I, _P, _P, _I, _P]),
     "window_stencil_f32": ("window_stencil", [_I, _P, _P, _I, _P, _I, _P, _I, _P]),

@@ -16,12 +16,12 @@ Math (same as the TPU kernels): warm r0 = b - Z x0 (cold r0 = b); stop when
 Two loop forms, as in the JAX package:
 
 * ``fuse_loop=False`` (the ``SolverConfig`` default): ``csrc/cg_iter.cu``,
-  one ``cg_init`` launch, then one ``cg_iter`` launch per iteration.  The
-  vectors and r.z, ||r||, ||b|| stay on the device; the host reads ||r||
-  once per group of ``unroll`` iterations.  The loop contract is the JAX
-  ``lax.while_loop``'s: ``maxiter`` rounds UP to a multiple of ``unroll``,
-  convergence is looked at only between groups, and the reported count is a
-  multiple of ``unroll``.
+  one ``cg_init`` launch, then one ``cg_iter`` launch per group of
+  ``unroll`` iterations (one trip of the JAX loop).  The vectors and r.z,
+  ||r||, ||b|| stay on the device; the host reads ||r|| once per launch.
+  The loop contract is the JAX ``lax.while_loop``'s: ``maxiter`` rounds UP
+  to a multiple of ``unroll``, convergence is looked at only between
+  groups, and the reported count is a multiple of ``unroll``.
 * ``fuse_loop=True``: ``csrc/cg_solve.cu``, the whole solve in ONE launch
   with convergence looked at every iteration (``unroll`` is ignored).
 
@@ -31,6 +31,12 @@ the f64 dot of its f32 inputs, rounded to f32 once (:func:`comp_dot_f32`).
 positive offset both ways (:func:`window_apply_sym`); ``win`` is then the
 full table (its last ``D // 2 + 1`` rows are taken) or that half, and the
 offsets must be mirror-symmetric.
+
+The kernels keep their vectors in one ``(5, ld)`` work buffer
+(:func:`cg_work_layout`) and stage, per block of 256 rows, the clusters of
+p that the block's rows read (:func:`stage_clusters`; the table the kernels
+take is :func:`stage_table`); a window whose clusters fit no block is
+refused at launch.
 """
 
 from __future__ import annotations
@@ -47,10 +53,59 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import window_offsets
 
 __all__ = [
     "fused_cg", "fused_cg_plain", "window_apply_plain", "window_apply_sym",
-    "comp_dot_f32", "comp_dot_plain", "half_window",
+    "comp_dot_f32", "comp_dot_plain", "half_window", "stage_clusters", "stage_table",
+    "cg_work_layout", "WORK_ROWS", "BLOCK_ROWS",
 ]
 
 _DIV_FLOOR = 1e-35
+BLOCK_ROWS = 256                           # rows a block owns (csrc kThreads)
+WORK_ROWS = ("r", "z", "ap", "p0", "p1")   # the kernels' work buffer (csrc kWorkRows)
+_WORK_ALIGN = 32                           # floats: each work row starts on 128 bytes
+
+
+def stage_clusters(offs, sym: bool = False, gap: int = 32):
+    """(clusters, pos): what the kernels stage per block of 256 rows.  Row t
+    of the block starting at i0 reads v at i0 + t + d for each offset d it
+    uses (under ``sym`` the dq >= 0 half read both ways); the intervals
+    [d, d + 256) are merged (across gaps under ``gap`` values) and widened to
+    whole 16-byte vectors.  ``clusters``: ((first, length), ...) relative to
+    i0, multiples of 4, back to back in the staged array; ``pos``: d -> the
+    place of v(i0 + t + d) in that array, less t."""
+    reads = sorted({int(o) for o in offs} | ({-int(o) for o in offs if o > 0} if sym else set()))
+    merged = []
+    for d in reads:
+        lo, hi = d - d % 4, -(-(d + BLOCK_ROWS) // 4) * 4
+        if merged and lo <= merged[-1][1] + gap:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    clusters, pos, base = [], {}, 0
+    for lo, hi in merged:
+        clusters.append((lo, hi - lo))
+        pos.update({d: base + d - lo for d in reads if lo <= d < hi})
+        base += hi - lo
+    return tuple(clusters), pos
+
+
+def stage_table(offs, sym: bool = False) -> np.ndarray:
+    """The int32 table the kernels stage by (``csrc/cg_common.cuh``
+    ``StageTab``): K clusters, the staged float4 count, pos(0), the K
+    clusters' first columns, their K + 1 starts in the staged array, pos of
+    each slot's offset and, under ``sym``, of its mirror (0 for slot 0)."""
+    clusters, pos = stage_clusters(offs, sym)
+    starts = np.cumsum([0] + [n for _, n in clusters])
+    rows = [[len(clusters), int(starts[-1]) // 4, pos[0]], [lo for lo, _ in clusters], starts,
+            [pos[int(o)] for o in offs]]
+    if sym:
+        rows.append([pos[-int(o)] if o > 0 else 0 for o in offs])
+    return np.concatenate([np.asarray(r, dtype=np.int32) for r in rows])
+
+
+def cg_work_layout(n: int) -> tuple[tuple[str, ...], int]:
+    """(row names, ld) of the kernels' work buffer: ``len(WORK_ROWS)`` rows
+    of n values, each row starting on a 128-byte boundary (ld a multiple of
+    32 floats), so the staged loads of p and z are whole 16-byte vectors."""
+    return WORK_ROWS, -(-int(n) // _WORK_ALIGN) * _WORK_ALIGN
 
 
 def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -172,6 +227,13 @@ def _offs_table(offs, device: torch.device) -> torch.Tensor:
     return torch.tensor(offs, dtype=torch.int32, device=device)
 
 
+@functools.lru_cache(maxsize=16)
+def _stage_table(offs, sym: bool, device: torch.device) -> tuple[torch.Tensor, int, int]:
+    """(table on the device, its length, the float4s it stages a block)."""
+    tab = stage_table(offs, sym)
+    return torch.from_numpy(tab).to(device), len(tab), int(tab[1])
+
+
 def _check_f32_cuda(what: str, *tensors) -> None:
     dev = tensors[0].device
     if dev.type != "cuda":
@@ -250,38 +312,51 @@ def fused_cg(win, b, dinv, *, dims, radius=None, tol, maxiter, x0=None, unroll=1
         raise ValueError(f"fused_cg: x0 shape {tuple(x0.shape)}")
     _check_f32_cuda("fused_cg", b, win, dinv, *([x0] if x0 is not None else []))
     comp = dot_mode == "compensated"
-    dev = b.device
-    ptr, fn = cuda_lib.ptr, cuda_lib.function
-    part_dtype = torch.float64 if comp else torch.float32
-    offs_t = _offs_table(offs, dev)
-    x = torch.empty_like(b)
-    work = torch.empty((3, n), dtype=b.dtype, device=dev)          # r, p, q
-    stream = cuda_lib.stream_ptr(dev)
     mode_counts = [name for name, on in (("comp_dot", comp), ("sym_apply", sym)) if on]
 
-    def count(name: str, launches: int = 1) -> None:
+    def count(name: str) -> None:
         for key in (name, *mode_counts):
-            cuda_lib.launch_counts[key] += launches
+            cuda_lib.launch_counts[key] += 1
 
+    return _cuda_cg(cuda_lib.function, win, b, dinv, offs, tol=tol, maxiter=maxiter, x0=x0,
+                    unroll=unroll, comp=comp, sym=sym, fuse_loop=fuse_loop, count=count)
+
+
+def _cuda_cg(fn, win, b, dinv, offs, *, tol, maxiter, x0, unroll, comp, sym, fuse_loop,
+             count=lambda name: None) -> KrylovResult:
+    """The CUDA path of :func:`fused_cg` on checked operands, ``win``/``offs``
+    resolved (the half under ``sym``); ``fn(name)`` gives a typed C entry
+    point of ``csrc/cg_solve.cu`` / ``csrc/cg_iter.cu`` (this build's, or an
+    earlier build's of the same interface); ``count(name)`` is called once
+    per launch."""
+    ptr = cuda_lib.ptr
+    n, dev = b.shape[0], b.device
+    part_dtype = torch.float64 if comp else torch.float32
+    offs_t = _offs_table(tuple(offs), dev)
+    stab, stab_ints, svecs = _stage_table(tuple(offs), bool(sym), dev)
+    rows, ld = cg_work_layout(n)
+    x = torch.empty_like(b)
+    work = torch.empty((len(rows), ld), dtype=b.dtype, device=dev)
+    stream = cuda_lib.stream_ptr(dev)
     if fuse_loop:
         part = torch.empty(6 * fn("cg_solve_max_blocks")(), dtype=part_dtype, device=dev)
         k = torch.empty((), dtype=torch.int32, device=dev)
         rn = torch.empty((), dtype=b.dtype, device=dev)
         err = fn("cg_solve_f32")(
-            ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
-            ptr(work[0]), ptr(work[1]), ptr(work[2]), ptr(part), ptr(k), ptr(rn),
-            n, int(maxiter), float(tol), int(comp), int(sym), stream,
+            ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x), ptr(work), ld,
+            ptr(part), ptr(k), ptr(rn), n, int(maxiter), float(tol), int(comp), int(sym),
+            ptr(stab), stab_ints, svecs, stream,
         )
         cuda_lib.check(err, "cg_solve")
         count("cg_solve")
         return KrylovResult(x, k, rn)
 
     unroll = max(1, int(unroll))
-    part = torch.empty(3 * fn("cg_iter_max_blocks")(), dtype=part_dtype, device=dev)
+    part = torch.empty(6 * fn("cg_iter_max_blocks")(), dtype=part_dtype, device=dev)
     scal = torch.empty(3, dtype=b.dtype, device=dev)     # r.z, |r|, |b|
     err = fn("cg_init_f32")(
-        ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
-        ptr(work[0]), ptr(work[1]), ptr(part), ptr(scal), n, int(comp), int(sym), stream,
+        ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x), ptr(work), ld,
+        ptr(part), ptr(scal), n, int(comp), int(sym), ptr(stab), stab_ints, svecs, stream,
     )
     cuda_lib.check(err, "cg_init")
     count("cg_init")
@@ -291,15 +366,15 @@ def fused_cg(win, b, dinv, *, dims, radius=None, tol, maxiter, x0=None, unroll=1
     maxiter_eff = -(-int(maxiter) // unroll) * unroll
     iter_fn = fn("cg_iter_f32")
     iter_args = (
-        ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work[0]), ptr(work[1]),
-        ptr(work[2]), ptr(part), ptr(scal), n, int(comp), int(sym), stream,
+        ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work), ld, ptr(part),
+        ptr(scal), n, unroll, int(comp), int(sym), ptr(stab), stab_ints, svecs, stream,
     )
     rn_dev = scal[1]
     k = 0
     while k < maxiter_eff and rn_h > bound:
-        for _ in range(unroll):
-            cuda_lib.check(iter_fn(*iter_args), "cg_iter")
-        count("cg_iter", unroll)
+        cuda_lib.check(iter_fn(*iter_args), "cg_iter")
+        count("cg_iter")
         k += unroll
         rn_h = np.float32(rn_dev.item())
     return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=dev), rn_dev)
+

@@ -26,11 +26,13 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    100-step monitor trace and final velocity against the stored f64 run
    (``cfd_with_cuda_tpu/validation/data/precision_ne27000.npz``, bounds of
    ``tests/test_validation.py:194-195``);
-4. CG modes: ``cg_init`` + ``cg_iter`` (the per-iteration loop), the
-   compensated dot and the symmetric half window, on the explicit solver's
-   125-slot Z and the implicit solver's 27-slot Z, cold and warm, each
-   against its plain version; ``comp_dot_f32`` alone against the f64 dot and
-   the half-window apply alone against the full-window apply;
+4. CG modes: ``cg_solve``, ``cg_init`` + ``cg_iter`` (one launch a group of
+   the unroll), the compensated dot and the symmetric half window, on the
+   explicit solver's 125-slot Z and the implicit solver's 27-slot Z (and in
+   phase 7 the NE85184 explicit Z), cold and warm, each against its plain
+   version, with each solution's f64 true residual ||b - Z x|| / ||b||;
+   ``comp_dot_f32`` alone against the f64 dot and the half-window apply
+   alone against the full-window apply;
 5. e2e_implicit: warm-up then timed steps from rest with the launch counts
    held against the iteration history, 3 steps of the kernel path against
    the plain path, then 10 steps under MIXED and 10 with ``pressure_cg_sym``
@@ -62,10 +64,10 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    field: ``e2e_ne85`` (explicit, 5 + 60 steps from rest, every K and K + A
    launch in the streamed form as the sub-iteration history implies, 3
    steps against the plain path, on untimed to step 200 with finite
-   fields), ``kernels_streamed`` (the streamed kernel, TPU kernel row 3, in
-   its K, K + A and MK + A forms on the solvers' own tables: bit for bit
-   against the resident form, against the plain version, cuSPARSE CSR
-   times) and ``e2e_ne85_implicit`` (20 steps from rest, the streamed M
+   fields), the CG modes of phase 4 on its Z, ``kernels_streamed`` (the
+   streamed kernel, TPU kernel row 3, in its K, K + A and MK + A forms on
+   the solvers' own tables: bit for bit against the resident form, against
+   the plain version, cuSPARSE CSR times) and ``e2e_ne85_implicit`` (20 steps from rest, the streamed M
    and MK + A launches held against the history, 3 steps against the plain
    path), and the compact G^T at those shapes.  At NE27000 the streamed
    form is forced in ``kernels`` and held bit for bit against the resident
@@ -85,7 +87,10 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
 
 Each phase prints one JSON line.  Any failure raises (non-zero exit, no
 result line).  The last lines are the ``kernels`` summary, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+and power limit, and ``{"ok": true, "device": {...}}``.  In the summary a
+row's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, the unit of its
+``launches``: ``cg_iter`` and ``cg_iter_banded`` per launch of a group of
+UNROLL iterations (the phase lines give the same per iteration).
 """
 
 from __future__ import annotations
@@ -119,6 +124,12 @@ CG_X_TOL = 1e-3    # of max|x|: two f32 CGs whose dots sum in different orders, 
 # and |r| only guards against a wrong recurrence
 CG_FIXED_X_TOL = 1e-5
 CG_FIXED_R_TOL = {0: 1e-5, 1: 1e-4, 40: 5e-2}
+# a converged f32 CG against its own system: the f64 true residual ||b - Z x|| / ||b||
+# (Z the f32 table widened to f64), in units of the solve's tol on the recurrence residual.
+# On the card every converged kernel and plain solve of cg_modes (NE27000 explicit and
+# implicit Z, NE85184 Z) and banded_cg read 0.77 to 1.19 tol; a solve whose x is off by
+# more than its recurrence claims reads above 2
+CG_TRUE_RES_TOL = 2.0
 STEP_TOLS = dict(u=5e-6, p=5e-5, mon=5e-6)   # tests/test_parity_stencil.py:285-289
 # implicit steps, tests/test_parity_stencil.py:344-354: the f32 BiCGStab stops at
 # 1e-6 of |b|, which two summation orders meet with solutions ~2e-5 apart
@@ -663,22 +674,38 @@ def _z_csr(win, offs, n):
     return _csr(q[None].expand_as(cols)[ok], cols[ok], win[ok], (n, n))
 
 
+def _true_residual(win64, offs, b64, x) -> float:
+    """||b - Z x|| / ||b|| in f64, Z the f32 window table widened to f64."""
+    import torch
+
+    from cfd_with_cuda_tpu_torch.ops.fused_cg import window_apply_plain
+
+    r = b64 - window_apply_plain(win64, x.double(), offs)
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
+
+
 def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol, maxiter,
                    strict=True) -> dict:
-    """``cg_init`` + ``cg_iter``, the compensated dot and the half window on
-    one pressure system (``win`` the full (W^3, n) window), cold and warm,
-    each against its plain version; per-launch times and bounds.
-    ``strict=False`` (a small deck, whose CG reaches rounding level within the
-    fixed 40 iterations) holds x, not |r|, at that depth."""
+    """``cg_solve``, ``cg_init`` + ``cg_iter``, the compensated dot and the
+    half window on one pressure system (``win`` the full (W^3, n) window),
+    cold and warm, each against its plain version, each solution's f64 true
+    residual; per-launch times and bounds.  ``strict=False`` (a small deck,
+    whose CG reaches rounding level within the fixed 40 iterations) holds x,
+    not |r|, at that depth."""
     import numpy as np
     import torch
 
+    from cfd_with_cuda_tpu_torch.ops import cuda_lib
+
+    t_phase = time.time()
     n, nw = b.shape[0], win.shape[0]
     offs = window_stencil.window_offsets(dims, radius)
+    win64, b64 = win.double(), b.double()
     half = torch.from_numpy(cg.half_window(win.cpu().numpy(), dims, radius)).to(win.device)
     nh = half.shape[0]
     base = dict(dims=dims, radius=radius, tol=tol, maxiter=maxiter)
     modes = {
+        "cg_solve": dict(fuse_loop=True),
         "cg_iter": dict(unroll=UNROLL),
         "cg_iter_comp": dict(unroll=UNROLL, dot_mode="compensated"),
         "cg_solve_comp": dict(fuse_loop=True, dot_mode="compensated"),
@@ -706,7 +733,14 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
             if not (float(sol.residual) <= tol * bnorm * 1.0001 or k == cap):
                 raise AssertionError(f"{what}: stopped unconverged at k={k}")
             rec = dict(max_abs_err=err, err_rel=rel, tol=CG_X_TOL, iters=k, iters_plain=k_ref,
-                       ms=ms, ms_per_iter=ms / k, plain_ms=plain_ms)
+                       ms=ms, ms_per_iter=ms / k, plain_ms=plain_ms,
+                       true_res=_true_residual(win64, offs, b64, sol.x),
+                       true_res_plain=_true_residual(win64, offs, b64, ref.x),
+                       true_res_tol=CG_TRUE_RES_TOL * tol)
+            for res, kk in ((rec["true_res"], k), (rec["true_res_plain"], k_ref)):
+                if kk < cap and not res <= CG_TRUE_RES_TOL * tol:
+                    raise AssertionError(f"{what}: true residual {res:.3e} > "
+                                         f"{CG_TRUE_RES_TOL} tol after {kk} iterations")
             if name == "cg_iter":
                 full_x[start] = (sol.x, k)
             if mode.get("sym"):
@@ -721,8 +755,8 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
 
     # one launch each, held against the plain version at a fixed depth: init
     # alone (maxiter=0), one iteration, and N iterations in one group with
-    # tol=0 (never converged); the time of an iteration is that loop's less
-    # the init's, over N
+    # tol=0 (never converged); cg_iter is timed as the solvers launch it, one
+    # launch a group of UNROLL iterations
     n_it = 40
     for name, mode, w in (("plain", {}, win), ("comp", dict(dot_mode="compensated"), win),
                           ("sym", dict(sym=True), half)):
@@ -739,7 +773,10 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
                 raise AssertionError(f"{what}: k {int(sol.iters)}, x {x_rel:.3e}, |r| {r_rel:.3e}")
             errs[k] = dict(x_abs=float((sol.x - ref.x).abs().max()), x_rel=x_rel, r_rel=r_rel)
         init_wall_ms = time_ms(lambda: run(cg.fused_cg, 0), 20)
-        loop_ms = time_ms(lambda: run(cg.fused_cg, n_it), 5)
+        _, step = _raw_cg_launches(cg, cuda_lib, w, b, dinv, x0,
+                                   offs[nw // 2:] if mode.get("sym") else offs,
+                                   mode.get("dot_mode", "plain"), bool(mode.get("sym")))
+        launch_ms = queued_ms(step, 20)
         _, init_plain = _timed_once(lambda: run(cg.fused_cg_plain, 0))
         _, loop_plain = _timed_once(lambda: run(cg.fused_cg_plain, n_it))
         rows, nz, nz_full = w.shape[0], nnz(w), nnz(win)
@@ -748,6 +785,7 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
         # (the half window applies both directions)
         ib, ib_by = bound(4 * (nz + 6 * n), 2 * nz_full + 8 * n)
         tb, tb_by = bound(4 * (nz + 7 * n), 2 * nz_full + 12 * n)
+        lb, lb_by = _launch_bound(nz, nz_full, n)
         results[f"launch_{name}"] = dict(
             window_rows=rows, fixed_depth_errs=errs, x_tol=CG_FIXED_X_TOL, r_tol=CG_FIXED_R_TOL,
             # the kernel alone (profiler), and the wrapper's call with its host
@@ -756,9 +794,13 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
             init_with_host_read_ms=init_wall_ms, init_plain_ms=init_plain,
             init_bound_ms=ib, init_bound_by=ib_by,
             init_abs_err=max(errs[0]["x_abs"], errs[1]["x_abs"]),
-            iter_ms=(loop_ms - init_wall_ms) / n_it,
+            # one cg_iter launch (UNROLL iterations; device time, the
+            # launches queued) and the same per iteration
+            iter_launch_ms=launch_ms, iter_ms=launch_ms / UNROLL,
+            iter_plain_launch_ms=(loop_plain - init_plain) / n_it * UNROLL,
             iter_plain_ms=(loop_plain - init_plain) / n_it,
-            iter_abs_err=errs[n_it]["x_abs"], iter_bound_ms=tb, iter_bound_by=tb_by,
+            iter_abs_err=errs[n_it]["x_abs"], iter_launch_bound_ms=lb, iter_launch_bound_by=lb_by,
+            iter_bound_ms=tb, iter_bound_by=tb_by,
             iter_stream_bound_ms=bound(4 * (rows + 7) * n, 0)[0],
         )
 
@@ -805,7 +847,9 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
         plain_ms=time_ms(lambda: cg.comp_dot_plain(a_d, b_d), 20),
         library_ms=None, bound_ms=db, bound_by=db_by,
     )
-    emit(dict(phase="cg_modes", system=tag, n=n, window_rows=nw, half_rows=nh, checks=results))
+    del win64, b64
+    emit(dict(phase="cg_modes", system=tag, n=n, window_rows=nw, half_rows=nh, checks=results,
+              seconds=time.time() - t_phase))
     return results
 
 
@@ -815,19 +859,19 @@ def _implicit_expect(hist, counts, layout="parity", k_name="parity_apply_k", **m
     """Launch counts a run of the implicit solver implies, per its history
     and layout; ``k_name`` counts the parity layout's M and MK + A applies
     (``parity_apply_k_streamed`` where the rule streams the field)."""
-    cg_it = sum(int(h["cg_iters"]) for h in hist)
+    groups = sum(int(h["cg_iters"]) for h in hist) // UNROLL   # one cg_iter launch a group
     mom = sum(int(h["mom_iters"]) for h in hist)
     n = len(hist)
     if layout == "parity":
-        on_path = {"cg_init": n, "cg_iter": cg_it, "div_compact": n, "parity_apply_g": n,
+        on_path = {"cg_init": n, "cg_iter": groups, "div_compact": n, "parity_apply_g": n,
                    k_name: 2 * n + 2 * mom}                 # M u, A x0, 2 A per iteration
     else:
         # M u^k once a step; A x0 once and A twice per BiCGStab iteration
-        on_path = dict(cg_init=n, cg_iter=cg_it, div_compact_interleaved=n, grad_window=n,
+        on_path = dict(cg_init=n, cg_iter=groups, div_compact_interleaved=n, grad_window=n,
                        window_spmv_m=n, window_spmv_mk_plus_a=n + 2 * mom)
     for name, on in modes.items():
         if on:
-            on_path[name] = n + cg_it                       # every cg_init and cg_iter launch
+            on_path[name] = n + groups                      # every cg_init and cg_iter launch
     return on_path, {k: on_path.get(k, 0) for k in counts}
 
 
@@ -916,9 +960,9 @@ def phase_e2e_implicit(solver, ImplicitGQSolver, cuda_lib, cg, n_steps: int,
         mom_iters_first_last=[int(hist[0]["mom_iters"]), int(hist[-1]["mom_iters"])],
         u_mon=hist[-1]["u_mon"], max_acc=hist[-1]["max_acc"], launches=counts,
         launches_per_step=(
-            "cg_init 1, cg_iter = cg_iters, div_compact 1, parity_apply_g 1, "
+            "cg_init 1, cg_iter = cg_iters / 4, div_compact 1, parity_apply_g 1, "
             f"{k_name} 2 + 2 mom_iters" if solver.layout == "parity" else
-            "cg_init 1, cg_iter = cg_iters, div_compact_interleaved 1, grad_window 1, "
+            "cg_init 1, cg_iter = cg_iters / 4, div_compact_interleaved 1, grad_window 1, "
             "window_spmv_m 1, window_spmv_mk_plus_a 1 + 2 mom_iters"),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
     )
@@ -1039,6 +1083,7 @@ def phase_banded_cg(solver, cg, cuda_lib) -> dict:
         b[solver.pin] = 0.0
     base = dict(dims=(n, 1, 1), offs=offs)
     results = {}
+    win64, b64 = win.double(), b.double()
 
     # converged cold solves, the default loop (counts within one group)
     cold = None
@@ -1050,8 +1095,14 @@ def phase_banded_cg(solver, cg, cuda_lib) -> dict:
         ref, plain_ms = _timed_once(lambda: cg.fused_cg_plain(win, b, dinv, **kw))
         k, k_ref = int(sol.iters), int(ref.iters)
         rel = float((sol.x - ref.x).abs().max()) / float(ref.x.abs().max())
+        tol = cfg.pressure_cg_tol
         rec = dict(iters=k, iters_plain=k_ref, err_rel=rel, tol=CG_X_TOL, solve_ms=ms,
-                   ms_per_iter=ms / max(k, 1), plain_solve_ms=plain_ms)
+                   ms_per_iter=ms / max(k, 1), plain_solve_ms=plain_ms,
+                   true_res=_true_residual(win64, offs, b64, sol.x),
+                   true_res_plain=_true_residual(win64, offs, b64, ref.x),
+                   true_res_tol=CG_TRUE_RES_TOL * tol)
+        if not max(rec["true_res"], rec["true_res_plain"]) <= CG_TRUE_RES_TOL * tol:
+            raise AssertionError(f"banded cold solve {dot_mode}: true residual: {rec}")
         if abs(k - k_ref) > UNROLL or not rel <= CG_X_TOL or not k > 0 or k % UNROLL:
             raise AssertionError(f"banded cold solve {dot_mode}: {rec}")
         if not float(sol.residual) <= cfg.pressure_cg_tol * float(torch.linalg.vector_norm(b)) * 1.0001:
@@ -1059,6 +1110,7 @@ def phase_banded_cg(solver, cg, cuda_lib) -> dict:
         results[f"cold_solve_{dot_mode}"] = rec
         if cold is None:
             cold = sol.x
+    del win64, b64
     noise = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(solver.device)
     x0 = (cold * (1 + 0.1 * noise)).contiguous()
 
@@ -1087,12 +1139,16 @@ def phase_banded_cg(solver, cg, cuda_lib) -> dict:
                        start_ms=t0_ms, plain_start_ms=p0)
             if form == "cg_iter":
                 init, step = _raw_cg_launches(cg, cuda_lib, win, b, dinv, x0, offs, dot_mode)
-                rec.update(init_ms=time_ms(init, 20), iter_ms=time_ms(step, n_it))
+                launch_ms = time_ms(step, n_it // UNROLL)
+                rec.update(init_ms=time_ms(init, 20), iter_launch_ms=launch_ms,
+                           iter_ms=launch_ms / UNROLL,
+                           plain_launch_ms=rec["plain_ms_per_iter"] * UNROLL)
             results[f"{form}_{dot_mode}"] = rec
 
     nz = nnz(win)
     ib, ib_by = bound(4 * (nz + 6 * n), 2 * nz + 8 * n)
     tb, tb_by = bound(4 * (nz + 7 * n), 2 * nz + 12 * n)
+    lb, lb_by = _launch_bound(nz, nz, n)
     a_z = _z_csr(win, offs, n)
     lib_ms = time_ms(lambda: torch.mv(a_z, x0), 20)
     lib_err = float((torch.mv(a_z, x0) - cg.window_apply_plain(win, x0, offs)).abs().max())
@@ -1100,31 +1156,45 @@ def phase_banded_cg(solver, cg, cuda_lib) -> dict:
     out = dict(phase="banded_cg", n=n, offsets=nw, max_halo=max(abs(o) for o in offs),
                window_mb=4 * nw * n / 1e6, window_nnz=nz, init_bound_ms=ib,
                init_bound_by=ib_by, iter_bound_ms=tb, iter_bound_by=tb_by,
+               iter_launch_bound_ms=lb, iter_launch_bound_by=lb_by,
                iter_stream_bound_ms=bound(4 * (nw + 7) * n, 0)[0], library_csr_mv_ms=lib_ms,
                library_abs_err=lib_err, checks=results)
     emit(out)
     return out
 
 
-def _raw_cg_launches(cg, cuda_lib, win, b, dinv, x0, offs, dot_mode):
-    """(init, step): one ``cg_init`` launch and one ``cg_iter`` launch each,
-    with the wrapper's arguments and no host read, for CUDA-event timing of
-    the kernels alone (the wrapper reads |r0| and |b| after ``cg_init``).
-    ``step`` advances one CG in place; tol 0 keeps it finite."""
+def _launch_bound(nz: int, nz_full: int, n: int) -> tuple[float, str]:
+    """The bound of one ``cg_iter`` launch of UNROLL iterations: its inputs
+    (the window's ``nz`` nonzero weights; x, r, z, p, dinv, ap) read once and
+    its outputs written once, against UNROLL iterations' operations (the
+    full window's ``nz_full`` weights)."""
+    return bound(4 * (nz + 7 * n), UNROLL * (2 * nz_full + 12 * n))
+
+
+def _raw_cg_launches(cg, cuda_lib, win, b, dinv, x0, offs, dot_mode, sym=False):
+    """(init, step): one ``cg_init`` launch and one ``cg_iter`` launch of a
+    group of UNROLL iterations, with the wrapper's arguments and no host
+    read, for CUDA-event timing of the kernels alone (the wrapper reads |r0|
+    and |b| after ``cg_init``).  ``step`` advances one CG in place; tol 0
+    keeps it finite.  ``sym``: ``win`` and ``offs`` are the dq >= 0 half."""
     import torch
 
     comp = int(dot_mode == "compensated")
     n, dev, fn, ptr = b.shape[0], b.device, cuda_lib.function, cuda_lib.ptr
     offs_t = cg._offs_table(tuple(offs), dev)
-    x, work = torch.empty_like(b), torch.empty((3, n), dtype=b.dtype, device=dev)
-    part = torch.empty(3 * fn("cg_iter_max_blocks")(),
+    stab, stab_ints, svecs = cg._stage_table(tuple(offs), bool(sym), dev)
+    rows, ld = cg.cg_work_layout(n)
+    x, work = torch.empty_like(b), torch.empty((len(rows), ld), dtype=b.dtype, device=dev)
+    part = torch.empty(6 * fn("cg_iter_max_blocks")(),
                        dtype=torch.float64 if comp else torch.float32, device=dev)
     scal = torch.empty(3, dtype=b.dtype, device=dev)
     stream = cuda_lib.stream_ptr(dev)
     init_args = (ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
-                 ptr(work[0]), ptr(work[1]), ptr(part), ptr(scal), n, comp, 0, stream)
-    iter_args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work[0]),
-                 ptr(work[1]), ptr(work[2]), ptr(part), ptr(scal), n, comp, 0, stream)
+                 ptr(work), ld, ptr(part), ptr(scal), n, comp, int(sym), ptr(stab), stab_ints,
+                 svecs, stream)
+    iter_args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work), ld,
+                 ptr(part), ptr(scal), n, UNROLL, comp, int(sym), ptr(stab), stab_ints, svecs,
+                 stream)
     init = lambda: cuda_lib.check(fn("cg_init_f32")(*init_args), "cg_init")
     step = lambda: cuda_lib.check(fn("cg_iter_f32")(*iter_args), "cg_iter")
     init()
@@ -1202,18 +1272,19 @@ def phase_e2e_bfs(solver, ExplicitBCHSolver, cuda_lib, n_steps, strict) -> dict:
     subs = [int(h["iters"]) for h in hist]
     last_cg = sum(int(h["cg_iters"]) for h in hist)
     # one cg_init per solve (one solve a sub-iteration); the history holds each
-    # step's last solve only, so cg_iter is bounded below by those
+    # step's last solve only, so cg_iter (one launch a group of UNROLL
+    # iterations) is bounded below by those
     on_path = {"cg_init": sum(subs)}
     off_path = {k: v for k, v in counts.items() if k not in ("cg_init", "cg_iter")}
-    if (counts["cg_init"] != on_path["cg_init"] or counts["cg_iter"] < last_cg
-            or counts["cg_iter"] % UNROLL or not counts["cg_iter"] > 0 or any(off_path.values())):
+    if (counts["cg_init"] != on_path["cg_init"] or counts["cg_iter"] * UNROLL < last_cg
+            or not counts["cg_iter"] > 0 or any(off_path.values())):
         raise AssertionError(f"bfs: launch counts {counts}, cg_init expected {on_path}")
     u, p = solver.fields(state)
     finite = bool(np.isfinite(u).all() and np.isfinite(p).all())
     out = dict(
         phase="e2e_bfs", steps=n_steps, warmup_steps=len(hist) - len(timed), ms_per_step=ms,
         warmup_s=warm_s, sub_iters_hist={str(s): subs.count(s) for s in sorted(set(subs))},
-        cg_iters_per_solve=counts["cg_iter"] / counts["cg_init"],
+        cg_iters_per_solve=counts["cg_iter"] * UNROLL / counts["cg_init"],
         cg_iters_last_solve_first_last=[int(hist[0]["cg_iters"]), int(hist[-1]["cg_iters"])],
         u_mon=hist[-1]["u_mon"], finite=finite, launches=counts,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
@@ -1584,9 +1655,10 @@ def _explicit_interleaved_expect(hist, counts, conv_mode, **modes):
     step of s sub-iterations, (K + A) u* every sub-iteration and K acc on all
     but the last (matrix-free: window_spmv_k 2s - 1; "assemble":
     window_spmv_k_plus_a s and window_spmv_k s - 1), grad_window s + 1 (G p^n
-    once, G pdot each), div_compact_interleaved s, cg_init s; cg_iter is
-    checked against the last solve's count of each step (the only one the
-    history keeps): at least their sum, in whole groups of the unroll."""
+    once, G pdot each), div_compact_interleaved s, cg_init s; cg_iter (one
+    launch a group of the unroll) is checked against the last solve's count
+    of each step (the only one the history keeps): at least their sum over
+    the unroll."""
     subs = [int(h["iters"]) for h in hist]
     if conv_mode == "assemble":
         spmv = dict(window_spmv_k=sum(s - 1 for s in subs), window_spmv_k_plus_a=sum(subs))
@@ -1604,7 +1676,7 @@ def _explicit_interleaved_expect(hist, counts, conv_mode, **modes):
     needed = [v for k, v in on_path.items()
               if not (conv_mode == "assemble" and k == "window_spmv_k")]
     ok = (counts == expect and min(needed) > 0
-          and on_path["cg_iter"] >= last and on_path["cg_iter"] % UNROLL == 0)
+          and on_path["cg_iter"] * UNROLL >= last)
     return on_path, ok
 
 
@@ -1954,8 +2026,9 @@ def ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_st
     the JAX package's rule streams every velocity field: ``kernels_streamed``
     (TPU kernel row 3 in its K, K + A and MK + A forms on the solvers' own
     tables, against the resident form and the plain version; and the compact
-    G^T, row 4, at these shapes), ``e2e_ne85``
-    and ``e2e_ne85_implicit``.  The rows of the ``kernels`` line it measures."""
+    G^T, row 4, at these shapes), ``e2e_ne85``, ``cg_modes`` on the explicit
+    solver's 125-slot Z (91,125 rows) and ``e2e_ne85_implicit``.  The rows of
+    the ``kernels`` line it measures."""
     import numpy as np
     import torch
 
@@ -1987,7 +2060,21 @@ def ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_st
     # ---- the compact G^T (TPU kernel row 4) at these shapes
     ks["div_compact"] = _div_compact_check(pstl, window_stencil, solver.d["GT_cwin"], u,
                                            solver.coarse_dims)
-    del solver
+    # ---- the CG modes on its 125-slot Z (the CG takes 60-64 % of this cell's
+    # device time), a divergence-shaped right-hand side as on NE27000
+    d = solver.d
+    b = pstl.parity_div_apply_plain(d["GT_cwin"], u, solver.coarse_dims)[: solver.nnp].clone()
+    if solver.pin_grid >= 0:
+        b[solver.pin_grid] = 0.0
+    cold = fused_cg.fused_cg(d["Z_win"], b, d["Z_dinv"], dims=solver.coarse_dims,
+                             radius=solver.z_radius, tol=cfg.pressure_cg_tol,
+                             maxiter=cfg.pressure_cg_maxiter, fuse_loop=True)
+    noise = torch.from_numpy(rng.standard_normal(solver.nnp).astype(np.float32)).to(solver.device)
+    x0 = (cold.x * (1 + 1e-3 * noise)).contiguous()
+    phase_cg_modes("ne85_explicit_z", fused_cg, window_stencil, d["Z_win"], d["Z_dinv"], b, x0,
+                   solver.coarse_dims, solver.z_radius, cfg.pressure_cg_tol,
+                   cfg.pressure_cg_maxiter, strict=strict)
+    del solver, d, b, cold, x0
     torch.cuda.empty_cache()
 
     t0 = time.time()
@@ -2098,9 +2185,11 @@ def main() -> int:
     phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, icfg,
                            args.bfs_implicit_steps, strict)
 
-    # row 9: the CG kernels on the banded window (launches: the explicit BFS run)
+    # row 9: the CG kernels on the banded window (launches: the explicit BFS
+    # run; cg_iter per launch of UNROLL iterations, which no single PyTorch
+    # call computes: the CSR mv of Z stays in the banded_cg line)
     pcg = "cfd_with_cuda_tpu/ops/pallas_cg.py"
-    it, lib = banded["checks"]["cg_iter_plain"], banded["library_csr_mv_ms"]
+    it = banded["checks"]["cg_iter_plain"]
     errs = it["fixed_depth_errs"]
     rows += [
         ("cg_init_banded", "cg_iter.cu", pcg + ":478", be2e["launches"]["cg_init"],
@@ -2108,9 +2197,9 @@ def main() -> int:
               plain_ms=it["plain_start_ms"], bound_ms=banded["init_bound_ms"],
               bound_by=banded["init_bound_by"], library_ms=None)),
         ("cg_iter_banded", "cg_iter.cu", pcg + ":478", be2e["launches"]["cg_iter"],
-         dict(max_abs_err=errs[BFS_FIXED_DEPTHS[-1]]["x_abs"], ms=it["iter_ms"],
-              plain_ms=it["plain_ms_per_iter"], bound_ms=banded["iter_bound_ms"],
-              bound_by=banded["iter_bound_by"], library_ms=lib)),
+         dict(max_abs_err=errs[BFS_FIXED_DEPTHS[-1]]["x_abs"], ms=it["iter_launch_ms"],
+              plain_ms=it["plain_launch_ms"], bound_ms=banded["iter_launch_bound_ms"],
+              bound_by=banded["iter_launch_bound_by"], library_ms=None)),
     ]
     csrc = "cfd_with_cuda_tpu_torch/csrc/"
     kernels = []
@@ -2207,9 +2296,9 @@ def cavity_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_
          dict(max_abs_err=ln["init_abs_err"], ms=ln["init_ms"], plain_ms=ln["init_plain_ms"],
               bound_ms=ln["init_bound_ms"], bound_by=ln["init_bound_by"], library_ms=None)),
         ("cg_iter", "cg_iter.cu", pcg + ":577", ie2e["launches"]["cg_iter"],
-         dict(max_abs_err=ln["iter_abs_err"], ms=ln["iter_ms"],
-              plain_ms=ln["iter_plain_ms"], bound_ms=ln["iter_bound_ms"],
-              bound_by=ln["iter_bound_by"], library_ms=None)),
+         dict(max_abs_err=ln["iter_abs_err"], ms=ln["iter_launch_ms"],
+              plain_ms=ln["iter_plain_launch_ms"], bound_ms=ln["iter_launch_bound_ms"],
+              bound_by=ln["iter_launch_bound_by"], library_ms=None)),
         ("comp_dot", "cg_iter.cu", pcg + ":194", ie2e["mixed"]["launches"]["comp_dot"],
          modes["comp_dot"]),
         ("sym_apply", "cg_iter.cu", pcg + ":262", ie2e["sym"]["launches"]["sym_apply"],
