@@ -2,50 +2,59 @@
 on the same inputs, on the card.
 
     git archive <commit> cfd_with_cuda_tpu_torch/csrc | tar -x -C _parent
-    python -m cfd_with_cuda_tpu_torch.compare_build --against _parent
+    python -m cfd_with_cuda_tpu_torch.compare_build --against _parent [--parts ...]
 
 (``_parent/`` is git-ignored.)  Builds the earlier checkout's
-``csrc/{window_stencil,div_compact,cg_solve,cg_iter}.cu`` (each with that
-checkout's ``cg_common.cuh``) with this checkout's ``nvcc`` flags into
-``_build/against/`` and calls both builds on the same inputs:
+``csrc/{parity_apply,window_stencil,div_compact,cg_solve,cg_iter}.cu`` (each
+with that checkout's ``cg_common.cuh``) with this checkout's ``nvcc`` flags
+into ``_build/against/`` and calls both builds on the same inputs
+(``--parts``: any of stencils, cg, parity; all by default):
 
-* G on the class-compacted window (TPU kernel row 10) in f32 and f64 and
-  both compact G^T forms (rows 4 and 11), on the interleaved explicit
-  solver's tables of the NE27000 cavity ``cavity_deck(30, cluster=2.0)``
-  and seeded fields: the largest |difference|, bit equality (and value
-  equality, the sign of an exact zero apart), and each build's device ms
-  (CUDA events, the calls queued behind other device work) and ms per call
-  (CUDA events) over REPS launches;
-* the pressure CG (rows 5, 6 and 9) on four windows: the NE27000 explicit
-  Z (125 slots), the NE27000 implicit Z (27 slots), the banded window of
-  the backward-facing step ``bfs_deck(96, 40, 40)`` (275 slots x 147,477
-  rows) and the NE85184 explicit Z (``cavity_deck(44, cluster=2.0)``, 125
-  slots x 91,125 rows), each with a seeded right-hand side.  Every form:
-  ``cg_init`` + ``cg_iter`` (the per-group loop) and ``cg_solve``; the full
-  window and its dq >= 0 half (``sym``); plain and compensated dots; cold
-  and warm starts converged at tol 1e-6 (unroll 4), and a fixed 0, 1 and 40
-  iterations (tol 0, one group).  For each: x, the count and |r| equal bit
-  for bit or not.  Per window and build: the block count of each kernel
-  (read from a profiler trace), the launch plan (grouped builds), and the
-  time of an iteration split into its parts: device ms per iteration of
-  ``cg_solve`` and of ``cg_iter`` (CUDA events around calls queued behind
-  other device work, 40 iterations less none; ``cg_iter`` launched raw, in
-  groups of 4 or one an iteration as the build runs it), the same with the
-  window cut to its centre slot and dinv = 1 (``nw1``: the apply all but
-  gone), the loop's ms per iteration on the host clock (CUDA events around
-  the calls: launches and host reads included), and, from this checkout's
-  ``csrc/cg_probe.cu`` (a timing probe built for this tool alone) at that
-  block count (CUDA events over 200 rounds), one grid barrier and the two
-  reductions of an iteration.  Every time in turns: earlier, this, this,
-  earlier.
+* stencils: G on the class-compacted window (TPU kernel row 10) in f32 and
+  f64 and both compact G^T forms (rows 4 and 11), on the interleaved
+  explicit solver's tables of the NE27000 cavity ``cavity_deck(30,
+  cluster=2.0)`` and seeded fields: the largest |difference|, bit equality
+  (and value equality, the sign of an exact zero apart), and each build's
+  device ms (CUDA events, the calls queued behind other device work) and
+  ms per call (CUDA events) over REPS launches;
+* parity: every ``parity_apply`` form (rows 1-3: K, G and K + A of the
+  explicit parity solver, MK + A and M of the implicit one, on seeded
+  fields and convection planes) in both field forms, resident and
+  streamed, at NE27000, at NE85184 (``cavity_deck(44, cluster=2.0)``) and
+  on the non-cubic ``box_cavity_deck()``, and row 12's class tables
+  (``parity_window_apply`` on the interleaved solver's K and one G
+  direction) at NE27000: the same comparison and times, the whole weight
+  tables' bytes and the byte bound of their nonzero weights; at NE85184
+  also K and K + A on routes cut to the shortest class (what the classes'
+  different lengths cost) and, in this build's streamed kernel, the warp
+  schedule (``stream_schedule``) against two fixed dealings of the classes
+  to the 4 warps, warp w summing classes (w, w + 4) or (w, 7 - w);
+* cg: the pressure CG (rows 5, 6 and 9) on four windows: the NE27000
+  explicit Z (125 slots), the NE27000 implicit Z (27 slots), the banded
+  window of the backward-facing step ``bfs_deck(96, 40, 40)`` (275 slots x
+  147,477 rows) and the NE85184 explicit Z (125 slots x 91,125 rows), each
+  with a seeded right-hand side.  Every form: ``cg_init`` + ``cg_iter``
+  (the per-group loop) and ``cg_solve``; the full window and its dq >= 0
+  half (``sym``); plain and compensated dots; cold and warm starts
+  converged at tol 1e-6 (unroll 4), and a fixed 0, 1 and 40 iterations
+  (tol 0, one group).  For each: x, the count and |r| equal bit for bit or
+  not.  Per window and build: the block count of each kernel (read from a
+  profiler trace), the launch plan, and the time of an iteration split
+  into its parts: device ms per iteration of ``cg_solve`` and of
+  ``cg_iter`` (CUDA events around calls queued behind other device work, 40
+  iterations less none; ``cg_iter`` launched raw, in groups of 4), the same
+  with the window cut to its centre slot and dinv = 1 (``nw1``: the apply
+  all but gone), the loop's ms per iteration on the host clock (CUDA
+  events around the calls: launches and host reads included), and, from
+  this checkout's ``csrc/cg_probe.cu`` (a timing probe built for this tool
+  alone) at that block count (CUDA events over 200 rounds), one grid
+  barrier and the two reductions of an iteration.
 
-Prints one JSON line per part, then the card's name and power limit.
-Needs one CUDA card.  A build whose ``cg_iter.cu`` exports
-``cg_work_rows`` (this one) runs one ``cg_iter`` launch per group of
-``unroll`` iterations on a (5, ld) work buffer; an earlier one runs one
-launch per iteration on (3, n) (the interface before grouped launches,
-kept here only to hold the grouped kernels against their first form):
-each build is driven by its own host loop, the one its wrapper had.
+Every time in turns: earlier, this, this, earlier.  Prints one JSON line
+per part, then the card's name and power limit.  Needs one CUDA card.  The
+earlier build's streamed ``parity_apply`` is driven through the interface
+and tables it had before the warp schedule (``_EARLIER_SIGNATURES``,
+``_earlier_stream_tables``); this build's runs through the wrapper.
 """
 
 from __future__ import annotations
@@ -59,17 +68,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
+from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, box_cavity_deck, cavity_deck
 from cfd_with_cuda_tpu_torch.ops import cuda_lib
 from cfd_with_cuda_tpu_torch.ops import fused_cg as tcg
 from cfd_with_cuda_tpu_torch.ops import window_stencil as ws
-from cfd_with_cuda_tpu_torch.ops.parity_stencil import parity_split
+from cfd_with_cuda_tpu_torch.ops import parity_stencil as pstl
 from cfd_with_cuda_tpu_torch.ops.stencil import coarse_to_fine
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 
-_SOURCES = ("window_stencil", "div_compact", "cg_solve", "cg_iter")
+_SOURCES = ("parity_apply", "window_stencil", "div_compact", "cg_solve", "cg_iter")
+_PARTS = ("stencils", "cg", "parity")
 DECK_N = 30         # cavity elements per edge: NE27000
 NE85_N = 44         # NE85184
 BFS_DIMS = (96, 40, 40)
@@ -79,18 +89,8 @@ CG_REPS = 5         # calls per timing of a CG form
 TOL, MAXITER, UNROLL = 1e-6, 1000, 4
 DEPTHS = (0, 1, 40)
 PROBE_REPS = 200
-_PROBE_SIGNATURE = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3   # csrc/cg_probe.cu
-
-# the C interface of the CG kernels before grouped launches: one cg_iter launch per iteration
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_PER_ITERATION_SIGNATURES = {
-    "cg_solve_f32": ("cg_solve", [_P, _P, _I] + [_P] * 10 + [_I, _I, _D, _I, _I, _P]),
-    "cg_solve_max_blocks": ("cg_solve", []),
-    "cg_init_f32": ("cg_iter", [_P, _P, _I] + [_P] * 8 + [_I, _I, _I, _P]),
-    "cg_iter_f32": ("cg_iter", [_P, _P, _I] + [_P] * 7 + [_I, _I, _I, _P]),
-    "cg_iter_max_blocks": ("cg_iter", []),
-}
-
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_PROBE_SIGNATURE = [_I] * 4 + [_P] * 3   # csrc/cg_probe.cu
 
 def build_tools(checkout: Path) -> tuple[dict[str, ctypes.CDLL], ctypes.CDLL]:
     """(the earlier checkout's kernel libraries, this checkout's timing
@@ -116,85 +116,39 @@ def build_tools(checkout: Path) -> tuple[dict[str, ctypes.CDLL], ctypes.CDLL]:
 
 
 class Build:
-    """One build's C entry points, typed by its interface."""
+    """One build's C entry points, typed by its interface (``signatures``
+    over the current one's, for an earlier build whose interface differs)."""
 
-    def __init__(self, label: str, libs: dict[str, ctypes.CDLL]):
+    def __init__(self, label: str, libs: dict[str, ctypes.CDLL], signatures=None):
         self.label, self.libs = label, libs
-        self.grouped = hasattr(libs["cg_iter"], "cg_work_rows")
+        self.signatures = {**cuda_lib._SIGNATURES, **(signatures or {})}
         self._fns = {}
 
     def fn(self, name: str):
         if name not in self._fns:
-            sigs = cuda_lib._SIGNATURES if self.grouped else {**cuda_lib._SIGNATURES,
-                                                               **_PER_ITERATION_SIGNATURES}
-            source, argtypes = sigs[name]
+            source, argtypes = self.signatures[name]
             f = getattr(self.libs[source], name)
             f.restype, f.argtypes = ctypes.c_int, argtypes
             self._fns[name] = f
         return self._fns[name]
 
     def cg(self, win, offs, b, dinv, x0, *, tol, maxiter, unroll, comp, sym, fuse_loop):
-        """(x, k, |r|) of one solve, driven as this build's wrapper drives it
+        """(x, k, |r|) of one solve, driven as the wrapper drives it
         (``win``/``offs`` already the half under ``sym``)."""
-        if self.grouped:
-            res = tcg._cuda_cg(self.fn, win, b, dinv, offs, tol=tol, maxiter=maxiter, x0=x0,
-                               unroll=unroll, comp=comp, sym=sym, fuse_loop=fuse_loop)
-            return res.x, int(res.iters), res.residual
-        return _per_iteration_cg(self.fn, win, offs, b, dinv, x0, tol=tol, maxiter=maxiter,
-                                 unroll=unroll, comp=comp, sym=sym, fuse_loop=fuse_loop)
+        res = tcg._cuda_cg(self.fn, win, b, dinv, offs, tol=tol, maxiter=maxiter, x0=x0,
+                           unroll=unroll, comp=comp, sym=sym, fuse_loop=fuse_loop)
+        return res.x, int(res.iters), res.residual
 
     def plan(self, n, offs, comp, sym, fuse_loop):
         """{"blocks", "form", "ring_stages"}: the grid, the kernel form (0, 1:
         built for 5 or 3 blocks an SM) and the weight ring's depth that the
-        build's launcher of ``cg_solve`` (``fuse_loop``) or ``cg_iter`` picks
-        (grouped builds)."""
-        if not self.grouped:
-            return None
+        build's launcher of ``cg_solve`` (``fuse_loop``) or ``cg_iter`` picks."""
         tab = tcg.stage_table(offs, sym)
         out = (ctypes.c_int * 3)()
         name = "cg_solve_plan" if fuse_loop else "cg_iter_plan"
         cuda_lib.check(self.fn(name)(int(n), len(offs), len(tab), int(tab[1]), int(comp),
                                      int(sym), out), name)
         return dict(blocks=int(out[0]), form=int(out[1]), ring_stages=int(out[2]))
-
-
-def _per_iteration_cg(fn, win, offs, b, dinv, x0, *, tol, maxiter, unroll, comp, sym,
-                      fuse_loop):
-    """The host side of the per-iteration wrapper: one cg_iter launch per iteration
-    and a host read of |r| per group of ``unroll``, or one cg_solve."""
-    ptr, n, dev = cuda_lib.ptr, b.shape[0], b.device
-    part_dtype = torch.float64 if comp else torch.float32
-    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
-    x = torch.empty_like(b)
-    work = torch.empty((3, n), dtype=b.dtype, device=dev)
-    stream = cuda_lib.stream_ptr(dev)
-    if fuse_loop:
-        part = torch.empty(6 * fn("cg_solve_max_blocks")(), dtype=part_dtype, device=dev)
-        k = torch.empty((), dtype=torch.int32, device=dev)
-        rn = torch.empty((), dtype=b.dtype, device=dev)
-        cuda_lib.check(fn("cg_solve_f32")(
-            ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
-            ptr(work[0]), ptr(work[1]), ptr(work[2]), ptr(part), ptr(k), ptr(rn),
-            n, int(maxiter), float(tol), int(comp), int(sym), stream), "earlier cg_solve")
-        return x, int(k), rn
-    part = torch.empty(3 * fn("cg_iter_max_blocks")(), dtype=part_dtype, device=dev)
-    scal = torch.empty(3, dtype=b.dtype, device=dev)
-    cuda_lib.check(fn("cg_init_f32")(
-        ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
-        ptr(work[0]), ptr(work[1]), ptr(part), ptr(scal), n, int(comp), int(sym), stream),
-        "earlier cg_init")
-    rn_h, bn_h = scal[1:3].cpu().numpy()
-    bound = np.maximum(np.float32(tol) * bn_h, np.float32(0.0))
-    maxiter_eff = -(-int(maxiter) // unroll) * unroll
-    args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work[0]), ptr(work[1]),
-            ptr(work[2]), ptr(part), ptr(scal), n, int(comp), int(sym), stream)
-    k = 0
-    while k < maxiter_eff and rn_h > bound:
-        for _ in range(unroll):
-            cuda_lib.check(fn("cg_iter_f32")(*args), "earlier cg_iter")
-        k += unroll
-        rn_h = np.float32(scal[1].item())
-    return x, k, scal[1]
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -259,39 +213,29 @@ def _grids(fn, names) -> dict[str, int | None]:
 
 def _raw_cg(build: Build, win, offs, b, dinv, x0, iters: int):
     """A call that enqueues the build's ``cg_init`` and ``iters`` iterations
-    of ``cg_iter`` launches (groups of UNROLL in a grouped build, one an
-    iteration before) with no host read, for timing the kernels alone;
-    tol is never looked at, so ``iters`` always run."""
+    of ``cg_iter`` launches (groups of UNROLL) with no host read, for timing
+    the kernels alone; tol is never looked at, so ``iters`` always run."""
     fn, ptr, n, dev = build.fn, cuda_lib.ptr, b.shape[0], b.device
     offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
     x, scal = torch.empty_like(b), torch.empty(3, dtype=b.dtype, device=dev)
     part = torch.empty(6 * fn("cg_iter_max_blocks")(), dtype=b.dtype, device=dev)
     stream = cuda_lib.stream_ptr(dev)
-    if build.grouped:
-        tab = tcg.stage_table(offs, False)
-        stab = torch.from_numpy(tab).to(dev)
-        rows, ld = tcg.cg_work_layout(n)
-        work = torch.empty((len(rows), ld), dtype=b.dtype, device=dev)
-        st = (ptr(stab), len(tab), int(tab[1]))
-        init_args = (ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
-                     ptr(work), ld, ptr(part), ptr(scal), n, 0, 0, *st, stream)
-        iter_args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work), ld,
-                     ptr(part), ptr(scal), n, UNROLL, 0, 0, *st, stream)
-        launches, keep = iters // UNROLL, (stab, work)
-    else:
-        work = torch.empty((3, n), dtype=b.dtype, device=dev)
-        init_args = (ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
-                     ptr(work[0]), ptr(work[1]), ptr(part), ptr(scal), n, 0, 0, stream)
-        iter_args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work[0]),
-                     ptr(work[1]), ptr(work[2]), ptr(part), ptr(scal), n, 0, 0, stream)
-        launches, keep = iters, (work,)
+    tab = tcg.stage_table(offs, False)
+    stab = torch.from_numpy(tab).to(dev)
+    rows, ld = tcg.cg_work_layout(n)
+    work = torch.empty((len(rows), ld), dtype=b.dtype, device=dev)
+    st = (ptr(stab), len(tab), int(tab[1]))
+    init_args = (ptr(win), ptr(offs_t), len(offs), ptr(b), ptr(dinv), ptr(x0), ptr(x),
+                 ptr(work), ld, ptr(part), ptr(scal), n, 0, 0, *st, stream)
+    iter_args = (ptr(win), ptr(offs_t), len(offs), ptr(dinv), ptr(x), ptr(work), ld,
+                 ptr(part), ptr(scal), n, UNROLL, 0, 0, *st, stream)
     init, step = fn("cg_init_f32"), fn("cg_iter_f32")
 
     def run():
         cuda_lib.check(init(*init_args), "cg_init")
-        for _ in range(launches):
+        for _ in range(iters // UNROLL):
             cuda_lib.check(step(*iter_args), "cg_iter")
-    run.buffers = (offs_t, x, scal, part, *keep)   # alive as long as the call is
+    run.buffers = (offs_t, x, scal, part, stab, work)   # alive as long as the call is
     return run
 
 
@@ -455,7 +399,7 @@ def stencil_checks(earlier: Build, s) -> dict:
     sp = gt.shape[-1]
     pairs = ws.div_class_pairs(coarse)
     pairs_t = torch.tensor(pairs, dtype=torch.int32, device=dev).reshape(-1)
-    up = parity_split(u, fine, sp).contiguous()
+    up = pstl.parity_split(u, fine, sp).contiguous()
     y_c = torch.empty(sp, device=dev)
     fn_c = earlier.fn("div_compact_f32")
 
@@ -480,6 +424,175 @@ def stencil_checks(earlier: Build, s) -> dict:
     return dict(phase="stencils", deck_n=DECK_N, s_pad=n, sp=sp, checks=out)
 
 
+# The streamed kernel's C interface and host tables before the warp schedule
+# (runs of dq in [lo, lo + 2] staged as 66 values, 4-byte copies).  The
+# earlier build is driven through them: this checkout's wrapper builds other
+# tables for another interface.  This code goes once no earlier build of
+# interest has that interface.
+_EARLIER_RUN_SPAN, _EARLIER_RUN_LEN = 2, 66
+_EARLIER_SIGNATURES = {
+    "parity_apply_streamed_f32": ("parity_apply", [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P,
+                                                   _I, _I, _P, _I, _I, _P]),
+}
+
+
+def _earlier_stream_tables(pairs, pairs2, m1, m2, px, dev):
+    """(route, runs, n_runs) of the earlier streamed kernel."""
+    heads, ents = pstl._route_entries(pairs, pairs2, m1, m2, px)
+    runs, where = [], {}
+    for pp in sorted({e[2] for e in ents}):
+        lo = None
+        for dq in sorted({e[3] for e in ents if e[2] == pp}):
+            if lo is None or dq > lo + _EARLIER_RUN_SPAN:
+                lo = dq
+                runs.append((pp, lo))
+            where[pp, dq] = (len(runs) - 1) * _EARLIER_RUN_LEN + dq - lo
+    flat = heads + [v for tab, j, pp, dq in ents for v in (tab, j, dq, where[pp, dq])]
+    return (torch.tensor(flat, dtype=torch.int32, device=dev),
+            torch.tensor([v for r in runs for v in r] or [0], dtype=torch.int32, device=dev),
+            len(runs))
+
+
+def _earlier_apply(build: Build, wc, x, pairs, co, wc2, pairs2, streamed: bool):
+    """A call of the earlier build's parity_apply (``streamed``: its streamed
+    form) into a buffer allocated once."""
+    ptr, dev = cuda_lib.ptr, x.device
+    c, px, sp = x.shape
+    m2 = 0 if wc2 is None else wc2.shape[1]
+    common = (ptr(wc), wc.shape[0], wc.shape[1], ptr(wc2), 1 if wc2 is None else wc2.shape[0],
+              m2, ptr(x), c, px)
+    y = torch.empty((co, 8, sp), dtype=x.dtype, device=dev)
+    stream = cuda_lib.stream_ptr(dev)
+    if streamed:
+        route, runs, n_runs = _earlier_stream_tables(pairs, pairs2, wc.shape[1], m2, px, dev)
+        fn = build.fn("parity_apply_streamed_f32")
+        args = (*common, ptr(route), ptr(runs), n_runs, _EARLIER_RUN_LEN, ptr(y), co, sp, stream)
+    else:
+        route = pstl._route_table(pairs, pairs2, wc.shape[1], m2, px, dev)
+        fn = build.fn("parity_apply_f32")
+        args = (*common, ptr(route), ptr(y), co, sp, stream)
+
+    def run():
+        cuda_lib.check(fn(*args), "earlier parity_apply")
+        return y
+    run.buffers = (route, runs, y) if streamed else (route, y)   # alive as long as the call is
+    return run
+
+
+def _cut(pairs):
+    """Each class of a route cut to the shortest class's length."""
+    if pairs is None:
+        return None
+    n = min(len(cls) for cls in pairs)
+    return tuple(tuple(cls[:n]) for cls in pairs)
+
+
+# fixed dealings of the 8 classes to the streamed kernel's 4 warps, as
+# (offsets, items) of a schedule (one item a class and block)
+_DEALINGS = {"w_w4": ([0, 2, 4, 6, 8], [0, 4, 1, 5, 2, 6, 3, 7]),
+             "w_7w": ([0, 2, 4, 6, 8], [0, 7, 1, 6, 2, 5, 3, 4])}
+
+
+def _dealt_apply(wc, x, pairs, co, wc2, pairs2, schedule):
+    """A call of this build's streamed parity_apply with the warp schedule
+    ``schedule`` (offsets, items) in place of ``stream_schedule``'s."""
+    ptr, dev = cuda_lib.ptr, x.device
+    c, px, sp = x.shape
+    m2 = 0 if wc2 is None else wc2.shape[1]
+    route, runs, n_runs, chan, _ = pstl._stream_tables(pairs, pairs2, wc.shape[1], m2, px, dev)
+    sched = torch.tensor(schedule[0] + schedule[1], dtype=torch.int32, device=dev)
+    y = torch.empty((co, 8, sp), dtype=x.dtype, device=dev)
+    args = (ptr(wc), wc.shape[0], wc.shape[1], ptr(wc2), 1 if wc2 is None else wc2.shape[0], m2,
+            ptr(x), c, px, ptr(route), ptr(runs), n_runs, chan, ptr(sched), pstl.STREAM_Q,
+            pstl.STREAM_WARPS, pstl.STREAM_THREAD_Q, ptr(y), co, sp, cuda_lib.stream_ptr(dev))
+    fn = cuda_lib.function("parity_apply_streamed_f32")
+
+    def run():
+        cuda_lib.check(fn(*args), "parity_apply (streamed, dealt)")
+        return y
+    run.buffers = (route, runs, sched, y)   # alive as long as the call is
+    return run
+
+
+def parity_checks(earlier: Build, tag: str, forms, window_forms=(), cut_forms=()) -> dict:
+    """Every ``parity_apply`` form of both builds in both field forms
+    (``forms``: (name, wc, x, pairs, wc2, pairs2)), row 12's class tables on
+    the resident kernel (``window_forms``: (name, wp, x, pairs)) and, for the
+    names in ``cut_forms``, the same launches on the route with each class of
+    each table cut to the shortest class's length (what the classes'
+    different lengths cost) and this build's streamed launch under each
+    fixed dealing (``_DEALINGS``; "earlier" the dealing, "this" the
+    schedule): bit equality and device times in turns (``_compare``), the
+    bytes of the whole weight tables the kernels stream and the byte bound
+    of their nonzero weights and the fields (3.35 TB/s, as ``chip_smoke.py``
+    counts it)."""
+    out = {}
+
+    def sizes(tables, x, co):
+        fields = 4 * (x.numel() + co * 8 * x.shape[-1])
+        nz = sum(int(torch.count_nonzero(t)) for t in tables)
+        return dict(weight_bytes=4 * sum(t.numel() for t in tables),
+                    bound_ms=(4 * nz + fields) / 3.35e12 * 1e3)
+
+    for name, wc, x, pairs, wc2, pairs2 in forms:
+        co = 3
+        routes = [("", pairs, pairs2)]
+        if name in cut_forms:
+            routes.append(("_cut", _cut(pairs), _cut(pairs2)))
+        for sfx, prs, prs2 in routes:
+            for streamed in (False, True):
+                this = (lambda wc=wc, x=x, prs=prs, wc2=wc2, prs2=prs2, s=streamed:
+                        pstl.parity_apply(wc, x, pairs=prs, co=co, wc2=wc2, pairs2=prs2,
+                                          stream_x=s))
+                key = f"{name}{sfx}_{'streamed' if streamed else 'resident'}"
+                out[key] = dict(
+                    _compare(_earlier_apply(earlier, wc, x, prs, co, wc2, prs2, streamed),
+                             this, REPS),
+                    entries=[len(c) + (0 if prs2 is None else len(prs2[p]))
+                             for p, c in enumerate(prs)],
+                    **sizes([wc] + ([] if wc2 is None else [wc2]), x, co))
+        if name in cut_forms:
+            greedy = lambda wc=wc, x=x, pairs=pairs, wc2=wc2, pairs2=pairs2: pstl.parity_apply(
+                wc, x, pairs=pairs, co=co, wc2=wc2, pairs2=pairs2, stream_x=True)
+            for dealing, schedule in _DEALINGS.items():
+                out[f"{name}_streamed_dealt_{dealing}"] = _compare(
+                    _dealt_apply(wc, x, pairs, co, wc2, pairs2, schedule), greedy, REPS)
+    for name, wp, x, pairs in window_forms:
+        m, sp, co = wp.shape[1], wp.shape[2], x.shape[0]
+        flat = wp.reshape(1, 8 * m, sp)
+        route = pstl._class_route(pairs, m)
+        out[name] = dict(
+            _compare(_earlier_apply(earlier, flat, x, route, co, None, None, False),
+                     lambda wp=wp, x=x, pairs=pairs: pstl.parity_window_apply(wp, x, pairs=pairs),
+                     REPS),
+            entries=[len(c) for c in pairs], **sizes([wp], x, co))
+    return dict(phase="parity_apply", deck=tag, sp=forms[0][2].shape[-1],
+                all_bit_equal=all(v["bit_equal"] for v in out.values()), checks=out)
+
+
+def _window_forms(xs, rng):
+    """Row 12's class tables on the interleaved explicit solver ``xs``: its
+    K_vals (8, 125, Sp) and G_win's first direction (8, 27, Sp), split by
+    class and compacted as ``chip_smoke.py`` window_apply does."""
+    fine, dev = xs.fine_dims, xs.device
+    cdims, sp = pstl.parity_dims(fine)
+
+    def tables(win, offs):
+        wp = pstl.parity_window_tables(win.cpu().numpy(), offs, fine)
+        wp_c, pairs_c = pstl.compact_class_tables(wp, pstl.parity_pairs(offs, cdims))
+        return torch.from_numpy(wp_c).to(dev), pairs_c
+
+    r = xs.g_radius
+    g_offs = tuple((dx, dy, dz) for dz in range(-r, r + 1)
+                   for dy in range(-r, r + 1) for dx in range(-r, r + 1))
+    wk, pk = tables(xs.d["K_vals"], pstl.decode_offsets(xs.k_offsets, fine))
+    wg, pg = tables(xs.d["G_win"][0], g_offs)
+    u = torch.from_numpy(rng.standard_normal((3, 8, sp)).astype(np.float32)).to(dev)
+    x = torch.zeros(1, 8, sp, device=dev)
+    x[0, 0, : xs.nnp] = torch.from_numpy(rng.standard_normal(xs.nnp).astype(np.float32))
+    return [("window_k", wk, u, pk), ("window_g", wg, x, pg)]
+
+
 def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -488,56 +601,87 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", required=True, type=Path,
                     help="an earlier checkout (at least its cfd_with_cuda_tpu_torch/csrc)")
+    ap.add_argument("--parts", nargs="+", choices=_PARTS, default=list(_PARTS),
+                    help="what to compare (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("compare_build: no CUDA device available")
+    parts = set(args.parts)
 
     against, probe = build_tools(args.against)
-    earlier = Build("earlier", against)
+    earlier = Build("earlier", against, _EARLIER_SIGNATURES)
     probe_fn = probe.cg_probe_f32
     probe_fn.restype, probe_fn.argtypes = ctypes.c_int, _PROBE_SIGNATURE
     cuda_lib.build_all()
     this = Build("this", {name: cuda_lib._library(name) for name in _SOURCES})
     builds = (earlier, this)
-    _emit(dict(phase="builds", against=str(args.against),
-               grouped=dict(earlier=earlier.grouped, this=this.grouped)))
+    _emit(dict(phase="builds", against=str(args.against), parts=sorted(parts)))
     f32 = dict(dtype_policy=DTypePolicy.F32)
-    ok = True
+    ok = dict(cg=True, parity=True)
+    rng = np.random.default_rng(20261200)
 
-    # NE27000: the interleaved explicit solver (G, G^T and the 125-slot Z),
-    # then the implicit parity solver's 27-slot Z
-    deck = cavity_deck(DECK_N, cluster=2.0, viscosity=0.01, dt=0.001)
-    s = ExplicitBCHSolver(deck, SolverConfig(structured_layout="interleaved", **f32))
-    _emit(stencil_checks(earlier, s))
-    offs = ws.window_offsets(s.coarse_dims, s.z_radius)
-    windows = [("ne27000_z125", s.d["Z_win"], offs, s.d["Z_dinv"])]
-    del s
-    s = ImplicitGQSolver(deck, SolverConfig(**f32))
-    windows.append(("ne27000_z27", s.d["Z_win"], ws.window_offsets(s.coarse_dims, s.z_radius),
-                    s.d["Z_dinv"]))
-    del s
-    for seed, (tag, win, offs_w, dinv) in enumerate(windows):
-        line = cg_window(builds, probe_fn, tag, win, offs_w, dinv, 20261100 + seed)
-        ok &= line["all_bit_equal"]
+    def cg_line(*a):
+        line = cg_window(builds, probe_fn, *a)
+        ok["cg"] &= line["all_bit_equal"]
         _emit(line)
-    del windows, win, dinv
+
+    def parity_line(*a, **kw):
+        line = parity_checks(earlier, *a, **kw)
+        ok["parity"] &= line["all_bit_equal"]
+        _emit(line)
+
+    # NE27000: the interleaved explicit solver (G, G^T, row 12's class
+    # tables, the 125-slot Z), then both parity solvers (every parity_apply
+    # form; the implicit solver's 27-slot Z)
+    deck = cavity_deck(DECK_N, cluster=2.0, viscosity=0.01, dt=0.001)
+    windows, window_forms = [], []
+    if parts & {"stencils", "cg", "parity"}:
+        s = ExplicitBCHSolver(deck, SolverConfig(structured_layout="interleaved", **f32))
+        if "stencils" in parts:
+            _emit(stencil_checks(earlier, s))
+        windows.append(("ne27000_z125", s.d["Z_win"], ws.window_offsets(s.coarse_dims,
+                                                                         s.z_radius),
+                        s.d["Z_dinv"]))
+        if "parity" in parts:
+            window_forms = _window_forms(s, rng)
+        del s
+    i = ImplicitGQSolver(deck, SolverConfig(**f32))
+    windows.append(("ne27000_z27", i.d["Z_win"], ws.window_offsets(i.coarse_dims, i.z_radius),
+                    i.d["Z_dinv"]))
+    if "parity" in parts:
+        s = ExplicitBCHSolver(deck, SolverConfig(**f32))
+        parity_line("ne27000", pstl.parity_forms(s, i, rng), window_forms)
+        del s, window_forms
+    del i
+    if "cg" in parts:
+        for seed, (tag, win, offs_w, dinv) in enumerate(windows):
+            cg_line(tag, win, offs_w, dinv, 20261100 + seed)
+    del windows
     torch.cuda.empty_cache()
 
-    # the BFS band, then the NE85184 explicit Z
-    s = ExplicitBCHSolver(bfs_deck(*BFS_DIMS, dt=0.002, **BFS_KW), SolverConfig(**f32))
-    line = cg_window(builds, probe_fn, "bfs_band", s.d["Z_bwin"], s.z_offs, s.d["Z_dinv"],
-                     20261110)
-    ok &= line["all_bit_equal"]
-    _emit(line)
+    # the BFS band, then NE85184 (the explicit Z; every parity_apply form,
+    # and what the classes' different lengths cost the streamed K and K + A)
+    if "cg" in parts:
+        s = ExplicitBCHSolver(bfs_deck(*BFS_DIMS, dt=0.002, **BFS_KW), SolverConfig(**f32))
+        cg_line("bfs_band", s.d["Z_bwin"], s.z_offs, s.d["Z_dinv"], 20261110)
+        del s
+        torch.cuda.empty_cache()
+    ne85 = cavity_deck(NE85_N, cluster=2.0, viscosity=0.01, dt=5e-4)
+    s = ExplicitBCHSolver(ne85, SolverConfig(**f32))
+    if "cg" in parts:
+        cg_line("ne85184_z125", s.d["Z_win"], ws.window_offsets(s.coarse_dims, s.z_radius),
+                s.d["Z_dinv"], 20261120)
+    if "parity" in parts:
+        i = ImplicitGQSolver(ne85, SolverConfig(**f32))
+        parity_line("ne85184", pstl.parity_forms(s, i, rng), cut_forms=("k", "k_plus_a"))
+        del i
+        # a non-cubic box, whose coarse shifts differ by axis
+        box = box_cavity_deck(viscosity=0.01, dt=0.01)
+        parity_line("box534", pstl.parity_forms(ExplicitBCHSolver(box, SolverConfig(**f32)),
+                                            ImplicitGQSolver(box, SolverConfig(**f32)), rng))
     del s
-    torch.cuda.empty_cache()
-    s = ExplicitBCHSolver(cavity_deck(NE85_N, cluster=2.0, viscosity=0.01, dt=5e-4),
-                          SolverConfig(**f32))
-    line = cg_window(builds, probe_fn, "ne85184_z125", s.d["Z_win"],
-                     ws.window_offsets(s.coarse_dims, s.z_radius), s.d["Z_dinv"], 20261120)
-    ok &= line["all_bit_equal"]
-    _emit(line)
-    _emit(dict(phase="summary", cg_all_bit_equal=ok))
+    _emit(dict(phase="summary", cg_all_bit_equal=ok["cg"] if "cg" in parts else None,
+               parity_all_bit_equal=ok["parity"] if "parity" in parts else None))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

@@ -16,7 +16,7 @@ import numpy as np
 
 from cfd_with_cuda_tpu_torch.io.deck import Deck
 
-__all__ = ["clustered_axis", "cube_hex_mesh", "cavity_deck", "bfs_deck"]
+__all__ = ["clustered_axis", "cube_hex_mesh", "cavity_deck", "box_cavity_deck", "bfs_deck"]
 
 
 def clustered_axis(n_nodes: int, length: float = 1.0, cluster: float = 0.0) -> np.ndarray:
@@ -168,6 +168,39 @@ def cavity_deck(
     deck.bc_vel_faces = vel_faces
     deck.zero_pressure_node = zp
     deck.monitor_xyz = np.array([0.5, 0.5, 0.5])
+    return deck
+
+
+def box_cavity_deck(
+    ne_xyz=(5, 3, 4),
+    lengths=(1.0, 0.6, 0.8),
+    *,
+    lid_velocity=(1.0, 0.3, 0.0),
+    zero_pressure_xyz=(0.3, 0.2, 0.0),
+    monitor_xyz=(0.5, 0.3, 0.4),
+    **kw,
+) -> Deck:
+    """:func:`cavity_deck` on a box of ``ne_xyz`` elements and ``lengths``
+    (uniform spacing): the same walls, the lid at z = zmax moving at
+    ``lid_velocity``, the zero-pressure node the corner node nearest
+    ``zero_pressure_xyz``.  The default is a 5 x 3 x 4-element box, whose
+    coarse parity shifts differ by axis (a cube's are symmetric)."""
+    ex, ey, ez = ne_xyz
+    deck = cavity_deck(max(ne_xyz), lid_velocity=lid_velocity, **kw)
+    coords, conn = cube_hex_mesh(ex + 1, ey + 1, ez + 1, lengths=lengths)
+    fb = _boundary_faces((ex, ey, ez))
+    walls = np.concatenate([fb[k] for k in ("zmin", "ymin", "xmax", "ymax", "xmin")])
+    lid = fb["zmax"]
+    deck.title = f"3D Lid-driven cavity {ex}x{ey}x{ez}"
+    deck.coords, deck.conn = coords, conn
+    deck.ne, deck.ncn = conn.shape[0], coords.shape[0]
+    deck.bc_vel_faces = np.concatenate([
+        np.column_stack([walls, np.zeros(len(walls), np.int64)]),
+        np.column_stack([lid, np.ones(len(lid), np.int64)]),
+    ]).astype(np.int64)
+    deck.zero_pressure_node = int(np.argmin(((coords - np.asarray(zero_pressure_xyz)) ** 2)
+                                            .sum(axis=1)))
+    deck.monitor_xyz = np.asarray(monitor_xyz, dtype=np.float64)
     return deck
 
 

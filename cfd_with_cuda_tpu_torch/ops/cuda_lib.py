@@ -62,7 +62,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "parity_apply_f32": ("parity_apply", [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P]),
     "parity_apply_streamed_f32": ("parity_apply", [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I,
-                                                   _I, _P, _I, _I, _P]),
+                                                   _I, _P, _I, _I, _I, _P, _I, _I, _P]),
     "div_compact_f32": ("div_compact", [_P, _I, _P, _P, _P, _I, _P]),
     "div_compact_interleaved_f32": ("div_compact", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                                                     _I, _I, _P]),

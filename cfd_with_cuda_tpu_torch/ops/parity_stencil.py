@@ -50,8 +50,10 @@ __all__ = [
     "build_parity_apply_tables",
     "stream_field",
     "stream_runs",
+    "stream_schedule",
     "parity_apply",
     "parity_apply_plain",
+    "parity_forms",
     "parity_window_apply",
     "parity_window_apply_plain",
     "parity_div_apply",
@@ -310,8 +312,9 @@ def stream_field(x_shape, itemsize: int, pairs, pairs2=None) -> bool:
 
 def _route_for(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device,
                streamed: bool = False):
-    """The int32 route of the resident kernel, or (route, runs, n_runs) of
-    the streamed one, built at first use and cached with the route."""
+    """The int32 route of the resident kernel, or (route, runs, n_runs,
+    chan, schedule) of the streamed one, built at first use and cached with
+    the route."""
     build = _stream_tables if streamed else _route_table
     return _cached((id(pairs), id(pairs2), m1, m2, px, device, streamed),
                    lambda: build(pairs, pairs2, m1, m2, px, device), pairs, pairs2)
@@ -342,40 +345,78 @@ def _route_table(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device)
     return torch.tensor(flat, dtype=torch.int32, device=device)
 
 
-# the streamed kernel's staging geometry (csrc/parity_apply.cu kStreamQ,
-# kRunSpan): a block of 64 q, runs of dq in [lo, lo + 2]
+# the streamed kernel's geometry (csrc/parity_apply.cu kStreamQ, kRunSpan,
+# kStreamWarps, kStreamThreadQ, kHeads): blocks of 64 q, runs of dq in
+# [lo, lo + 2], CTAs of 4 warps, 2 consecutive q a thread (a warp's item is
+# all 64 q of a class), the route's 17 heads padded to 20 ints (16-byte
+# entries)
 STREAM_Q = 64
 RUN_SPAN = 2
-RUN_LEN = STREAM_Q + RUN_SPAN
+STREAM_WARPS = 4
+STREAM_THREAD_Q = 2
+STREAM_HEADS = 20
 
 
 def stream_runs(pairs, pairs2, m1: int, m2: int, px: int):
-    """Host half of the streamed kernel: ``(heads, entries, runs)``.
+    """Host half of the streamed kernel: ``(heads, entries, runs, chan)``.
 
     Each input class's distinct shifts are grouped, in increasing order,
-    into runs ``(p_in, lo)`` holding dq in [lo, lo + RUN_SPAN]; a block
-    starting at q0 stages run r's ``RUN_LEN`` values x[c, p_in, q0 + lo + k]
-    at ``(c * n_runs + r) * RUN_LEN + k``.  Every entry becomes ``(table, j,
-    dq, spos)`` with spos = r * RUN_LEN + dq - lo, the staged position of
-    x[0, p_in, q0 + dq] (its channel c at + c * n_runs * RUN_LEN), in the
-    resident route's order."""
-    heads, ents = _route_entries(pairs, pairs2, m1, m2, px)
-    runs, where = [], {}
+    into runs holding dq in [lo, lo + RUN_SPAN].  Run r is staged as an
+    aligned superset: ``runs[r] = (p_in, s, t, L)`` with s = lo - (lo mod 4),
+    L = round_up(lo mod 4 + STREAM_Q + RUN_SPAN, 4) values and t the sum of
+    the earlier runs' L; a block starting at q0 (a multiple of STREAM_Q)
+    stages x[c, p_in, q0 + s + k] at ``c * chan + t + k``, ``chan`` the sum
+    of every L, so each run starts 16-byte aligned in the field and in the
+    tile.  ``heads[2 p + tab]`` is the first entry of class p's table tab
+    (``heads[16]`` the total, padded to STREAM_HEADS ints); every entry is
+    ``(j, p_in, dq, spos)``, spos = t + dq - s the staged position of
+    x[0, p_in, q0 + dq], in the resident route's order."""
+    h9, ents = _route_entries(pairs, pairs2, m1, m2, px)
+    heads = []
+    for p in range(8):
+        heads += [h9[p], h9[p] + sum(1 for e in ents[h9[p]:h9[p + 1]] if e[0] == 0)]
+    heads += [h9[8]] * (STREAM_HEADS - len(heads))
+    runs, where, chan = [], {}, 0
     for pp in sorted({e[2] for e in ents}):
         lo = None
         for dq in sorted({e[3] for e in ents if e[2] == pp}):
             if lo is None or dq > lo + RUN_SPAN:
                 lo = dq
-                runs.append((pp, lo))
-            where[pp, dq] = (len(runs) - 1) * RUN_LEN + dq - lo
-    return heads, [(tab, j, dq, where[pp, dq]) for tab, j, pp, dq in ents], runs
+                start, n = lo - lo % 4, _round_up(lo % 4 + STREAM_Q + RUN_SPAN, 4)
+                runs.append((pp, start, chan, n))
+                chan += n
+            where[pp, dq] = runs[-1][2] + dq - runs[-1][1]
+    return heads, [(j, pp, dq, where[pp, dq]) for _, j, pp, dq in ents], runs, chan
+
+
+def stream_schedule(heads):
+    """The streamed kernel's warp schedule, the same for every block:
+    ``(offsets, items)``.  A block's work is cut into items (class p,
+    segment g of a warp's 32 * STREAM_THREAD_Q q), ``item = p * segs + g``
+    with segs = STREAM_Q / (32 STREAM_THREAD_Q), of cost len(route p) (both
+    tables, from :func:`stream_runs`' heads); the items, longest first (then
+    in item order), each go to the one of STREAM_WARPS warps with the least
+    cost so far (the lowest such warp).  Warp w sums
+    ``items[offsets[w]:offsets[w + 1]]`` in that order."""
+    segs, warps = STREAM_Q // (32 * STREAM_THREAD_Q), STREAM_WARPS
+    cost = [heads[2 * p + 2] - heads[2 * p] for p in range(8)]
+    load, lists = [0] * warps, [[] for _ in range(warps)]
+    for item in sorted(range(8 * segs), key=lambda it: (-cost[it // segs], it)):
+        w = min(range(warps), key=lambda v: (load[v], v))
+        lists[w].append(item)
+        load[w] += cost[item // segs]
+    offsets = [0]
+    for lst in lists:
+        offsets.append(offsets[-1] + len(lst))
+    return offsets, [it for lst in lists for it in lst]
 
 
 def _stream_tables(pairs, pairs2, m1: int, m2: int, px: int, device: torch.device):
-    heads, ents, runs = stream_runs(pairs, pairs2, m1, m2, px)
-    route = torch.tensor(heads + [v for e in ents for v in e], dtype=torch.int32, device=device)
-    run_t = torch.tensor([v for r in runs for v in r] or [0], dtype=torch.int32, device=device)
-    return route, run_t, len(runs)
+    heads, ents, runs, chan = stream_runs(pairs, pairs2, m1, m2, px)
+    offsets, items = stream_schedule(heads)
+    as_t = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    return (as_t(heads + [v for e in ents for v in e]), as_t([v for r in runs for v in r] or [0]),
+            len(runs), chan, as_t(offsets + items))
 
 
 def _launch_name(x, wc2, streamed: bool) -> str:
@@ -412,10 +453,12 @@ def _apply_kernel(wc, x, pairs, co, wc2, pairs2, stream_x):
     cw2, m2 = (wc2.shape[0], wc2.shape[1]) if wc2 is not None else (1, 0)
     common = (cuda_lib.ptr(wc), cw, m, cuda_lib.ptr(wc2), cw2, m2, cuda_lib.ptr(x), c, px)
     if stream_x:
-        route, runs, n_runs = _route_for(pairs, pairs2, m, m2, px, x.device, streamed=True)
+        route, runs, n_runs, chan, sched = _route_for(pairs, pairs2, m, m2, px, x.device,
+                                                      streamed=True)
         err = cuda_lib.function("parity_apply_streamed_f32")(
-            *common, cuda_lib.ptr(route), cuda_lib.ptr(runs), n_runs, RUN_LEN,
-            cuda_lib.ptr(y), co, sp, cuda_lib.stream_ptr(x.device),
+            *common, cuda_lib.ptr(route), cuda_lib.ptr(runs), n_runs, chan, cuda_lib.ptr(sched),
+            STREAM_Q, STREAM_WARPS, STREAM_THREAD_Q, cuda_lib.ptr(y), co, sp,
+            cuda_lib.stream_ptr(x.device),
         )
     else:
         route = _route_for(pairs, pairs2, m, m2, px, x.device)
@@ -692,3 +735,26 @@ def diag_plane_indices(pairs):
         assert len(hits) == 1, (p, hits)
         out.append(hits[0])
     return tuple(out)
+
+
+def parity_forms(s, i, rng):
+    """Inputs of every :func:`parity_apply` form of the explicit (``s``) and
+    implicit (``i``) parity solvers, each (name, wc, x, pairs, wc2, pairs2)
+    on fields and convection planes drawn from ``rng`` on the solvers'
+    device: K, G, K + A (explicit), MK + A and M (implicit).  For checking
+    and timing the kernels (``compare_build``, ``chip_smoke.py``, the
+    tests); no solver calls it."""
+    dev, sp = s.device, s.sp_c
+    u = torch.from_numpy(rng.standard_normal((3, 8, sp)).astype(np.float32)).to(dev)
+    p = torch.zeros(1, 1, sp, device=dev)
+    p[0, 0, : s.nnp] = torch.from_numpy(rng.standard_normal(s.nnp).astype(np.float32))
+    ae = rng.standard_normal((27, 27, int(np.prod(s.elem_dims)))).astype(np.float32) * 1e-3
+    ae_e = embed_elem_table(ae, s.elem_dims, s.coarse_dims, sp)
+    planes = conv_planes_from_ae(
+        torch.from_numpy(np.ascontiguousarray(ae_e[list(s.conv_i_order)])).to(dev),
+        groups=s.conv_groups)
+    return [("k", s.d["Kp"], u, s.k_pairs, None, None),
+            ("g", s.d["Gp"], p, s.g_pairs, None, None),
+            ("k_plus_a", s.d["Kp"], u, s.k_pairs, planes, s.conv_pairs2),
+            ("mk_plus_a", i.d["MKp"], u, i.a_pairs, None, None),
+            ("m", i.d["Mp"], u, i.m_pairs, None, None)]

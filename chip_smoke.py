@@ -71,7 +71,10 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    and MK + A launches held against the history, 3 steps against the plain
    path), and the compact G^T at those shapes.  At NE27000 the streamed
    form is forced in ``kernels`` and held bit for bit against the resident
-   one;
+   one; ``parity_apply_box``: both forms of every ``parity_apply`` form on
+   a non-cubic 5 x 3 x 4-element box's routes (``box_cavity_deck()``,
+   coarse shifts that differ by axis), against the plain version and bit
+   for bit against each other;
 8. the unstructured path of both solvers on the backward-facing step
    ``bfs_deck(96, 40, 40)`` (138,400 hexes, 1,143,153 velocity and 147,477
    pressure nodes; natural outflow): ``bfs_setup`` (the explicit solver's
@@ -90,7 +93,10 @@ result line).  The last lines are the ``kernels`` summary, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  In the summary a
 row's ``ms``, ``plain_ms`` and ``bound_ms`` are per launch, the unit of its
 ``launches``: ``cg_iter`` and ``cg_iter_banded`` per launch of a group of
-UNROLL iterations (the phase lines give the same per iteration).
+UNROLL iterations (the phase lines give the same per iteration).  The
+``parity_apply`` rows' ``ms`` is device time (``queued_ms``: calls queued
+behind other device work, so the wrapper's host work does not enter); the
+phase lines give the CUDA-event time per call beside it (``event_ms``).
 """
 
 from __future__ import annotations
@@ -453,7 +459,8 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
         if pstl.stream_field(x.shape, 4, pairs, pairs2) or not torch.equal(y_s, y):
             raise AssertionError(f"{name}: streamed form differs from the resident form")
         del y_s
-        ms = time_ms(lambda: pstl.parity_apply(wc, x, **kw), 20)
+        kernel = lambda: pstl.parity_apply(wc, x, **kw)
+        streamed = lambda: pstl.parity_apply(wc, x, stream_x=True, **kw)
         plain_ms = time_ms(lambda: pstl.parity_apply_plain(wc, x, **kw), 3)
         lib_ms, lib_err = None, None
         if lib_fn is not None:
@@ -465,11 +472,11 @@ def phase_kernels(solver, pstl, cuda_lib, fused_cg_mod, window_stencil) -> dict:
         # a table shared over the channels is used once per channel
         flops = sum(2 * nnz(t) * co // t.shape[0] for t in tables)
         b_ms, b_by = bound(nbytes, flops)
-        results[name] = dict(max_abs_err=err, err_rel=rel, tol=APPLY_TOL, ms=ms,
-                             streamed_bit_equal=True,
-                             streamed_ms=time_ms(lambda: pstl.parity_apply(wc, x, stream_x=True,
-                                                                           **kw), 20),
-                             plain_ms=plain_ms, library_ms=lib_ms, library_abs_err=lib_err,
+        results[name] = dict(max_abs_err=err, err_rel=rel, tol=APPLY_TOL,
+                             ms=queued_ms(kernel, 20), event_ms=time_ms(kernel, 20),
+                             streamed_bit_equal=True, streamed_ms=queued_ms(streamed, 20),
+                             streamed_event_ms=time_ms(streamed, 20), plain_ms=plain_ms,
+                             library_ms=lib_ms, library_abs_err=lib_err,
                              bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
                              stream_bound_ms=bound(4 * (sum(t.numel() for t in tables)
                                                         + fields), 0)[0])
@@ -1592,8 +1599,9 @@ def phase_window_apply(xs, pstl, window_stencil, stencil, cuda_lib) -> dict:
         nz = nnz(wp)
         fields = x.numel() + y.numel()
         b_ms, b_by = bound(4 * (nz + fields), 2 * nz * x.shape[0])
+        kernel = lambda: pstl.parity_window_apply(wp, x, pairs=pairs)
         out = dict(max_abs_err=err, err_rel=rel, tol=APPLY_TOL,
-                   ms=time_ms(lambda: pstl.parity_window_apply(wp, x, pairs=pairs), 20),
+                   ms=queued_ms(kernel, 20), event_ms=time_ms(kernel, 20),
                    plain_ms=time_ms(lambda: pstl.parity_window_apply_plain(wp, x, pairs=pairs), 3),
                    library_ms=time_ms(lambda: torch.sparse.mm(a, xt), 20),
                    library_abs_err=lib_err, bound_ms=b_ms, bound_by=b_by, bytes=4 * (nz + fields),
@@ -1899,8 +1907,9 @@ def interleaved_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, wi
 def _streamed_check(pstl, wc, x, pairs, wc2=None, pairs2=None) -> dict:
     """One launch form of the streamed-field kernel (TPU kernel row 3) on a
     velocity field: bit for bit against the resident form, against the plain
-    version within APPLY_TOL; device ms of the streamed, resident and plain
-    forms and of cuSPARSE CSR of the same operator; the byte bound counting
+    version within APPLY_TOL; device ms (``queued_ms``) and CUDA-event ms per
+    call of the streamed and resident forms, the plain version's ms and
+    cuSPARSE CSR's of the same operator; the byte bound counting
     the nonzero weights (the kernels stream the whole tables:
     ``stream_bound_ms``)."""
     import torch
@@ -1925,10 +1934,12 @@ def _streamed_check(pstl, wc, x, pairs, wc2=None, pairs2=None) -> dict:
     nz = sum(nnz(t) for t in tables)
     fields = x.numel() + y.numel()
     b_ms, b_by = bound(4 * (nz + fields), 2 * nz * 3)
+    streamed = lambda: pstl.parity_apply(wc, x, stream_x=True, **kw)
+    resident = lambda: pstl.parity_apply(wc, x, stream_x=False, **kw)
     out = dict(
         bit_equal_resident=True, max_abs_err=err, err_rel=rel, tol=APPLY_TOL,
-        ms=time_ms(lambda: pstl.parity_apply(wc, x, stream_x=True, **kw), 20),
-        resident_ms=time_ms(lambda: pstl.parity_apply(wc, x, stream_x=False, **kw), 20),
+        ms=queued_ms(streamed, 20), event_ms=time_ms(streamed, 20),
+        resident_ms=queued_ms(resident, 20), resident_event_ms=time_ms(resident, 20),
         plain_ms=time_ms(lambda: pstl.parity_apply_plain(wc, x, **kw), 3),
         library_ms=time_ms(lambda: torch.sparse.mm(a, xt), 20), library_abs_err=lib_err,
         bound_ms=b_ms, bound_by=b_by, bytes=4 * (nz + fields), flops=2 * nz * 3, nnz=nz,
@@ -2113,6 +2124,48 @@ def ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_st
     ]
 
 
+def phase_parity_box(pstl, box_cavity_deck, ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy,
+                     SolverConfig) -> dict:
+    """Both field forms of ``parity_apply`` on the routes of a non-cubic box
+    (``box_cavity_deck()``: 5 x 3 x 4 elements, coarse dims (6, 4, 5), so
+    its coarse shifts differ by axis), K, G, K + A (explicit parity solver),
+    MK + A and M (implicit): each form against its plain version within
+    APPLY_TOL, the resident and streamed forms bit for bit; the phase's own
+    seconds, setup included."""
+    import numpy as np
+    import torch
+
+    t0 = time.time()
+    cfg = SolverConfig(dtype_policy=DTypePolicy.F32)
+    deck = box_cavity_deck(viscosity=0.01, dt=0.01)
+    s, i = ExplicitBCHSolver(deck, cfg), ImplicitGQSolver(deck, cfg)
+    if s.layout != "parity" or i.layout != "parity":
+        raise AssertionError(f"box: the solvers took {s.layout}, {i.layout}")
+    checks = {}
+    forms = pstl.parity_forms(s, i, np.random.default_rng(20261201))
+    for name, wc, x, pairs, wc2, pairs2 in forms:
+        kw = dict(pairs=pairs, co=3, wc2=wc2, pairs2=pairs2)
+        y = pstl.parity_apply(wc, x, stream_x=False, **kw)
+        y_s = pstl.parity_apply(wc, x, stream_x=True, **kw)
+        y_plain = pstl.parity_apply_plain(wc, x, **kw)
+        y_abs = pstl.parity_apply_plain(wc.abs(), x.abs(), pairs=pairs, co=3,
+                                        wc2=None if wc2 is None else wc2.abs(), pairs2=pairs2)
+        torch.cuda.synchronize()
+        err, rel = _apply_err(y, y_plain, y_abs)
+        bits = torch.equal(y.view(torch.int32), y_s.view(torch.int32))
+        if not bits or not rel <= APPLY_TOL:
+            raise AssertionError(f"box {name}: forms bit-equal {bits}, vs plain {rel:.3e} > "
+                                 f"{APPLY_TOL}")
+        checks[name] = dict(max_abs_err=err, err_rel=rel, streamed_bit_equal=bits,
+                            entries=[len(c) + (0 if pairs2 is None else len(pairs2[p]))
+                                     for p, c in enumerate(pairs)])
+    out = dict(phase="parity_apply_box", deck="box_cavity_deck() (5 x 3 x 4 elements)",
+               coarse_dims=list(s.coarse_dims), sp=s.sp_c, tol=APPLY_TOL, checks=checks,
+               seconds=time.time() - t0)
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck-n", type=int, default=30, help="cavity elements per edge (30: NE27000)")
@@ -2145,7 +2198,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
+    from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, box_cavity_deck, cavity_deck
     from cfd_with_cuda_tpu_torch.ops import (
         cuda_lib,
         fused_cg,
@@ -2170,6 +2223,8 @@ def main() -> int:
     rows += ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
                         ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
     torch.cuda.empty_cache()
+    phase_parity_box(parity_stencil, box_cavity_deck, ExplicitBCHSolver, ImplicitGQSolver,
+                     DTypePolicy, SolverConfig)
 
     # ---- the unstructured path of both solvers on the backward-facing step
     dims = tuple(int(v) for v in args.bfs_dims.split("x"))

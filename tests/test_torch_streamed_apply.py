@@ -30,9 +30,10 @@ torch.set_num_threads(1)
 # f32 tolerance against the JAX kernel, as tests/test_torch_ops.py: the same
 # terms in the same order, up to one rounding per term (FMA or not)
 APPLY_REL = 2e-6
-# the staged block of csrc/parity_apply.cu must fit a Hopper block's shared
-# memory (227 KB), double-buffered
-SMEM_PER_BLOCK = 232_448
+# the staged block of csrc/parity_apply.cu must fit a Hopper SM's shared
+# memory (228 KB, 1 KB of it reserved per resident CTA) once for each of
+# the 3 CTAs an SM that the streamed kernel runs (kStreamBlocks)
+SMEM_PER_SM, SMEM_CTA_RESERVE, STREAM_CTAS = 233_472, 1024, 3
 
 
 @pytest.fixture(scope="module")
@@ -181,25 +182,33 @@ def _emulate_staged_reads(pairs, pairs2, m1, m2, px, sp, c, seed, blocks=None):
     """Stage each block (default: all) as csrc/parity_apply.cu does (numpy)
     and check that every route entry's staged value is x[c, p_in, q + dq]
     for each q of the block where that lies inside [0, sp); the entries keep
-    the resident route's order.  Returns the runs."""
-    heads, ents, runs = tps.stream_runs(pairs, pairs2, m1, m2, px)
-    _, plain_ents = tps._route_entries(pairs, pairs2, m1, m2, px)
-    assert heads[8] == len(ents) == len(plain_ents)
+    the resident route's order, each class's first table before its second.
+    Returns the runs and the staged values per channel."""
+    heads, ents, runs, chan = tps.stream_runs(pairs, pairs2, m1, m2, px)
+    plain_heads, plain_ents = tps._route_entries(pairs, pairs2, m1, m2, px)
+    assert heads[16] == len(ents) == len(plain_ents) and len(heads) == tps.STREAM_HEADS
+    for p in range(8):
+        assert heads[2 * p] == plain_heads[p] <= heads[2 * p + 1] <= plain_heads[p + 1]
+        assert all(e[0] == (k >= heads[2 * p + 1])
+                   for k, e in enumerate(plain_ents[plain_heads[p]:plain_heads[p + 1]],
+                                         plain_heads[p]))
+    assert chan == sum(n for _, _, _, n in runs) and chan % 4 == 0
+    assert all(s % 4 == 0 and t % 4 == 0 for _, s, t, _ in runs)
     x = np.random.default_rng(seed).standard_normal((c, px, sp)).astype(np.float32)
-    chan = len(runs) * tps.RUN_LEN
-    k, i = np.arange(tps.RUN_LEN), np.arange(tps.STREAM_Q)
+    i = np.arange(tps.STREAM_Q)
     for q0 in range(0, sp, tps.STREAM_Q) if blocks is None else blocks:
         tile = np.full((c, chan), np.nan, np.float32)
-        for r, (pp, lo) in enumerate(runs):
-            g = q0 + lo + k
+        for pp, s, t, n in runs:
+            k = np.arange(n)
+            g = q0 + s + k
             ok = (g >= 0) & (g < sp)
-            tile[:, r * tps.RUN_LEN + k[ok]] = x[:, pp, g[ok]]
-        for (tab, j, dq, spos), (tab0, j0, pp, dq0) in zip(ents, plain_ents):
-            assert (tab, j, dq) == (tab0, j0, dq0)
+            tile[:, t + k[ok]] = x[:, pp, g[ok]]
+        for (j, pp, dq, spos), (_, j0, pp0, dq0) in zip(ents, plain_ents):
+            assert (j, pp, dq) == (j0, pp0, dq0)
             qs = q0 + i + dq
             ok = (qs >= 0) & (qs < sp)
             np.testing.assert_array_equal(tile[:, spos + i[ok]], x[:, pp, qs[ok]])
-    return runs
+    return runs, chan
 
 
 def test_stream_runs_cover_every_read_small(jax_side):
@@ -216,17 +225,17 @@ def test_stream_runs_at_ne85184_fit_shared_memory(jax_side):
     """At NE85184 every coarse shift dq = dx + dy cx + dz cx cy groups into
     9 runs per input class (72 for the velocity, 9 for the pressure), the
     staged reads are right on the first, a middle and the last block, and
-    the double-buffered tile fits a block's shared memory."""
+    the tiles of 3 CTAs fit an SM's shared memory."""
     _, s = jax_side
     pairs, cdims, sp = _window_route(tps, 44, 2)
     _, _, pairs2 = tps.build_conv_plane_route(s.local_off, cdims)
     blocks = (0, sp // 2, sp - tps.STREAM_Q)
-    assert len(_emulate_staged_reads(pairs, None, 125, 0, 8, sp, 3, 34, blocks)) == 72
-    runs = _emulate_staged_reads(pairs, pairs2, 125, 729, 8, sp, 3, 35, blocks)
+    assert len(_emulate_staged_reads(pairs, None, 125, 0, 8, sp, 3, 34, blocks)[0]) == 72
+    runs, chan = _emulate_staged_reads(pairs, pairs2, 125, 729, 8, sp, 3, 35, blocks)
     assert len(runs) == 72
-    assert 2 * 3 * len(runs) * tps.RUN_LEN * 4 <= SMEM_PER_BLOCK
+    assert STREAM_CTAS * (3 * chan * 4 + SMEM_CTA_RESERVE) <= SMEM_PER_SM
     g_pairs = tuple(tuple((j, 0, dq) for j, _, dq in cls) for cls in pairs)
-    assert len(_emulate_staged_reads(g_pairs, None, 125, 0, 1, sp, 1, 36, blocks)) == 9
+    assert len(_emulate_staged_reads(g_pairs, None, 125, 0, 1, sp, 1, 36, blocks)[0]) == 9
 
 
 @pytest.mark.cuda
