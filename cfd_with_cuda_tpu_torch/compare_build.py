@@ -16,7 +16,10 @@ into ``_build/against/`` and calls both builds on the same inputs
   cluster=2.0)`` and seeded fields: the largest |difference|, bit equality
   (and value equality, the sign of an exact zero apart), and each build's
   device ms (CUDA events, the calls queued behind other device work) and
-  ms per call (CUDA events) over REPS launches;
+  ms per call (CUDA events) over REPS launches; then the window SPMV (row
+  10) of both interleaved solvers, K, K + A, MK + A, M and f64 K
+  (``spmv_checks``): the earlier build's full-window kernel on the full
+  tables, this build's on the class-compacted ones, the same comparison;
 * parity: every ``parity_apply`` form (rows 1-3: K, G and K + A of the
   explicit parity solver, MK + A and M of the implicit one, on seeded
   fields and convection planes) in both field forms, resident and
@@ -51,10 +54,8 @@ into ``_build/against/`` and calls both builds on the same inputs
   barrier and the two reductions of an iteration.
 
 Every time in turns: earlier, this, this, earlier.  Prints one JSON line
-per part, then the card's name and power limit.  Needs one CUDA card.  The
-earlier build's streamed ``parity_apply`` is driven through the interface
-and tables it had before the warp schedule (``_EARLIER_SIGNATURES``,
-``_earlier_stream_tables``); this build's runs through the wrapper.
+per part, then the card's name and power limit.  Needs one CUDA card.  Both
+builds are driven through this checkout's C interface and host tables.
 """
 
 from __future__ import annotations
@@ -116,17 +117,15 @@ def build_tools(checkout: Path) -> tuple[dict[str, ctypes.CDLL], ctypes.CDLL]:
 
 
 class Build:
-    """One build's C entry points, typed by its interface (``signatures``
-    over the current one's, for an earlier build whose interface differs)."""
+    """One build's C entry points, typed by this checkout's interface."""
 
-    def __init__(self, label: str, libs: dict[str, ctypes.CDLL], signatures=None):
+    def __init__(self, label: str, libs: dict[str, ctypes.CDLL]):
         self.label, self.libs = label, libs
-        self.signatures = {**cuda_lib._SIGNATURES, **(signatures or {})}
         self._fns = {}
 
     def fn(self, name: str):
         if name not in self._fns:
-            source, argtypes = self.signatures[name]
+            source, argtypes = cuda_lib._SIGNATURES[name]
             f = getattr(self.libs[source], name)
             f.restype, f.argtypes = ctypes.c_int, argtypes
             self._fns[name] = f
@@ -424,38 +423,50 @@ def stencil_checks(earlier: Build, s) -> dict:
     return dict(phase="stencils", deck_n=DECK_N, s_pad=n, sp=sp, checks=out)
 
 
-# The streamed kernel's C interface and host tables before the warp schedule
-# (runs of dq in [lo, lo + 2] staged as 66 values, 4-byte copies).  The
-# earlier build is driven through them: this checkout's wrapper builds other
-# tables for another interface.  This code goes once no earlier build of
-# interest has that interface.
-_EARLIER_RUN_SPAN, _EARLIER_RUN_LEN = 2, 66
-_EARLIER_SIGNATURES = {
-    "parity_apply_streamed_f32": ("parity_apply", [_P, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P,
-                                                   _I, _I, _P, _I, _I, _P]),
-}
+def spmv_checks(earlier: Build, xs, isolver) -> dict:
+    """The window SPMV of every solver form (``window_stencil.spmv_forms``: K,
+    K + A, MK + A, M, and K in f64) on the interleaved solvers' NE27000
+    tables: the earlier build's full-window kernel on the full tables against
+    this build's compact kernel (``window_spmv_compact``) on the compact
+    ones, with each table's bytes and the bounds (3.35 TB/s, as
+    ``chip_smoke.py`` counts them: the nonzero weights, the compact table,
+    the full table, each with the fields read once and the output written
+    once)."""
+    rng = np.random.default_rng(20261030)
+    forms = ws.spmv_forms(xs, isolver, rng)
+    _, k_full, k_comp, k_offs, u = forms[0]
+    forms.append(("f64_k", k_full.double(), k_comp.double(), k_offs, u.double()))
+    fine, ptr, dev = xs.fine_dims, cuda_lib.ptr, xs.device
+    stream = cuda_lib.stream_ptr(dev)
+    out = {}
+    for name, full, comp, offs, x in forms:
+        n, b = x.shape[-1], x.element_size()
+        tag = "f64" if x.dtype == torch.float64 else "f32"
+        fn = earlier.fn(f"window_stencil_{tag}")
+        offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        y = torch.empty_like(x)
 
+        def earlier_spmv(full=full, x=x, offs_t=offs_t, y=y, fn=fn):
+            cuda_lib.check(fn(0, ptr(full), ptr(x), x.shape[0], ptr(offs_t), offs_t.numel(),
+                              ptr(y), n, stream), "earlier window_stencil")
+            return y
 
-def _earlier_stream_tables(pairs, pairs2, m1, m2, px, dev):
-    """(route, runs, n_runs) of the earlier streamed kernel."""
-    heads, ents = pstl._route_entries(pairs, pairs2, m1, m2, px)
-    runs, where = [], {}
-    for pp in sorted({e[2] for e in ents}):
-        lo = None
-        for dq in sorted({e[3] for e in ents if e[2] == pp}):
-            if lo is None or dq > lo + _EARLIER_RUN_SPAN:
-                lo = dq
-                runs.append((pp, lo))
-            where[pp, dq] = (len(runs) - 1) * _EARLIER_RUN_LEN + dq - lo
-    flat = heads + [v for tab, j, pp, dq in ents for v in (tab, j, dq, where[pp, dq])]
-    return (torch.tensor(flat, dtype=torch.int32, device=dev),
-            torch.tensor([v for r in runs for v in r] or [0], dtype=torch.int32, device=dev),
-            len(runs))
+        fields = b * 2 * x.numel()
+        out[name] = dict(
+            _compare(earlier_spmv, lambda comp=comp, x=x, offs=offs: ws.window_spmv_compact(
+                comp, x, fine, offsets=offs, trim=False), REPS),
+            compact_table_equal=torch.equal(comp, ws.compact_spmv_window(full, offs, fine)),
+            full_weight_bytes=b * full.numel(), compact_weight_bytes=b * comp.numel(),
+            bound_ms=(b * int(torch.count_nonzero(comp)) + fields) / 3.35e12 * 1e3,
+            stream_bound_ms=(b * comp.numel() + fields) / 3.35e12 * 1e3,
+            full_stream_bound_ms=(b * full.numel() + fields) / 3.35e12 * 1e3)
+    return dict(phase="spmv", deck_n=DECK_N, s_pad=xs.s_pad, checks=out,
+                all_bit_equal=all(v["bit_equal"] for v in out.values()))
 
 
 def _earlier_apply(build: Build, wc, x, pairs, co, wc2, pairs2, streamed: bool):
     """A call of the earlier build's parity_apply (``streamed``: its streamed
-    form) into a buffer allocated once."""
+    form) into a buffer allocated once, on this checkout's tables."""
     ptr, dev = cuda_lib.ptr, x.device
     c, px, sp = x.shape
     m2 = 0 if wc2 is None else wc2.shape[1]
@@ -464,18 +475,22 @@ def _earlier_apply(build: Build, wc, x, pairs, co, wc2, pairs2, streamed: bool):
     y = torch.empty((co, 8, sp), dtype=x.dtype, device=dev)
     stream = cuda_lib.stream_ptr(dev)
     if streamed:
-        route, runs, n_runs = _earlier_stream_tables(pairs, pairs2, wc.shape[1], m2, px, dev)
+        route, runs, n_runs, chan, sched = pstl._stream_tables(pairs, pairs2, wc.shape[1], m2,
+                                                               px, dev)
         fn = build.fn("parity_apply_streamed_f32")
-        args = (*common, ptr(route), ptr(runs), n_runs, _EARLIER_RUN_LEN, ptr(y), co, sp, stream)
+        args = (*common, ptr(route), ptr(runs), n_runs, chan, ptr(sched), pstl.STREAM_Q,
+                pstl.STREAM_WARPS, pstl.STREAM_THREAD_Q, ptr(y), co, sp, stream)
+        bufs = (route, runs, sched, y)
     else:
         route = pstl._route_table(pairs, pairs2, wc.shape[1], m2, px, dev)
         fn = build.fn("parity_apply_f32")
         args = (*common, ptr(route), ptr(y), co, sp, stream)
+        bufs = (route, y)
 
     def run():
         cuda_lib.check(fn(*args), "earlier parity_apply")
         return y
-    run.buffers = (route, runs, y) if streamed else (route, y)   # alive as long as the call is
+    run.buffers = bufs   # alive as long as the call is
     return run
 
 
@@ -609,7 +624,7 @@ def main() -> int:
     parts = set(args.parts)
 
     against, probe = build_tools(args.against)
-    earlier = Build("earlier", against, _EARLIER_SIGNATURES)
+    earlier = Build("earlier", against)
     probe_fn = probe.cg_probe_f32
     probe_fn.restype, probe_fn.argtypes = ctypes.c_int, _PROBE_SIGNATURE
     cuda_lib.build_all()
@@ -639,6 +654,11 @@ def main() -> int:
         s = ExplicitBCHSolver(deck, SolverConfig(structured_layout="interleaved", **f32))
         if "stencils" in parts:
             _emit(stencil_checks(earlier, s))
+            i = ImplicitGQSolver(deck, SolverConfig(structured_layout="interleaved", **f32))
+            line = spmv_checks(earlier, s, i)
+            ok["spmv"] = line["all_bit_equal"]
+            _emit(line)
+            del i
         windows.append(("ne27000_z125", s.d["Z_win"], ws.window_offsets(s.coarse_dims,
                                                                          s.z_radius),
                         s.d["Z_dinv"]))
@@ -681,7 +701,8 @@ def main() -> int:
                                             ImplicitGQSolver(box, SolverConfig(**f32)), rng))
     del s
     _emit(dict(phase="summary", cg_all_bit_equal=ok["cg"] if "cg" in parts else None,
-               parity_all_bit_equal=ok["parity"] if "parity" in parts else None))
+               parity_all_bit_equal=ok["parity"] if "parity" in parts else None,
+               spmv_all_bit_equal=ok.get("spmv")))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

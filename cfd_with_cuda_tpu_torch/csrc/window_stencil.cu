@@ -19,6 +19,10 @@
 //         y[0, s] += (W[0,k,s] x[0,.] + W[1,k,s] x[1,.]) + W[2,k,s] x[2,.]
 //   GRAD  (grad_compact_kernel) W (3, nk, n), x (1, n):
 //         y[d, s] += W[d, j, s] * x[0, s + off_{c(s), j}],  j < count_{c(s)}
+//   SPMV on the class-compacted, class-major table (spmv_compact_kernel,
+//         what the solvers launch for K, K + A, MK + A and M):
+//         y[c, s] += W_b[j, r] * x[c, s + off_{b, j}],  j < count_b
+//         for the r-th row s of block b (below)
 //
 // (DIV: the directions summed first, then added to the running sum, as the
 // Pallas body's jnp.sum then acc + ...).
@@ -48,6 +52,37 @@
 // order.  A dropped term of the full window was fma(0, x, acc) = acc, so
 // the result is the full-window sum's bit for bit (up to the sign of an
 // exact zero).
+//
+// SPMV on the class-compacted, class-major table.  The solvers' K, K + A,
+// MK + A and M are Q2 operators: a row whose fine coordinate is even on an
+// axis (a node on an element face line) couples to shifts -2..2 there, an
+// odd one (inside one element) to -1..1, so a row of parity class c keeps
+// 125, 75, 45 or 27 of the 125 slots for 0 to 3 odd axes, 51 % of the full
+// table at NE27000 (ops/window_stencil.py::compact_spmv_window, which
+// checks that every dropped weight is 0; the padding rows s >= S keep
+// offset 0 alone).  The table is class-major: block b < 8 holds class b's
+// rows (its sub-grid, flat order) as (count_b, rows_b), slot-major, block 8
+// the padding rows, 58.8 MB at NE27000 f32 against the full 113.7 MB: that
+// stream bounds it (0.0192 ms at 3.35 TB/s, the fields included).  A CTA
+// takes kSpmvThreads consecutive rows of one block, so its slot count is
+// uniform and its (<= 125) offsets sit in shared memory, read by a warp as
+// one broadcast; neighbouring lanes take neighbouring rows, so the weight
+// loads are coalesced (and bypass L1: each weight is read once) and the
+// field loads stride 2 along x, from L2 (3 x 0.9 MB).  A thread's sum is
+// one chain of up to 125 multiply-adds, so its loads are issued well ahead
+// of them: the slot loop runs in batches of kBatch, and
+// a batch issues its cx x kBatch field loads (zero outside [0, nx)) and
+// the next batch's kBatch weight loads before its own multiply-adds, which
+// run in slot order, each rounded once (fma_rn), as the full window's
+// acc += w * x compiles (its SASS has one FFMA / DFMA a term).  On an H100
+// this reads faster than the same loop that loads a batch's weights after
+// the previous batch's multiply-adds; tuning builds (not kept) that held 2
+// or 3 batches of weights ahead, the next batch's field values too, 4 to 32
+// slots a batch, or loaded the weights with ld.global.cs or through L1 read
+// no faster, and 128 threads a CTA about as fast as 256.  A dropped slot
+// was fma(0, x, acc) = acc there, so the result is the full window's bit
+// for bit, up to the sign of an exact zero.  The output is written at the
+// row's own position s in the interleaved field.
 #include <cuda_runtime.h>
 
 namespace {
@@ -57,6 +92,10 @@ constexpr int kMaxC = 3;
 constexpr int kClasses = 8;
 constexpr int kMaxSlots = 27;   // the even class of a radius-2 window: 3 x 3 x 3
 constexpr int kChunk = 9;       // slots whose loads are issued together
+constexpr int kSpmvThreads = 128;  // the compact SPMV's CTA
+constexpr int kBatch = 8;       // compact SPMV slots whose loads are issued together
+constexpr int kSpmvBlocks = 9;  // the compact SPMV table's blocks: 8 classes, the padding rows
+constexpr int kMaxWindow = 125; // slots of a radius-2 window
 enum Mode { kSpmv = 0, kDiv = 2 };   // the wrapper's mode numbers; GRAD is grad_compact_kernel
 
 // the multiply-add of a GRAD term, rounded once, as the full window's
@@ -144,6 +183,131 @@ __global__ void __launch_bounds__(kThreads) grad_compact_kernel(
   y[2 * plane + s] = acc2;
 }
 
+// one block of the compact SPMV table: entry base, rows, slot count, class
+// (-1: the padding rows, s = row0 + r), the class sub-grid's x and y sizes,
+// its first CTA
+struct SpmvBlock {
+  long long base;
+  int rows, count, cls, gx, gy, row0, cta0;
+};
+struct SpmvLayout {
+  SpmvBlock b[kSpmvBlocks];
+  int nb;
+};
+
+// a weight that is read once: past L1
+__device__ __forceinline__ float ld_stream(const float* a) {
+  float v;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(a));
+  return v;
+}
+__device__ __forceinline__ double ld_stream(const double* a) {
+  double v;
+  asm("ld.global.nc.L1::no_allocate.f64 %0, [%1];" : "=d"(v) : "l"(a));
+  return v;
+}
+
+// w the flat table, offs (9, kmax) the slot offsets of each class and of the
+// padding rows (row 8), x (CX, nx),
+// y (CX, nx); (fx, fy) the fine grid's x and y sizes
+template <typename T, int CX>
+__global__ void __launch_bounds__(kSpmvThreads) spmv_compact_kernel(
+    const T* __restrict__ w, const T* __restrict__ x, const int* __restrict__ offs, int kmax,
+    const SpmvLayout lay, T* __restrict__ y, int nx, int fx, int fy) {
+  __shared__ int s_off[kMaxWindow];
+  // this CTA's block: the last whose first CTA is not past it (static
+  // indices, so the layout stays in the parameter bank)
+  SpmvBlock blk = lay.b[0];
+#pragma unroll
+  for (int k = 1; k < kSpmvBlocks; ++k) {
+    if (k < lay.nb && static_cast<int>(blockIdx.x) >= lay.b[k].cta0) blk = lay.b[k];
+  }
+  const int cnt = blk.count;
+  const int* o = offs + (blk.cls < 0 ? kSpmvBlocks - 1 : blk.cls) * kmax;
+  for (int j = threadIdx.x; j < cnt; j += kSpmvThreads) s_off[j] = o[j];
+  __syncthreads();
+  const int r = (static_cast<int>(blockIdx.x) - blk.cta0) * kSpmvThreads + threadIdx.x;
+  if (r >= blk.rows) return;
+  int s;
+  if (blk.cls < 0) {
+    s = blk.row0 + r;
+  } else {
+    const int gxy = blk.gx * blk.gy;
+    const int k = r / gxy;
+    const int j = (r - k * gxy) / blk.gx;
+    const int i = r - k * gxy - j * blk.gx;
+    s = ((2 * k + (blk.cls >> 2 & 1)) * fy + 2 * j + (blk.cls >> 1 & 1)) * fx + 2 * i +
+        (blk.cls & 1);
+  }
+  const size_t plane = static_cast<size_t>(nx);
+  const size_t rows = static_cast<size_t>(blk.rows);
+  const T* wr = w + blk.base + r;
+  T acc[CX];
+#pragma unroll
+  for (int c = 0; c < CX; ++c) acc[c] = T(0);
+  // the weights of the batch after the current one, loaded before the
+  // current batch's multiply-adds
+  T wn[kBatch];
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i) wn[i] = i < cnt ? ld_stream(wr + i * rows) : T(0);
+  for (int j0 = 0; j0 < cnt; j0 += kBatch) {
+    T wv[kBatch], xv[CX][kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) wv[i] = wn[i];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int j = j0 + i;
+      const int jj = j < cnt ? s + s_off[j] : -1;
+      const bool live = jj >= 0 && jj < nx;   // zero field outside [0, nx)
+      const T* xj = x + (live ? jj : 0);
+#pragma unroll
+      for (int c = 0; c < CX; ++c) xv[c][i] = live ? __ldg(xj + c * plane) : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int j = j0 + kBatch + i;
+      wn[i] = j < cnt ? ld_stream(wr + j * rows) : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+#pragma unroll
+      for (int c = 0; c < CX; ++c) acc[c] = fma_rn(wv[i], xv[c][i], acc[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CX; ++c) y[c * plane + s] = acc[c];
+}
+
+template <typename T>
+int launch_spmv_compact(const T* w, const T* x, int cx, const int* offs, int kmax,
+                        const long long* blocks, int nb, T* y, int nx, int fx, int fy,
+                        void* stream) {
+  if (cx < 1 || cx > kMaxC || kmax < 1 || kmax > kMaxWindow || nb < 1 || nb > kSpmvBlocks ||
+      nx < 1 || fx < 1 || fy < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SpmvLayout lay = {};
+  int ctas = 0;
+  for (int b = 0; b < nb; ++b) {
+    const long long* t = blocks + 7 * b;   // rows, count, base, class, gx, gy, row0
+    if (t[0] < 1 || t[1] < 1 || t[1] > kmax) return static_cast<int>(cudaErrorInvalidValue);
+    lay.b[b] = SpmvBlock{t[2], static_cast<int>(t[0]), static_cast<int>(t[1]),
+                         static_cast<int>(t[3]), static_cast<int>(t[4]),
+                         static_cast<int>(t[5]), static_cast<int>(t[6]), ctas};
+    ctas += static_cast<int>((t[0] + kSpmvThreads - 1) / kSpmvThreads);
+  }
+  lay.nb = nb;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cx == 1) {
+    spmv_compact_kernel<T, 1><<<ctas, kSpmvThreads, 0, st>>>(w, x, offs, kmax, lay, y, nx, fx, fy);
+  } else if (cx == 2) {
+    spmv_compact_kernel<T, 2><<<ctas, kSpmvThreads, 0, st>>>(w, x, offs, kmax, lay, y, nx, fx, fy);
+  } else {
+    spmv_compact_kernel<T, 3><<<ctas, kSpmvThreads, 0, st>>>(w, x, offs, kmax, lay, y, nx, fx, fy);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(int mode, const T* w, const T* x, int cx, const int* offs, int nw,
            T* y, int n, void* stream) {
@@ -197,4 +361,20 @@ extern "C" int grad_compact_f64(const double* w, int nk, const double* x, const 
                                 const int* counts, double* y, int n, int fx, int fy,
                                 void* stream) {
   return launch_grad<double>(w, nk, x, offs, counts, y, n, fx, fy, stream);
+}
+
+// SPMV on the class-compacted, class-major table: w the flat table, x (cx,
+// nx), offs (9, kmax) device; blocks (nb, 7) int64 on the host (rows, slot
+// count, entry base, class or -1, gx, gy, first row of the padding block);
+// y (cx, nx); (fx, fy) the fine grid's x and y sizes
+extern "C" int spmv_compact_f32(const float* w, const float* x, int cx, const int* offs,
+                                int kmax, const long long* blocks, int nb, float* y, int nx,
+                                int fx, int fy, void* stream) {
+  return launch_spmv_compact<float>(w, x, cx, offs, kmax, blocks, nb, y, nx, fx, fy, stream);
+}
+
+extern "C" int spmv_compact_f64(const double* w, const double* x, int cx, const int* offs,
+                                int kmax, const long long* blocks, int nb, double* y, int nx,
+                                int fx, int fy, void* stream) {
+  return launch_spmv_compact<double>(w, x, cx, offs, kmax, blocks, nb, y, nx, fx, fy, stream);
 }

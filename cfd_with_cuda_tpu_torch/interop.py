@@ -14,6 +14,7 @@ import torch
 
 from cfd_with_cuda_tpu_torch.ops.spmv import build_reverse_incidence
 from cfd_with_cuda_tpu_torch.ops.window_stencil import compact_g_window
+from cfd_with_cuda_tpu_torch.solvers.base import compact_spmv_tables
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitState
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitState
 
@@ -87,12 +88,13 @@ def implicit_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, *,
     return _carry(d, _SHARED_IMPLICIT, attrs, sym)
 
 
-def _carry_interleaved(d, names, attrs, sym: bool) -> dict[str, torch.Tensor]:
-    """:func:`_carry`, and the class-compacted G window the port's
-    interleaved steps apply (``G_cwin``, from the carried ``G_win``)."""
+def _carry_interleaved(d, names, attrs, sym: bool, offsets) -> dict[str, torch.Tensor]:
+    """:func:`_carry`, and the class-compacted tables the port's interleaved
+    steps apply: the G window (``G_cwin``, from the carried ``G_win``) and
+    the window SPMV's (``compact_spmv_tables``, on the operator ``offsets``)."""
     out = _carry(d, names, attrs, sym)
     out["G_cwin"] = compact_g_window(out["G_win"], attrs["fine_dims"], attrs["g_radius"])[0]
-    return out
+    return out | compact_spmv_tables(out, offsets, attrs["fine_dims"])
 
 
 def interleaved_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, *,
@@ -103,7 +105,7 @@ def interleaved_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, *,
     :func:`tables_from_jax`).  On a box whose elements do not tile it the
     element tables go element-major and the grid-order ``ltog`` gets its
     reverse table, as the port's elemental convection takes them."""
-    out = _carry_interleaved(d, _SHARED_INTERLEAVED, attrs, sym)
+    out = _carry_interleaved(d, _SHARED_INTERLEAVED, attrs, sym, attrs["k_offsets"])
     if attrs["elem_structured"]:
         out |= _tensors({k: np.asarray(d[k]) for k in ("Sv", "gDSv", "gq")})
     else:
@@ -119,7 +121,7 @@ def implicit_interleaved_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, 
     """The port's table dict from a JAX implicit solver's interleaved ``d``
     (``attrs``: ``ImplicitGQSolver.INTERLEAVED_STATIC_ATTRS``; ``sym`` as
     :func:`tables_from_jax`)."""
-    return _carry_interleaved(d, _SHARED_INTERLEAVED_IMPLICIT, attrs, sym)
+    return _carry_interleaved(d, _SHARED_INTERLEAVED_IMPLICIT, attrs, sym, attrs["a_offsets"])
 
 
 def rev_from_jax(rev: np.ndarray, ne: int, s: int) -> np.ndarray:

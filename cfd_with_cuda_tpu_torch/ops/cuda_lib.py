@@ -82,6 +82,8 @@ _SIGNATURES = {
     "window_stencil_f64": ("window_stencil", [_I, _P, _P, _I, _P, _I, _P, _I, _P]),
     "grad_compact_f32": ("window_stencil", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
     "grad_compact_f64": ("window_stencil", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "spmv_compact_f32": ("window_stencil", [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P]),
+    "spmv_compact_f64": ("window_stencil", [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

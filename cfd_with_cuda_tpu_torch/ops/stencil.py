@@ -16,11 +16,15 @@ origin (2I, 2J, 2K).  Every op here works on strided views of the
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from cfd_with_cuda_tpu_torch.ops.window_stencil import spmv_layout
+
 __all__ = [
-    "coarse_to_fine", "gather_elem_stencil", "assemble_window_values",
+    "coarse_to_fine", "gather_elem_stencil", "assemble_window_values", "assemble_compact_values",
     "scatter_elem_stencil", "convection_elem_matrices", "convection_apply_elem",
 ]
 
@@ -74,6 +78,37 @@ def assemble_window_values(ae: torch.Tensor, local_off, oij, n_off: int, elem_di
     slots = torch.as_tensor(np.asarray(oij, dtype=np.int64), device=ae.device)
     for i in range(nen):
         view = _lattice(grid, local_off[i], elem_dims)        # (n_off, ez, ey, ex)
+        view[slots[i]] += ae[i].reshape(nen, ez, ey, ex)
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _slot_table(coij, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(coij, dtype=np.int64), device=device)
+
+
+def assemble_compact_values(ae: torch.Tensor, local_off, coij, offsets, elem_dims,
+                            fine_dims, n: int) -> torch.Tensor:
+    """:func:`assemble_window_values` straight into the class-compacted,
+    class-major table of ``window_stencil.compact_spmv_window`` over ``n``
+    rows (``offsets`` the operator's, ``coij`` the slot map
+    ``window_stencil.compact_spmv_oij`` gives).  Local node i of every element
+    lands in class c(i), the parity of ``local_off[i]``, on a contiguous
+    sub-box of that class's block: the same 27 strided index-adds, in i
+    order, so every entry equals the compaction of
+    :func:`assemble_window_values`'s bit for bit."""
+    ex, ey, ez = elem_dims
+    lay = spmv_layout(offsets, fine_dims, n)
+    out = ae.new_zeros(lay.size)
+    nen = len(local_off)
+    slots = _slot_table(coij, ae.device)
+    for i, (ox, oy, oz) in enumerate(local_off):
+        c = (oz & 1) * 4 + (oy & 1) * 2 + (ox & 1)
+        gx, gy, gz = lay.dims[c]
+        cnt = int(lay.counts[c])
+        blk = out[lay.bases[c]: lay.bases[c] + cnt * lay.rows[c]].view(cnt, gz, gy, gx)
+        dx, dy, dz = ox // 2, oy // 2, oz // 2
+        view = blk[:, dz: dz + ez, dy: dy + ey, dx: dx + ex]
         view[slots[i]] += ae[i].reshape(nen, ez, ey, ex)
     return out
 

@@ -7,7 +7,9 @@ applies of the interleaved layout, :func:`window_spmv`, :func:`grad_window`
 and :func:`div_window` (the ``_stencil_call`` body, CUDA kernel
 ``csrc/window_stencil.cu``), G on the class-compacted window
 (:func:`compact_g_window`, :func:`grad_window_compact`: the kernel's GRAD
-form, which the solvers call); and the compact G^T apply
+form, which the solvers call), the SPMV on a class-compacted, class-major
+table (:func:`compact_spmv_window`, :func:`window_spmv_compact`: the
+solvers' K, K + A, MK + A and M applies); and the compact G^T apply
 (``div_compact_call``, CUDA kernel ``csrc/div_compact.cu``), on a
 class-split field (:func:`div_compact`, the parity layout) or read
 straight from an interleaved one (:func:`div_compact_interleaved`,
@@ -23,7 +25,9 @@ s_pad, zero weight columns beyond S).
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,7 +37,11 @@ from cfd_with_cuda_tpu_torch.ops import cuda_lib
 
 __all__ = [
     "BLK", "window_offsets", "div_class_pairs", "compact_gt_window", "compact_g_slots",
-    "compact_g_window", "window_spmv", "window_spmv_plain", "grad_window", "grad_window_plain",
+    "compact_g_window", "compact_spmv_slots", "compact_spmv_window", "spmv_window_from_compact",
+    "compact_spmv_rows", "compact_spmv_diag", "compact_spmv_oij", "spmv_layout",
+    "window_spmv", "window_spmv_plain", "window_spmv_compact", "window_spmv_compact_plain",
+    "spmv_forms",
+    "grad_window", "grad_window_plain",
     "grad_window_compact", "grad_window_compact_plain",
     "div_window", "div_window_plain", "div_compact", "div_compact_plain",
     "div_compact_interleaved", "div_compact_interleaved_plain",
@@ -166,6 +174,208 @@ def compact_g_window(g_win, fine_dims, radius: int):
     return (g_cwin.numpy() if isinstance(g_win, np.ndarray) else g_cwin), offsets, counts
 
 
+# ------------------------------------------------ the compact SPMV layout
+
+SPMV_BLOCKS = 9        # the 8 parity classes, then the padding rows
+
+
+class SpmvLayout(NamedTuple):
+    """The class-compacted, class-major table of a window operator
+    (:func:`spmv_layout`).  Block b < 8 holds the rows of parity class b
+    (their sub-grid ``dims[b]``, flat order), block 8 the padding rows
+    ``S <= s < n``; block b is ``(counts[b], rows[b])``, slot-major, at
+    entry ``bases[b]`` of the flat table, its slot j reading
+    ``x[s + offsets[b, j]]``."""
+    slots: np.ndarray       # (9, K) int32: positions in the operator's offsets tuple
+    offsets: np.ndarray     # (9, K) int32: the flat offsets of those slots
+    counts: np.ndarray      # (9,) int32
+    dims: tuple             # (gx, gy, gz) of each class block; (n - S, 1, 1) the padding's
+    rows: np.ndarray        # (9,) int64
+    bases: np.ndarray       # (9,) int64
+    size: int               # entries of the whole table
+    order: tuple            # per block: the flat rows s of its rows, int64
+
+
+def _shifts_of(offsets, fine_dims):
+    """The (dx, dy, dz) shifts of a radius-2 window that each flat offset
+    names (more than one on a grid under 5 nodes thick, none for an offset
+    outside the window)."""
+    fx, fy, _ = fine_dims
+    steps = range(-2, 3)
+    named: dict = {}
+    for dz in steps:
+        for dy in steps:
+            for dx in steps:
+                named.setdefault((dz * fy + dy) * fx + dx, []).append((dx, dy, dz))
+    return [named.get(int(o), []) for o in offsets]
+
+
+def compact_spmv_slots(offsets, fine_dims):
+    """The compact SPMV's slot table on the operator's own ``offsets`` (its
+    order kept, not assumed to be ``window_offsets``'): for each parity class
+    c = (z & 1) * 4 + (y & 1) * 2 + (x & 1) of a row, the positions in
+    ``offsets`` whose shift a Q2 row of that class couples to: |d| <= 2 on
+    an axis where the row's coordinate is even (a node on an element face
+    line, shared by two elements), |d| <= 1 where it is odd (inside one
+    element); then, as class 8, the padding rows, which keep offset 0 alone
+    (the implicit LHS gives them a unit diagonal).  Returns ``(slots (9, K),
+    offsets (9, K), counts (9,))``, int32 numpy, K the largest count (125,
+    75, 45, 27 for 0 to 3 odd axes on a full radius-2 tuple); entries past a
+    class's count are 0.  On a grid under 5 nodes thick a flat offset names
+    more than one shift, and it is live where any of them is."""
+    return _compact_spmv_slots(tuple(int(o) for o in offsets), tuple(int(v) for v in fine_dims))
+
+
+@functools.lru_cache(maxsize=16)
+def _compact_spmv_slots(offsets, fine_dims):
+    shifts = _shifts_of(offsets, fine_dims)
+    live = lambda c, d: all(abs(v) <= (1 if c >> a & 1 else 2) for a, v in enumerate(d))
+    lists = [[k for k, ds in enumerate(shifts) if any(live(c, d) for d in ds)]
+             for c in range(8)]
+    lists.append([k for k, o in enumerate(offsets) if o == 0])
+    width = max(len(ks) for ks in lists)
+    slots = np.zeros((SPMV_BLOCKS, width), np.int32)
+    offs = np.zeros((SPMV_BLOCKS, width), np.int32)
+    for c, ks in enumerate(lists):
+        slots[c, : len(ks)] = ks
+        offs[c, : len(ks)] = [offsets[k] for k in ks]
+    counts = np.array([len(ks) for ks in lists], np.int32)
+    for a in (slots, offs, counts):
+        a.flags.writeable = False
+    return slots, offs, counts
+
+
+def spmv_layout(offsets, fine_dims, n: int) -> SpmvLayout:
+    """The :class:`SpmvLayout` of the operator with flat ``offsets`` on the
+    fine grid ``fine_dims`` over ``n >= S`` rows (``S`` the grid's size)."""
+    return _spmv_layout(tuple(int(o) for o in offsets), tuple(int(v) for v in fine_dims), int(n))
+
+
+@functools.lru_cache(maxsize=16)
+def _spmv_layout(offsets, fine_dims, n):
+    fx, fy, fz = fine_dims
+    size_s = fx * fy * fz
+    if n < size_s:
+        raise ValueError(f"spmv_layout: {n} rows on a grid of {size_s}")
+    slots, offs, counts = _compact_spmv_slots(offsets, fine_dims)
+    dims, order = [], []
+    for c in range(8):
+        px, py, pz = c & 1, c >> 1 & 1, c >> 2 & 1
+        g = ((fx - px + 1) // 2, (fy - py + 1) // 2, (fz - pz + 1) // 2)
+        k, j, i = np.meshgrid(*(np.arange(v) for v in g[::-1]), indexing="ij")
+        order.append((((2 * k + pz) * fy + 2 * j + py) * fx + 2 * i + px).reshape(-1))
+        dims.append(g)
+    dims.append((n - size_s, 1, 1))
+    order.append(np.arange(size_s, n))
+    order = tuple(o.astype(np.int64) for o in order)
+    rows = np.array([len(o) for o in order], np.int64)
+    sizes = rows * counts
+    bases = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    for a in (*order, rows, bases):
+        a.flags.writeable = False
+    return SpmvLayout(slots, offs, counts, tuple(dims), rows, bases, int(sizes.sum()), order)
+
+
+def _blocks(lay: SpmvLayout):
+    """(block, slots, rows) of each block that holds entries."""
+    return [(b, lay.slots[b, : lay.counts[b]].astype(np.int64), lay.order[b])
+            for b in range(SPMV_BLOCKS) if lay.counts[b] and lay.rows[b]]
+
+
+def compact_spmv_window(win, offsets, fine_dims):
+    """The class-compacted, class-major table ``(size,)`` of the window
+    operator ``win (W, n)`` with flat ``offsets`` (W of them, the operator's
+    own order; setup time, or per step on a CUDA tensor): block b of
+    :func:`spmv_layout` holds ``win[slots_b[j], s]`` at ``bases[b] + j *
+    rows[b] + r`` for the b-th block's r-th row s.  A numpy array for a numpy
+    ``win``, else a tensor on its device.  Raises ``ValueError`` if a weight
+    it drops is not exactly 0: the compact apply then equals the full
+    window's.  NE27000 (``s_pad`` 227,328): 14.71 M weights of 28.42 M, and
+    347 padding rows."""
+    w = torch.as_tensor(win)
+    if w.ndim != 2 or w.shape[0] != len(offsets):
+        raise ValueError(f"compact_spmv_window: win of shape {tuple(w.shape)}, "
+                         f"{len(offsets)} offsets")
+    lay = spmv_layout(offsets, fine_dims, w.shape[1])
+    parts = [w[torch.tensor(sl, device=w.device)][:, torch.tensor(rw, device=w.device)]
+             .reshape(-1) for _, sl, rw in _blocks(lay)]
+    out = torch.cat(parts) if parts else w.new_zeros(0)
+    dropped = int(torch.count_nonzero(w)) - int(torch.count_nonzero(out))
+    if dropped:
+        raise ValueError(f"compact_spmv_window: {dropped} nonzero weights lie outside their "
+                         "row's parity-class slots")
+    return out.numpy() if isinstance(win, np.ndarray) else out
+
+
+def spmv_window_from_compact(cwin, offsets, fine_dims, n: int):
+    """The full window table ``(W, n)`` of a compact one (the exact inverse
+    of :func:`compact_spmv_window`: the dropped weights 0).  A numpy array for
+    a numpy ``cwin``, else a tensor on its device."""
+    c = torch.as_tensor(cwin)
+    lay = spmv_layout(offsets, fine_dims, n)
+    if c.shape != (lay.size,):
+        raise ValueError(f"spmv_window_from_compact: {tuple(c.shape)} for a layout of "
+                         f"{lay.size} entries")
+    out = c.new_zeros((len(offsets), n))
+    for b, sl, rw in _blocks(lay):
+        blk = c[lay.bases[b]: lay.bases[b] + len(sl) * len(rw)].view(len(sl), len(rw))
+        out[torch.tensor(sl, device=c.device)[:, None], torch.tensor(rw, device=c.device)] = blk
+    return out.numpy() if isinstance(cwin, np.ndarray) else out
+
+
+def compact_spmv_rows(v, offsets, fine_dims):
+    """A per-row vector ``v (n,)`` on the compact table's entries: entry (b,
+    j, r) gets ``v`` at the block's r-th row (the LHS's row mask).  Numpy for
+    numpy, else a tensor on its device."""
+    t = torch.as_tensor(v)
+    lay = spmv_layout(offsets, fine_dims, t.shape[0])
+    parts = [t[torch.tensor(rw, device=t.device)][None].expand(len(sl), -1).reshape(-1)
+             for _, sl, rw in _blocks(lay)]
+    out = torch.cat(parts) if parts else t.new_zeros(0)
+    return out.numpy() if isinstance(v, np.ndarray) else out
+
+
+def compact_spmv_diag(offsets, fine_dims, n: int) -> np.ndarray:
+    """``(n,)`` int64: the entry of each row's offset-0 slot in the compact
+    table (rows in flat order), where the LHS adds its unit diagonal and
+    reads the Jacobi diagonal.  Raises ``ValueError`` without offset 0."""
+    lay = spmv_layout(offsets, fine_dims, n)
+    pos = np.full(n, -1, np.int64)
+    for b, sl, rw in _blocks(lay):
+        zero = np.flatnonzero(lay.offsets[b, : len(sl)] == 0)
+        if len(zero) == 0:
+            raise ValueError("compact_spmv_diag: the operator has no offset 0")
+        pos[rw] = lay.bases[b] + zero[0] * len(rw) + np.arange(len(rw))
+    if (pos < 0).any():
+        raise ValueError("compact_spmv_diag: the operator has no offset 0")
+    return pos
+
+
+def compact_spmv_oij(oij, local_off, offsets, fine_dims) -> tuple:
+    """The elemental slot map in the compact table: ``oij[i][j]`` (a position
+    in ``offsets``) as the position among the live slots of class c(i), the
+    parity of ``local_off[i]``, where local node i of every element lies.
+    Raises ``ValueError`` if an entry lands on a slot its class drops."""
+    # tuple() of a tuple is the tuple itself: the solvers' per-step call
+    # hashes its static tuples and converts nothing
+    return _compact_spmv_oij(tuple(map(tuple, oij)), tuple(map(tuple, local_off)),
+                             tuple(offsets), tuple(fine_dims))
+
+
+@functools.lru_cache(maxsize=16)
+def _compact_spmv_oij(oij, local_off, offsets, fine_dims):
+    slots, _, counts = _compact_spmv_slots(offsets, fine_dims)
+    out = []
+    for i, (ox, oy, oz) in enumerate(local_off):
+        c = (oz & 1) * 4 + (oy & 1) * 2 + (ox & 1)
+        where = {int(k): j for j, k in enumerate(slots[c, : counts[c]])}
+        if any(int(k) not in where for k in oij[i]):
+            raise ValueError(f"compact_spmv_oij: local node {i} reaches a slot that its "
+                             f"class {c} drops")
+        out.append(tuple(where[int(k)] for k in oij[i]))
+    return tuple(out)
+
+
 def div_compact_plain(gt_cwin: torch.Tensor, up: torch.Tensor, pairs) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ``y[q] = sum_s sum_d
     gt_cwin[d, s, q] * up[d, cls_s, q + off_s]`` (zero outside [0, Sp)),
@@ -291,6 +501,189 @@ def window_spmv_plain(win, x, dims, radius=None, *, offsets=None, trim=True,
     """Plain PyTorch version of :func:`window_spmv` on any device (it
     launches nothing; ``name`` is checked as there)."""
     return _window_spmv(win, x, dims, radius, offsets, trim, name, True)
+
+
+@functools.lru_cache(maxsize=32)
+def _spmv_offsets_table(offsets, fine_dims, n, device: torch.device) -> torch.Tensor:
+    """The kernel's (9, K) int32 slot offsets of :func:`spmv_layout` on ``device``."""
+    return torch.tensor(_spmv_layout(offsets, fine_dims, n).offsets, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _plain_groups(offsets, fine_dims, n, blocks, device: torch.device):
+    """The plain version's work: the blocks of ``blocks`` grouped by slot
+    count, each group ``(its blocks, count, field index (count, rows) into
+    the field zero-haloed by the layout's largest |offset|, its flat rows)``
+    on ``device``: one gather and ``count`` multiply-adds a group."""
+    lay = _spmv_layout(offsets, fine_dims, n)
+    halo = max(int(np.abs(lay.offsets).max()), 1)
+    groups = []
+    for cnt in sorted({int(lay.counts[b]) for b in blocks}, reverse=True):
+        bs = tuple(b for b in blocks if lay.counts[b] == cnt)
+        rows = np.concatenate([lay.order[b] for b in bs])
+        idx = np.concatenate([lay.order[b][None] + lay.offsets[b, :cnt, None] for b in bs], 1)
+        groups.append((bs, cnt, torch.tensor(idx + halo, device=device),
+                       torch.tensor(rows, device=device)))
+    return halo, tuple(groups)
+
+
+def _spmv_compact_plain(cw, xb, lay, groups) -> torch.Tensor:
+    """Plain PyTorch version of the compact SPMV kernel: for each row, its
+    block's slots in order, ``acc = acc + w[j] * x[s + off_j]`` on a
+    zero-haloed field (the full window's plain sum without its zero terms);
+    rows of blocks with equal slot counts are summed side by side."""
+    halo, groups = groups
+    x_ext = F.pad(xb, (halo, halo))
+    y = xb.new_zeros(xb.shape)
+    for bs, cnt, idx, rows in groups:
+        w = torch.cat([cw[lay.bases[b]: lay.bases[b] + cnt * lay.rows[b]].view(cnt, -1)
+                       for b in bs], 1)
+        xs = x_ext[:, idx]                                  # (cx, cnt, rows)
+        acc = xb.new_zeros((xb.shape[0], idx.shape[1]))
+        for j in range(cnt):
+            acc = acc + w[j] * xs[:, j]
+        y[:, rows] = acc
+    return y
+
+
+class _SpmvPlan(NamedTuple):
+    """A compact SPMV launch, built once per table, field and grid."""
+    n: int                  # rows of the table
+    lay: SpmvLayout
+    blocks: tuple           # the blocks applied: all for a field of n, the classes for S
+    tab: np.ndarray         # per block: rows, slot count, entry base, class (-1: the
+    #                         padding rows), gx, gy, first row (the C interface's table)
+
+
+@functools.lru_cache(maxsize=64)
+def _spmv_plan(offsets, dims, size: int, nx: int) -> _SpmvPlan:
+    """The plan of a compact table of ``size`` entries on a field of ``nx``
+    rows (the table's n, or the grid's S: then the class blocks alone)."""
+    s = int(np.prod(dims))
+    extra = size - _spmv_layout(offsets, dims, s).size
+    tail = int(_compact_spmv_slots(offsets, dims)[2][SPMV_BLOCKS - 1])
+    if extra < 0 or (extra and (not tail or extra % tail)):
+        raise ValueError(f"a compact table of {size} entries fits no layout of offsets "
+                         f"on {dims}")
+    n = s + (extra // tail if tail else 0)
+    if nx not in (n, s):
+        raise ValueError(f"a compact table over {n} rows and a field of {nx}")
+    lay = _spmv_layout(offsets, dims, n)
+    blocks = tuple(b for b in range(SPMV_BLOCKS) if lay.counts[b] and lay.rows[b]
+                   and (b < 8 or nx == n))
+    tab = np.array([[lay.rows[b], lay.counts[b], lay.bases[b], b if b < 8 else -1,
+                     lay.dims[b][0], lay.dims[b][1], s] for b in blocks], np.int64)
+    tab.flags.writeable = False
+    return _SpmvPlan(n, lay, blocks, tab)
+
+
+def _spmv_compact(cw, xb, dims, offsets, name, plain) -> torch.Tensor:
+    """The compact SPMV of ``cw`` (a :func:`compact_spmv_window` table over
+    ``n`` rows) on ``xb (cx, nx)``: every block where ``nx = n``, the 8 class
+    blocks alone where ``nx = S`` (an unpadded field).  The plain version on
+    a CPU tensor (or under ``plain``), the kernel on a CUDA tensor."""
+    cx, nx = xb.shape
+    if cw.ndim != 1:
+        raise ValueError(f"{name}: a compact table of shape {tuple(cw.shape)}")
+    plan = _spmv_plan(offsets, dims, cw.shape[0], nx)
+    if plain or xb.device.type == "cpu":
+        return _spmv_compact_plain(cw, xb, plan.lay,
+                                   _plain_groups(offsets, dims, plan.n, plan.blocks, xb.device))
+    if xb.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xb.device}")
+    if not 1 <= cx <= 3:
+        raise ValueError(f"{name}: {cx} channels")
+    if xb.dtype not in (torch.float32, torch.float64) or cw.dtype != xb.dtype:
+        raise ValueError(f"{name}: dtypes {cw.dtype}, {xb.dtype}")
+    if cw.device != xb.device:
+        raise ValueError(f"{name}: operands on different devices")
+    cw, xb = cw.contiguous(), xb.contiguous()
+    y = torch.empty((cx, nx), dtype=xb.dtype, device=xb.device)
+    offs_t = _spmv_offsets_table(offsets, dims, plan.n, xb.device)
+    fn = cuda_lib.function("spmv_compact_f32" if xb.dtype == torch.float32
+                           else "spmv_compact_f64")
+    err = fn(cuda_lib.ptr(cw), cuda_lib.ptr(xb), cx, cuda_lib.ptr(offs_t), offs_t.shape[1],
+             plan.tab.ctypes.data, len(plan.blocks), cuda_lib.ptr(y), nx, dims[0], dims[1],
+             cuda_lib.stream_ptr(xb.device))
+    cuda_lib.check(err, name)
+    cuda_lib.launch_counts[name] += 1
+    return y
+
+
+def _window_spmv_compact(cwin, x, dims, radius, offsets, trim, name, plain):
+    if not (name.startswith("window_spmv") and name in cuda_lib.launch_counts):
+        raise ValueError(f"window_spmv_compact: no launch count named {name!r}")
+    dims = tuple(int(v) for v in dims)
+    offsets = window_offsets(dims, radius) if offsets is None else tuple(offsets)
+    s = dims[0] * dims[1] * dims[2]
+    xb = x if x.ndim == 2 else x[None]
+    if xb.shape[-1] != _spmv_plan(offsets, dims, cwin.shape[-1], s).n:
+        xb = xb[:, :s]      # not the table's padded field: the grid's rows alone
+    y = _trimmed(_spmv_compact(cwin, xb, dims, offsets, name, plain), s, xb.shape[-1], trim)
+    return y[0] if x.ndim == 1 else y
+
+
+def window_spmv_compact(cwin, x, dims, radius=None, *, offsets=None, trim=True,
+                        name="window_spmv"):
+    """:func:`window_spmv` on the class-compacted table ``cwin`` of
+    :func:`compact_spmv_window` (the solvers' ``K_cvals``, the per-step K + A
+    and MK + A, ``M_cvals``), with the same ``offsets`` / ``radius``,
+    ``trim`` and launch count ``name``.  A CPU tensor runs
+    :func:`window_spmv_compact_plain`; a CUDA tensor launches the compact
+    SPMV kernel of ``csrc/window_stencil.cu``.  Equal to :func:`window_spmv`
+    on the full table bit for bit, up to the sign of an exact zero."""
+    return _window_spmv_compact(cwin, x, dims, radius, offsets, trim, name, False)
+
+
+def window_spmv_compact_plain(cwin, x, dims, radius=None, *, offsets=None, trim=True,
+                              name="window_spmv"):
+    """Plain PyTorch version of :func:`window_spmv_compact` on any device:
+    :func:`window_spmv_plain`'s sum without its zero terms, bit for bit."""
+    return _window_spmv_compact(cwin, x, dims, radius, offsets, trim, name, True)
+
+
+def spmv_forms(xs, isolver, rng):
+    """Inputs of every solver form of the window SPMV on the interleaved
+    explicit (``xs``) and implicit (``isolver``) solvers' tables, each
+    ``(name, full table (W, n), compact table, offsets, x (3, n))``: K, K + A
+    (the explicit "assemble" form), MK + A (the implicit LHS, masked, unit
+    diagonal) and M, on a field and convection drawn from ``rng`` (A(u) of a
+    velocity of 1e-2).  The full K + A and MK + A are built as the parent
+    step built them (``assemble_window_values`` into the window rows), the
+    compact ones as the solvers build them now (``assemble_compact_values``
+    straight into the compact table).  For checking and timing the kernels
+    (``compare_build``, ``chip_smoke.py``, the tests); no solver calls it."""
+    # stencil imports this module, so its assembly is imported here
+    from cfd_with_cuda_tpu_torch.ops.stencil import (
+        assemble_compact_values,
+        assemble_window_values,
+        convection_elem_matrices,
+    )
+
+    dev, n, fine, nn = xs.device, xs.s_pad, xs.fine_dims, xs.nn
+    dtype = xs.d["K_vals"].dtype
+    rand = lambda *shape: torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+    u = rand(3, n)
+
+    def conv(s, offsets):
+        ae = convection_elem_matrices(1e-2 * rand(3, nn), s.d["Sv"], s.d["gDSv"], s.d["gq"],
+                                      s.elem_dims, fine)
+        coij = compact_spmv_oij(s.conv_oij, s.local_off, offsets, fine)
+        return (assemble_window_values(ae, s.local_off, s.conv_oij, len(offsets), s.elem_dims,
+                                       fine, n),
+                assemble_compact_values(ae, s.local_off, coij, offsets, s.elem_dims, fine, n))
+
+    d, di = xs.d, isolver.d
+    ka, ka_c = conv(xs, xs.k_offsets)
+    a, a_c = conv(isolver, isolver.a_offsets)
+    a = (di["MK_vals"] + a) * di["row_mask_grid"][None]
+    a[isolver.a_zero_off] += di["diag_add_grid"]
+    a_c = (di["MK_cvals"] + a_c) * di["row_mask_c"]
+    a_c[di["diag_pos"]] += di["diag_add_grid"]
+    return [("k", d["K_vals"], d["K_cvals"], xs.k_offsets, u),
+            ("k_plus_a", d["K_vals"] + ka, d["K_cvals"] + ka_c, xs.k_offsets, u),
+            ("mk_plus_a", a, a_c, isolver.a_offsets, u),
+            ("m", di["M_vals"], di["M_cvals"], isolver.a_offsets, u)]
 
 
 def _grad_window(g_win, p_fine, dims, radius, trim, plain):

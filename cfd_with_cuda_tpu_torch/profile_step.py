@@ -40,11 +40,12 @@ form; 4e-4 at 50; else 1e-3).
 ``--layout interleaved`` runs either solver on the cavity's interleaved
 structured layout (``structured_layout="interleaved"``) instead of the
 parity layout, and adds each op of the step timed alone at the step's
-shapes (CUDA events): the window applies (K or A, M, G), the compact G^T
-on the interleaved field, the elemental gather, the A(u) build (its
-einsums), and the per-step assembly of A(u) into the window rows
-(implicit, and the explicit ``conv_mode="assemble"`` form) or the
-parity-grouped scatter (explicit matrix-free form).
+shapes (CUDA events): the window applies (K or A, M on their
+class-compacted tables; G), the compact G^T on the interleaved field, the
+elemental gather, the A(u) build (its einsums), and the per-step assembly
+of A(u) into the compact table (implicit, and the explicit
+``conv_mode="assemble"`` form) or the parity-grouped scatter (explicit
+matrix-free form).
 
 ``--deck bfs`` runs the unstructured path instead, on the backward-facing
 step ``bfs_deck(96, 40, 40, lengths=(15, 2, 2), step_frac=(0.2, 0.5),
@@ -76,16 +77,17 @@ from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
 from cfd_with_cuda_tpu_torch.ops import cuda_lib, spmv
 from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
 from cfd_with_cuda_tpu_torch.ops.stencil import (
-    assemble_window_values,
+    assemble_compact_values,
     coarse_to_fine,
     convection_elem_matrices,
     gather_elem_stencil,
     scatter_elem_stencil,
 )
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
+    compact_spmv_oij,
     div_compact_interleaved,
     grad_window_compact,
-    window_spmv,
+    window_spmv_compact,
 )
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
@@ -246,30 +248,32 @@ def _interleaved_ops(solver, implicit):
         d = solver.d
         u = state.uk if implicit else state.un
         fine, nn = solver.fine_dims, solver.nn
-        table, offs = (d["MK_vals"], solver.a_offsets) if implicit else (d["K_vals"],
-                                                                         solver.k_offsets)
+        table, offs = (d["MK_cvals"], solver.a_offsets) if implicit else (d["K_cvals"],
+                                                                           solver.k_offsets)
         ae_build = lambda: convection_elem_matrices(u[:, :nn], d["Sv"], d["gDSv"], d["gq"],
                                                     solver.elem_dims, fine)
         ae = ae_build()
-        oij = solver.conv_oij
-        assemble = lambda: assemble_window_values(ae, solver.local_off, oij, len(offs),
-                                                  solver.elem_dims, fine, solver.s_pad)
+        coij = compact_spmv_oij(solver.conv_oij, solver.local_off, offs, fine)
+        assemble = lambda: assemble_compact_values(ae, solver.local_off, coij, offs,
+                                                   solver.elem_dims, fine, solver.s_pad)
         pf = torch.nn.functional.pad(coarse_to_fine(state.pk if implicit else state.pn,
                                                     solver.coarse_dims, fine),
                                      (0, solver.s_pad - nn))
         out = dict(
-            window_spmv=_event_ms(lambda: window_spmv(table, u, fine, offsets=offs, trim=False)),
+            window_spmv=_event_ms(lambda: window_spmv_compact(table, u, fine, offsets=offs,
+                                                              trim=False)),
             grad_window=_event_ms(lambda: grad_window_compact(d["G_cwin"], pf, fine,
                                                               solver.g_radius, trim=False)),
             div_compact_interleaved=_event_ms(lambda: div_compact_interleaved(
                 d["GT_cwin"], u, fine, solver.coarse_dims)),
             gather_elem=_event_ms(lambda: gather_elem_stencil(u[:, :nn], solver.elem_dims, fine)),
             ae_build=_event_ms(ae_build, 3),
-            assemble_window_values=_event_ms(assemble, 3),
+            assemble_compact_values=_event_ms(assemble, 3),
         )
         if implicit:
-            out["window_spmv_m"] = _event_ms(lambda: window_spmv(d["M_vals"], u, fine,
-                                                                 offsets=offs, trim=False))
+            out["window_spmv_m"] = _event_ms(lambda: window_spmv_compact(d["M_cvals"], u, fine,
+                                                                         offsets=offs,
+                                                                         trim=False))
         else:
             r1e = torch.einsum("ije,dje->die", ae, gather_elem_stencil(u[:, :nn],
                                                                        solver.elem_dims, fine))

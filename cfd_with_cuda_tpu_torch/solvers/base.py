@@ -18,15 +18,41 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from cfd_with_cuda_tpu_torch.device import resolve_device
+from cfd_with_cuda_tpu_torch.ops.window_stencil import (
+    compact_spmv_diag,
+    compact_spmv_rows,
+    compact_spmv_window,
+)
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = [
     "StepStats", "ChunkedTimeLoop", "unpack_chunk_stats", "unsupported_config",
-    "unsupported_on_box",
+    "unsupported_on_box", "compact_spmv_tables",
 ]
+
+# the interleaved steps' full window tables (the JAX package's, kept under
+# its names) and the class-compacted tables the steps apply instead
+_COMPACT = (("K_vals", "K_cvals"), ("MK_vals", "MK_cvals"), ("M_vals", "M_cvals"))
+
+
+def compact_spmv_tables(d: dict, offsets, fine_dims) -> dict:
+    """The compact SPMV tables of an interleaved solver's ``d`` (numpy arrays
+    or tensors): each full window table of ``_COMPACT`` in
+    ``compact_spmv_window``'s class-major form; for the implicit LHS also
+    its row mask on the compact entries (``row_mask_c``) and the entry of
+    each row's offset-0 slot (``diag_pos``), where the step adds the unit
+    diagonal and reads the Jacobi diagonal."""
+    out = {c: compact_spmv_window(d[f], offsets, fine_dims) for f, c in _COMPACT if f in d}
+    if "row_mask_grid" in d:
+        mask = d["row_mask_grid"]
+        out["row_mask_c"] = compact_spmv_rows(mask, offsets, fine_dims)
+        pos = compact_spmv_diag(offsets, fine_dims, mask.shape[-1])
+        out["diag_pos"] = pos if isinstance(mask, np.ndarray) else torch.from_numpy(pos)
+    return out
 
 
 class StepStats(NamedTuple):

@@ -78,7 +78,7 @@ from cfd_with_cuda_tpu_torch.ops.banded import banded_from_csr, banded_spmv
 from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
 from cfd_with_cuda_tpu_torch.ops.krylov import cg
 from cfd_with_cuda_tpu_torch.ops.stencil import (
-    assemble_window_values,
+    assemble_compact_values,
     coarse_to_fine,
     convection_apply_elem,
     convection_elem_matrices,
@@ -86,14 +86,15 @@ from cfd_with_cuda_tpu_torch.ops.stencil import (
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     compact_g_window,
     compact_gt_window,
+    compact_spmv_oij,
     div_compact_interleaved,
     div_compact_interleaved_plain,
     grad_window_compact,
     grad_window_compact_plain,
-    window_spmv,
-    window_spmv_plain,
+    window_spmv_compact,
+    window_spmv_compact_plain,
 )
-from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats
+from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, compact_spmv_tables
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = ["ExplicitState", "StepStats", "ExplicitBCHSolver"]
@@ -354,6 +355,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             slot = {o: k for k, o in enumerate(self.k_offsets)}
             self.conv_oij = tuple(tuple(slot[fo[j] - fo[i]] for j in range(len(fo)))
                                   for i in range(len(fo)))
+            # every entry lands on a slot its row's class keeps (raises if not)
+            compact_spmv_oij(self.conv_oij, self.local_off, self.k_offsets, box.fine_dims)
         else:
             # the elemental convection of ops/spmv.py on grid-order node ids
             ltog = np.asarray(box.perm[mesh.ltog_node], dtype=np.int32)     # (NE, 27)
@@ -361,6 +364,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                   "Sv": dev(tab.Sv), "gDSv": dev(np.transpose(tab.gDSv, (0, 3, 2, 1))),
                   "gq": dev(tab.gq_factor)}
             self.conv_oij = None
+        # K on its class-compacted, class-major table (the window SPMV's)
+        d |= compact_spmv_tables(d, self.k_offsets, box.fine_dims)
         pin = deck.zero_pressure_node
         self.pin_grid = int(box.perm_p[pin]) if pin >= 0 else -1
         mon = find_monitor_node(
@@ -524,7 +529,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
 
     def _interleaved_operators(self, d, un):
         """The same on the interleaved layout (explicit_bch.py:839-867,
-        937-977, 1105-1110): K and K + A through ``window_spmv``, G through
+        937-977, 1105-1110): K and K + A through ``window_spmv_compact`` on
+        the class-compacted table (K + A assembled straight into it), G through
         ``grad_window_compact`` on the embedded pressure, G^T through
         ``div_compact_interleaved``."""
         cfg = self.config
@@ -532,11 +538,11 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         pad = lambda y: torch.nn.functional.pad(y, (0, s_pad - y.shape[-1]))
         # the wrappers run the kernels on CUDA tensors and the plain
         # versions on CPU tensors; `plain` forces the plain versions
-        spmv_w = window_spmv_plain if self.plain else window_spmv
+        spmv_w = window_spmv_compact_plain if self.plain else window_spmv_compact
         grad_w = grad_window_compact_plain if self.plain else grad_window_compact
         div_c = div_compact_interleaved_plain if self.plain else div_compact_interleaved
 
-        k_mul = lambda u: spmv_w(d["K_vals"], u, fine, offsets=self.k_offsets, trim=False,
+        k_mul = lambda u: spmv_w(d["K_cvals"], u, fine, offsets=self.k_offsets, trim=False,
                                  name="window_spmv_k")
 
         def grad(p):
@@ -556,10 +562,10 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             ae = convection_elem_matrices(un[:, :nn], d["Sv"], d["gDSv"], d["gq"],
                                           self.elem_dims, fine, stab_coef=cfg.conv_stab)
             if cfg.conv_mode == "assemble":
-                # A_e into K's window rows: (K + A) u* is ONE window apply
-                ka_vals = d["K_vals"] + assemble_window_values(
-                    ae, self.local_off, self.conv_oij, len(self.k_offsets), self.elem_dims,
-                    fine, s_pad)
+                # A_e into K's compact rows: (K + A) u* is ONE window apply
+                coij = compact_spmv_oij(self.conv_oij, self.local_off, self.k_offsets, fine)
+                ka_vals = d["K_cvals"] + assemble_compact_values(
+                    ae, self.local_off, coij, self.k_offsets, self.elem_dims, fine, s_pad)
                 ka_mul = lambda u: spmv_w(ka_vals, u, fine, offsets=self.k_offsets, trim=False,
                                           name="window_spmv_k_plus_a")
             else:

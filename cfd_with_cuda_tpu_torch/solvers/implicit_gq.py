@@ -76,21 +76,22 @@ from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_
 from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
 from cfd_with_cuda_tpu_torch.ops.krylov import cg, solver_by_name
 from cfd_with_cuda_tpu_torch.ops.stencil import (
-    assemble_window_values,
+    assemble_compact_values,
     coarse_to_fine,
     convection_elem_matrices,
 )
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     compact_g_window,
     compact_gt_window,
+    compact_spmv_oij,
     div_compact_interleaved,
     div_compact_interleaved_plain,
     grad_window_compact,
     grad_window_compact_plain,
-    window_spmv,
-    window_spmv_plain,
+    window_spmv_compact,
+    window_spmv_compact_plain,
 )
-from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats
+from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, compact_spmv_tables
 
 __all__ = ["ImplicitState", "ImplicitGQSolver"]
 
@@ -404,7 +405,9 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         slot = {o: k for k, o in enumerate(self.a_offsets)}
         self.conv_oij = tuple(tuple(slot[fo[j] - fo[i]] for j in range(len(fo)))
                               for i in range(len(fo)))
-        return {
+        # every entry lands on a slot its row's class keeps (raises if not)
+        compact_spmv_oij(self.conv_oij, self.local_off, self.a_offsets, box.fine_dims)
+        d = {
             "MK_vals": pad(dev(mk_dia.vals)),
             "M_vals": pad(dev(m_dia.vals)),
             "row_mask_grid": pad(bc_mask),
@@ -418,6 +421,9 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             "gDSv": gDSv,
             "gq": gq,
         }
+        # MK, M and the LHS's row mask and diagonal on the class-compacted,
+        # class-major table of the window SPMV
+        return d | compact_spmv_tables(d, self.a_offsets, box.fine_dims)
 
     def _setup_ell(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> None:
         """Slot-major ELL operators and the per-step assembly maps of the
@@ -644,33 +650,36 @@ class ImplicitGQSolver(ChunkedTimeLoop):
     def _time_step_interleaved(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
         """Flat grid-order layout (implicit_gq.py:836-1107, the kernel
         branch): the per-step LHS assembled into the A window rows
-        (``assemble_window_values``), the momentum BiCGStab and M u^k through
-        ``window_spmv``, G through ``grad_window_compact``, G^T through
+        (``assemble_compact_values``, straight into the class-compacted
+        table), the momentum BiCGStab and M u^k through
+        ``window_spmv_compact``, G through ``grad_window_compact``, G^T through
         ``div_compact_interleaved``."""
         cfg = self.config
         dt = self.dt
         fine, nn, s_pad = self.fine_dims, self.nn, self.s_pad
         # the wrappers run the kernels on CUDA tensors and the plain
         # versions on CPU tensors; `plain` forces the plain versions
-        spmv_w = window_spmv_plain if self.plain else window_spmv
+        spmv_w = window_spmv_compact_plain if self.plain else window_spmv_compact
         grad_w = grad_window_compact_plain if self.plain else grad_window_compact
         div_c = div_compact_interleaved_plain if self.plain else div_compact_interleaved
         uk_prev, pk_prev, pk_prevprev = state       # uk (3, s_pad)
 
         # ---- per-step LHS: A = M/dt + K + A(u^k), BC rows zeroed with a
-        # unit diagonal (padding rows too); each element's (i, j) entry lands
-        # at the fixed window slot conv_oij[i][j]
+        # unit diagonal (padding rows too), on the class-compacted table; each
+        # element's (i, j) entry lands at the fixed slot conv_oij[i][j], the
+        # unit diagonal at each row's offset-0 entry diag_pos
         ae = convection_elem_matrices(uk_prev[:, :nn], d["Sv"], d["gDSv"], d["gq"],
                                       self.elem_dims, fine, stab_coef=cfg.conv_stab)
-        conv_vals = assemble_window_values(ae, self.local_off, self.conv_oij,
-                                           len(self.a_offsets), self.elem_dims, fine, s_pad)
-        a_vals = (d["MK_vals"] + conv_vals) * d["row_mask_grid"][None, :]
-        a_vals[self.a_zero_off] += d["diag_add_grid"]
-        a_diag = a_vals[self.a_zero_off]
+        coij = compact_spmv_oij(self.conv_oij, self.local_off, self.a_offsets, fine)
+        conv_vals = assemble_compact_values(ae, self.local_off, coij, self.a_offsets,
+                                            self.elem_dims, fine, s_pad)
+        a_vals = (d["MK_cvals"] + conv_vals) * d["row_mask_c"]
+        a_vals[d["diag_pos"]] += d["diag_add_grid"]
+        a_diag = a_vals[d["diag_pos"]]
 
         a_mul = lambda x: spmv_w(a_vals, x, fine, offsets=self.a_offsets, trim=False,
                                  name="window_spmv_mk_plus_a")
-        m_mul = lambda x: spmv_w(d["M_vals"], x, fine, offsets=self.a_offsets, trim=False,
+        m_mul = lambda x: spmv_w(d["M_cvals"], x, fine, offsets=self.a_offsets, trim=False,
                                  name="window_spmv_m")
 
         def grad(p):

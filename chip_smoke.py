@@ -41,23 +41,25 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    (``cfd_with_cuda_tpu/validation/data/cavity_re100_implicit_state.npz``);
 6. the interleaved structured layout of both solvers on the same cavity
    (``structured_layout="interleaved"``, fields (3, 227,328)):
-   ``kernels_interleaved`` (every launch form of the window kernel,
-   ``window_spmv`` for K, the "assemble" K + A, the implicit MK + A and M,
-   G on the class-compacted window (``grad_window_compact``, its plain
-   version also bit for bit against ``grad_window_plain``) and
-   ``div_window``, in f32 and the three forms in f64, and the compact G^T
-   on the interleaved field, against their plain
-   versions on the solvers' own tables; device, plain and cuSPARSE CSR
-   times and the byte bound), ``e2e_interleaved`` (rung 3 of bench.py's
+   ``kernels_interleaved`` (every launch form of the window kernel: the
+   SPMV on the class-compacted, class-major table (``window_spmv_compact``,
+   what the solvers launch) for K, the "assemble" K + A, the implicit MK + A
+   and M, each also bit for bit against the full-window SPMV
+   (``window_spmv``) on the full table, with both timed; G on the
+   class-compacted window (``grad_window_compact``, its plain version also
+   bit for bit against ``grad_window_plain``) and ``div_window``, in f32 and
+   the three forms in f64, and the compact G^T on the interleaved field,
+   against their plain versions on the solvers' own tables; device, plain
+   and cuSPARSE CSR times and the byte bound), ``e2e_interleaved`` (rung 3 of bench.py's
    ladder from rest: launch counts held against the sub-iteration history,
    3 steps against the plain path and against the port's parity solver
    from the same fields, 10 steps each of ``conv_mode="assemble"``, MIXED
    and ``pressure_cg_sym`` against their plain paths) and
    ``e2e_interleaved_implicit`` (the same for the implicit solver, without
    "assemble"); ``window_apply`` (the class-split window apply, TPU kernel
-   row 12, on the interleaved solver's ``K_vals`` and ``G_win`` split by
-   class: against its plain version and, after ``parity_merge``, against
-   ``window_spmv`` / ``grad_window``);
+   row 12, on the interleaved solver's K (rebuilt from its compact table)
+   and ``G_win`` split by class: against its plain version and, after
+   ``parity_merge``, against ``window_spmv_compact`` / ``grad_window``);
 7. the parity layout of both solvers on the NE85184 cavity
    (``cavity_deck(44, cluster=2.0, dt=5e-4)``, the JAX package's "ne85"
    bench row), where the JAX package's 6 MiB rule streams every velocity
@@ -1378,16 +1380,19 @@ def _window_csr(win, offs, n_in, row_of=None, col_base=0):
 
 
 def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
-    """Every launch form of the window kernel (TPU kernel row 10; G on the
-    class-compacted window) and the compact divergence on an interleaved
-    field (row 11) at the NE27000 interleaved shapes and the solvers' own
-    tables, against their plain versions on the card (f32, and the three
-    forms in f64), with the kernel, plain and library times and the bound
-    (about half of the weights of a K row and of a compacted G row are
-    zeros, which the kernels stream)."""
+    """Every launch form of the window kernel (TPU kernel row 10: the SPMV
+    and G on class-compacted tables, the DIV mode on the full window) and
+    the compact divergence on an interleaved field (row 11) at the NE27000
+    interleaved shapes and the solvers' own tables, against their plain
+    versions on the card (f32, and the three forms in f64), with the kernel,
+    plain and library times and the bound (of the nonzero weights: the
+    compacted tables keep the zeros of the slots that leave the grid, which
+    the kernels stream); the compact SPMV also against the full-window SPMV,
+    which no solver launches, and both timed."""
     import numpy as np
     import torch
 
+    t0 = time.time()
     ws = window_stencil
     rng = np.random.default_rng(20261017)
     dev = xs.device
@@ -1409,8 +1414,8 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
             raise AssertionError(f"{name}: kernel vs plain {rel:.3e} > {tol}")
         nz, size, b = nnz(table), table.numel(), table.element_size()
         # one multiply-add per nonzero weight and output channel (the fields
-        # of an SPMV share one table)
-        flops = 2 * nz * (y.shape[0] if table.dim() == 2 else 1)
+        # of an SPMV share one table: (W, n), or compacted (size,))
+        flops = 2 * nz * (y.shape[0] if table.dim() <= 2 else 1)
         b_ms, b_by = bound(b * (nz + fields), flops,
                            FP64_FLOP_PER_S if b == 8 else FP32_FLOP_PER_S)
         out = dict(max_abs_err=err, err_rel=rel, tol=tol, ms=time_ms(kernel, 20),
@@ -1432,42 +1437,55 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
         results[name] = out
         return out
 
-    def spmv_form(name, table, offs, x, tol, library=True):
+    def spmv_form(name, full, comp, offs, x, tol, library=True):
+        """The compact kernel (what the solvers launch) on ``comp`` against its
+        plain version, and against the full-window kernel on ``full`` bit for
+        bit up to the sign of an exact zero (``torch.equal``); both kernels
+        timed queued (device ms) and with a cold L2, beside the bound of the
+        nonzero weights, the compact and the full table's stream bounds and
+        cuSPARSE; the compact plain version against the full window's bit
+        for bit; ``full`` rebuilt from ``comp`` by ``spmv_window_from_compact``
+        bit for bit."""
         c = x.shape[0]
         lib = None
         if library:
-            r, cl, v = _window_csr(table, offs, n)
+            r, cl, v = _window_csr(full, offs, n)
             lib = (_csr(r, cl, v, (n, n)), x.T.contiguous(), lambda r: r.T)
-        return check(
-            name,
-            lambda: ws.window_spmv(table, x, fine, offsets=offs, trim=False,
-                                   name=name.removeprefix("f64_")),
-            lambda: ws.window_spmv_plain(table, x, fine, offsets=offs, trim=False),
-            lambda: ws.window_spmv_plain(table.abs(), x.abs(), fine, offsets=offs, trim=False),
-            tol, table, 2 * c * n, lib)
+        op = name.removeprefix("f64_")
+        kw = dict(offsets=offs, trim=False)
+        compact = lambda: ws.window_spmv_compact(comp, x, fine, name=op, **kw)
+        window = lambda: ws.window_spmv(full, x, fine, name=op, **kw)
+        out = check(name, compact, lambda: ws.window_spmv_compact_plain(comp, x, fine, **kw),
+                    lambda: ws.window_spmv_plain(full.abs(), x.abs(), fine, **kw),
+                    tol, comp, 2 * c * n, lib, queued=True)
+        y_c, y_f = compact(), window()
+        ints = torch.int32 if x.dtype == torch.float32 else torch.int64
+        b = x.element_size()
+        out.update(
+            full_window_bit_equal=torch.equal(y_c.view(ints), y_f.view(ints)),
+            full_window_value_equal=torch.equal(y_c, y_f),
+            plain_equal=torch.equal(ws.window_spmv_compact_plain(comp, x, fine, **kw),
+                                    ws.window_spmv_plain(full, x, fine, **kw)),
+            from_compact_equal=torch.equal(ws.spmv_window_from_compact(comp, offs, fine, n), full),
+            full_window_ms=queued_ms(window, 20), full_window_event_ms=time_ms(window, 20),
+            full_window_cold_ms=cold_ms(window, 20), full_window_size=full.numel(),
+            full_window_stream_bound_ms=bound(b * (full.numel() + 2 * c * n), 0)[0])
+        del y_c, y_f
+        same = {k: out[k] for k in ("full_window_value_equal", "plain_equal",
+                                    "from_compact_equal")}
+        if not all(same.values()):
+            raise AssertionError(f"{name}: the compact SPMV differs from the full window's: {same}")
+        return out
 
-    u = rand(3, n)
     d = xs.d
-    # ---- K u (the explicit path: 125 offsets, 3 channels)
-    spmv_form("window_spmv_k", d["K_vals"], xs.k_offsets, u, WINDOW_TOL)
-    # ---- (K + A) u, the explicit "assemble" form on a seeded A(u)
-    ae = stencil.convection_elem_matrices(1e-2 * rand(3, nn), d["Sv"], d["gDSv"], d["gq"],
-                                          xs.elem_dims, fine)
-    ka = d["K_vals"] + stencil.assemble_window_values(
-        ae, xs.local_off, xs.conv_oij, len(xs.k_offsets), xs.elem_dims, fine, n)
-    spmv_form("window_spmv_k_plus_a", ka, xs.k_offsets, u, WINDOW_TOL)
-    del ka
-    # ---- the implicit LHS (MK + A, masked, unit diagonal) and M, as the step builds them
-    di = isolver.d
-    ae = stencil.convection_elem_matrices(1e-2 * rand(3, nn), di["Sv"], di["gDSv"], di["gq"],
-                                          isolver.elem_dims, fine)
-    a_vals = (di["MK_vals"] + stencil.assemble_window_values(
-        ae, isolver.local_off, isolver.conv_oij, len(isolver.a_offsets), isolver.elem_dims,
-        fine, n)) * di["row_mask_grid"][None]
-    a_vals[isolver.a_zero_off] += di["diag_add_grid"]
-    spmv_form("window_spmv_mk_plus_a", a_vals, isolver.a_offsets, u, WINDOW_TOL)
-    del a_vals, ae
-    spmv_form("window_spmv_m", di["M_vals"], isolver.a_offsets, u, WINDOW_TOL)
+    # ---- K u (the explicit path), (K + A) u (the explicit "assemble" form),
+    # the implicit LHS (MK + A, masked, unit diagonal) and M: 3 channels, the
+    # compact tables as the solvers build them
+    forms = ws.spmv_forms(xs, isolver, rng)
+    for form, full, comp, offs, u in forms:
+        spmv_form(f"window_spmv_{form}", full, comp, offs, u, WINDOW_TOL)
+    _, k_full, k_comp, k_offs, u = forms[0]
+    del forms
 
     # ---- G p on the embedded coarse pressure, G^T u on the fine grid
     g_offs = ws.window_offsets(fine, xs.g_radius)
@@ -1522,8 +1540,9 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
 
     # ---- the three modes in f64 (the f64 JAX fixtures' own 1e-12)
     u64, pf64 = u.double(), pf.double()
-    spmv_form("f64_window_spmv_k", d["K_vals"].double(), xs.k_offsets, u64, WINDOW_TOL_F64,
-              library=False)
+    spmv_form("f64_window_spmv_k", k_full.double(), k_comp.double(), k_offs, u64,
+              WINDOW_TOL_F64, library=False)
+    del k_full, k_comp
     grad_div("f64_", d["G_win"].double(), d["G_cwin"].double(), d["GT_win"].double(), pf64,
              u64, WINDOW_TOL_F64)
     del u64, pf64
@@ -1554,18 +1573,21 @@ def phase_kernels_interleaved(xs, isolver, window_stencil, stencil) -> dict:
     emit(dict(phase="kernels_interleaved",
               shapes=dict(s_pad=n, nn=nn, nnp=xs.nnp, k_offsets=len(xs.k_offsets),
                           a_offsets=len(isolver.a_offsets), g_window=len(g_offs),
-                          gt_compact_rows=int(gt.shape[-1])),
-              tols=dict(f32=WINDOW_TOL, f64=WINDOW_TOL_F64), checks=results))
+                          gt_compact_rows=int(gt.shape[-1]),
+                          spmv_compact_entries=int(d["K_cvals"].numel())),
+              tols=dict(f32=WINDOW_TOL, f64=WINDOW_TOL_F64), checks=results,
+              seconds=time.time() - t0))
     return results
 
 
 def phase_window_apply(xs, pstl, window_stencil, stencil, cuda_lib) -> dict:
     """TPU kernel row 12, ``parity_window_apply`` (no solver calls it), on the
-    NE27000 interleaved explicit solver's own ``K_vals`` and each direction of
-    ``G_win``, split by class and compacted as tests/test_parity_stencil.py:
-    46-116 does: the kernel against its plain version (APPLY_TOL) and, after
-    ``parity_merge``, against ``window_spmv`` / ``grad_window`` of the same
-    tables (WINDOW_TOL); device, plain and cuSPARSE CSR times and the byte
+    NE27000 interleaved explicit solver's own K (rebuilt from ``K_cvals`` by
+    ``spmv_window_from_compact``) and each direction of ``G_win``, split by
+    class and compacted as tests/test_parity_stencil.py:46-116 does: the
+    kernel against its plain version (APPLY_TOL) and, after
+    ``parity_merge``, against ``window_spmv_compact`` / ``grad_window`` of
+    the same tables (WINDOW_TOL); device, plain and cuSPARSE CSR times and the byte
     bound of K and of one G direction.  ``launches``: the kernel's launches
     in the merged checks (one for K, one per G direction)."""
     import numpy as np
@@ -1613,19 +1635,20 @@ def phase_window_apply(xs, pstl, window_stencil, stencil, cuda_lib) -> dict:
     S = int(np.prod(fine))
     results = {}
     # ---- K: 125 slots, no structural class sparsity (it stays put)
-    wp, pairs = tables(xs.d["K_vals"], pstl.decode_offsets(xs.k_offsets, fine))
+    k_vals = ws.spmv_window_from_compact(xs.d["K_cvals"], xs.k_offsets, fine, n)
+    wp, pairs = tables(k_vals, pstl.decode_offsets(xs.k_offsets, fine))
     u = rand(3, 8, sp)
     results["k"] = check("parity_window_apply_k", wp, u, pairs)
     cuda_lib.reset_launch_counts()
     y = pstl.parity_merge(pstl.parity_window_apply(wp, u, pairs=pairs), fine)
     launches_k = cuda_lib.launch_counts["parity_window_apply"]
     uf = torch.nn.functional.pad(pstl.parity_merge(u, fine), (0, n - S))
-    ref = ws.window_spmv(xs.d["K_vals"], uf, fine, offsets=xs.k_offsets, trim=False,
-                         name="window_spmv_k")[:, :S]
-    scale = ws.window_spmv_plain(xs.d["K_vals"].abs(), uf.abs(), fine, offsets=xs.k_offsets,
+    ref = ws.window_spmv_compact(xs.d["K_cvals"], uf, fine, offsets=xs.k_offsets, trim=False,
+                                 name="window_spmv_k")[:, :S]
+    scale = ws.window_spmv_plain(k_vals.abs(), uf.abs(), fine, offsets=xs.k_offsets,
                                  trim=False)[:, :S]
     results["k"]["merged_vs_window_spmv"] = _apply_err(y, ref, scale)
-    del wp, u, y, uf, ref, scale
+    del wp, u, y, uf, ref, scale, k_vals
     # ---- G, one direction at a time: the coarse pressure as class 0
     r = xs.g_radius
     offs = tuple((dx, dy, dz) for dz in range(-r, r + 1)

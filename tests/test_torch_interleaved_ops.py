@@ -1,7 +1,8 @@
 """PyTorch port: the ops of the interleaved structured layout match the JAX
 package's on the same inputs.
 
-* The window applies (``window_spmv``, ``grad_window``, ``div_window``; CUDA
+* The window applies (``window_spmv``, ``grad_window``, ``div_window``, and
+  ``window_spmv_compact`` on the class-compacted K table; CUDA
   kernel ``csrc/window_stencil.cu``) in their plain versions against the
   Pallas kernels in interpret mode, on the ``cavity_deck(5)`` operators of
   ``tests/test_pallas_stencil.py:35-49``, in f64 at that file's 1e-12.
@@ -140,6 +141,26 @@ def test_window_spmv_matches_pallas_k_batched(cavity_ops):
                                     offsets=dia.flat_offsets)
     out_o = tws.window_spmv(_t(dia.vals), _t(u), gi.dims, offsets=dia.flat_offsets)
     np.testing.assert_allclose(out_o.numpy(), np.asarray(ref_o), rtol=0, atol=F64_TOL)
+
+
+def test_window_spmv_compact_matches_pallas(cavity_ops):
+    """Viscous K on the fine grid on its class-compacted, class-major table
+    (``window_spmv_compact``, what the interleaved solvers apply), 3 velocity
+    channels, from the sparse-offset DIA form and from the full window,
+    against ``pallas_window_spmv`` on the full tables, f64."""
+    _, _, ops, gi, _ = cavity_ops
+    dia = dia_from_csr(ops.pattern_m.to_scipy(ops.K), gi.flat_of_node, gi.flat_of_node, gi.dims)
+    u = np.random.default_rng(2).standard_normal((3, gi.size))
+    win = dia.window_vals(dtype=np.float64)
+    for table, kw, jkw in ((dia.vals, dict(offsets=dia.flat_offsets),
+                            dict(offsets=dia.flat_offsets)),
+                           (win, dict(radius=dia.radius), dict(radius=dia.radius))):
+        offs = kw.get("offsets") or tws.window_offsets(gi.dims, dia.radius)
+        compact = tws.compact_spmv_window(np.asarray(table), offs, gi.dims)
+        assert compact.size < np.asarray(table).size
+        ref = jpst.pallas_window_spmv(jnp.asarray(table), jnp.asarray(u), gi.dims, **jkw)
+        out = tws.window_spmv_compact(_t(compact), _t(u), gi.dims, **kw)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=F64_TOL)
 
 
 def test_grad_window_matches_pallas(cavity_ops, g_tables):
