@@ -7,10 +7,12 @@ path is torch on the CUDA card, with every TPU kernel of the path
 replaced by a hand-written Hopper kernel (``csrc/``).  Each kernel has a
 plain PyTorch version beside it, which runs on CPU tensors.
 
-Ported so far, both on the class-major parity layout: the explicit BCH
-solver (``solvers/explicit_bch.py``, ``ExplicitBCHSolver(deck,
-config).run(...)``) and the implicit Guermond-Quartapelle solver
-(``solvers/implicit_gq.py``, ``ImplicitGQSolver(deck, config).run(...)``).
+Ported so far: the explicit BCH solver (``solvers/explicit_bch.py``,
+``ExplicitBCHSolver(deck, config).run(...)``) and the implicit
+Guermond-Quartapelle solver (``solvers/implicit_gq.py``,
+``ImplicitGQSolver(deck, config).run(...)``), on every layout of the JAX
+package (parity, interleaved, the XLA structured path, ELL) in F32, MIXED
+and F64.
 """
 
 __version__ = "0.1.0"

@@ -22,6 +22,7 @@ __all__ = [
     "tables_from_jax", "state_from_jax",
     "implicit_tables_from_jax", "implicit_state_from_jax",
     "interleaved_tables_from_jax", "implicit_interleaved_tables_from_jax",
+    "xla_tables_from_jax", "implicit_xla_tables_from_jax",
     "ell_tables_from_jax", "implicit_ell_tables_from_jax", "rev_from_jax",
 ]
 
@@ -46,6 +47,15 @@ _SHARED_INTERLEAVED = (
 _SHARED_INTERLEAVED_IMPLICIT = (
     "MK_vals", "M_vals", "row_mask_grid", "diag_add_grid", "G_win", "GT_win", "GT_cwin",
     "bc_mask", "bc_vel", "Sv", "gDSv", "gq", "p_mask",
+)
+# tables the XLA structured steps read under the same name in both packages,
+# besides G and G^T (``G_dia{i}`` / ``GT_dia{i}`` under F64, else ``G_win`` /
+# ``GT_win``) and the multigrid levels (``mg_win_{l}``, ``mg_diag_{l}``,
+# ``mg_zinv``)
+_SHARED_XLA = ("K_vals", "Z_win", "Z_diag", "md_inv", "md_orig_inv", "bc_mask", "bc_vel")
+_SHARED_XLA_IMPLICIT = (
+    "MK_vals", "M_vals", "row_mask_grid", "diag_add_grid", "Z_win", "Z_diag", "p_mask",
+    "bc_mask", "bc_vel", "Sv", "gDSv", "gq",
 )
 
 
@@ -122,6 +132,36 @@ def implicit_interleaved_tables_from_jax(d: dict[str, np.ndarray], attrs: dict, 
     (``attrs``: ``ImplicitGQSolver.INTERLEAVED_STATIC_ATTRS``; ``sym`` as
     :func:`tables_from_jax`)."""
     return _carry_interleaved(d, _SHARED_INTERLEAVED_IMPLICIT, attrs, sym, attrs["a_offsets"])
+
+
+def _carry_xla(d, names) -> dict[str, np.ndarray]:
+    """The named tables, G and G^T in the form the solver stored them, and
+    every multigrid level, copied."""
+    extra = [k for k in d if k.startswith(("G_dia", "GT_dia", "mg_")) or k in ("G_win", "GT_win")]
+    return {k: np.asarray(d[k]) for k in (*names, *extra)}
+
+
+def xla_tables_from_jax(d: dict[str, np.ndarray], attrs: dict) -> dict[str, torch.Tensor]:
+    """The port's table dict from a JAX explicit solver's ``d`` on its XLA
+    structured path (``attrs``: ``ExplicitBCHSolver.XLA_STATIC_ATTRS``, with
+    ``elem_structured`` and ``fine_dims``).  On a box whose elements do not
+    tile it the element tables go element-major and the grid-order ``ltog``
+    gets its reverse table, as :func:`interleaved_tables_from_jax` gives them."""
+    out = _carry_xla(d, _SHARED_XLA)
+    if attrs["elem_structured"]:
+        out |= {k: np.asarray(d[k]) for k in ("Sv", "gDSv", "gq")}
+    else:
+        tabs = _element_tables(d)
+        tabs["ltog"] = np.asarray(tabs["ltog"], dtype=np.int32)
+        tabs["rev"] = build_reverse_incidence(tabs["ltog"], int(np.prod(attrs["fine_dims"])))
+        out |= tabs
+    return _tensors(out)
+
+
+def implicit_xla_tables_from_jax(d: dict[str, np.ndarray], attrs: dict) -> dict[str, torch.Tensor]:
+    """The port's table dict from a JAX implicit solver's ``d`` on its XLA
+    structured path (``attrs``: ``ImplicitGQSolver.XLA_STATIC_ATTRS``)."""
+    return _tensors(_carry_xla(d, _SHARED_XLA_IMPLICIT))
 
 
 def rev_from_jax(rev: np.ndarray, ne: int, s: int) -> np.ndarray:

@@ -178,8 +178,8 @@ def solver_by_name(name: str, **fixed) -> Callable:
     key = name.lower()
     if key in _NOT_PORTED:
         raise NotImplementedError(
-            f"not ported yet: Krylov solver {name!r} (the XLA Krylov suite: "
-            "ROADMAP.md queue 1 item 6)"
+            f"not ported yet: Krylov solver {name!r} (the rest of the Krylov suite: "
+            "ROADMAP.md queue 1 item 6(b))"
         )
     try:
         fn = _SOLVERS[key]

@@ -1,17 +1,25 @@
-"""Stride-2 elemental and embedding ops of the interleaved structured layout.
+"""Stencil ops of the structured layouts: the stride-2 elemental and
+embedding ops of the interleaved layout, and the DIA / window-patches
+applies of the XLA structured path.
 
-Port of the torch-op half of ``cfd_with_cuda_tpu/ops/stencil.py`` that the
-interleaved layout's kernel path runs (the XLA DIA / patches applies,
-``dia_spmv`` and ``patches_*``, belong to the F64 / XLA structured path and
-are not ported; nor are ``fine_to_coarse``, ``place_elem_field`` and
-``convection_apply_stencil``, which that path does not run: the compact
-G^T gives coarse rows directly, the assembly adds into strided views, and
-the matrix-free convection is :func:`convection_apply_elem` on the
-per-step elemental matrices).  Fields are flat z-major fine-grid arrays
-``flat = (k*fy + j)*fx + i``; the coarse pressure grid sits at the even
-fine positions, and element (I, J, K) is the 3x3x3 fine-node window at
-origin (2I, 2J, 2K).  Every op here works on strided views of the
-``(fz, fy, fx)`` grid: no node-index gather and no scatter over nodes.
+Port of ``cfd_with_cuda_tpu/ops/stencil.py``.  Fields are flat z-major
+fine-grid arrays ``flat = (k*fy + j)*fx + i``; the coarse pressure grid sits
+at the even fine positions, and element (I, J, K) is the 3x3x3 fine-node
+window at origin (2I, 2J, 2K).  The interleaved layout's kernel path runs the
+elemental ops (gather, strided assembly, parity-grouped scatter) on strided
+views of the ``(fz, fy, fx)`` grid: no node-index gather and no scatter over
+nodes.  The XLA structured path (F64, ``pressure_backend="xla"``, the
+multigrid preconditioner; torch ops here as they are XLA ops in the JAX
+package) applies its operators in two gather-free forms:
+
+* :func:`dia_spmv` -- a sum of rolled products, one per stored diagonal;
+* :func:`patches_spmv` -- every stencil window extracted at once
+  (``F.pad`` and three ``unfold``s, the counterpart of
+  ``conv_general_dilated_patches``), then one multiply-reduce against the
+  spatially varying weights.
+
+Wrap-around (rolls) and zero padding (patches) are both harmless: a
+diagonal's value is zero wherever its (row, row + offset) pair is absent.
 """
 
 from __future__ import annotations
@@ -26,7 +34,46 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import spmv_layout
 __all__ = [
     "coarse_to_fine", "gather_elem_stencil", "assemble_window_values", "assemble_compact_values",
     "scatter_elem_stencil", "convection_elem_matrices", "convection_apply_elem",
+    "dia_spmv", "patches_spmv", "fine_to_coarse", "dia_grad_apply", "dia_div_apply",
+    "patches_grad_apply", "patches_div_apply",
 ]
+
+
+def dia_spmv(vals: torch.Tensor, x: torch.Tensor, offsets) -> torch.Tensor:
+    """``y[g] = sum_o vals[o][g] * x[g + o]`` (indices mod the axis length)
+    for ``x (S,)`` or ``(C, S)``, summed in offset order: a roll, a product
+    and an add per stored diagonal, each rounded as the JAX package's
+    (no fused multiply-add)."""
+    acc = None
+    for i, o in enumerate(offsets):
+        term = vals[i] * torch.roll(x, -int(o), dims=-1)
+        if acc is None:
+            acc = term
+        else:
+            acc += term
+    return acc
+
+
+def _extract_patches(x: torch.Tensor, dims, radius: int) -> torch.Tensor:
+    """``(C, W^3, S)`` stencil windows of ``x (C, S)`` on a ``(Sx, Sy, Sz)``
+    grid, zero outside it: channel k holds x at offset (dz, dy, dx) =
+    unravel(k) - radius, the channel order of ``conv_general_dilated_patches``
+    and of ``DiaOperator.window_vals``."""
+    sx, sy, sz = dims
+    w = 2 * radius + 1
+    c = x.shape[0]
+    x3 = torch.nn.functional.pad(x.reshape(c, sz, sy, sx), (radius,) * 6)
+    win = x3.unfold(1, w, 1).unfold(2, w, 1).unfold(3, w, 1)   # (C, sz, sy, sx, kz, ky, kx)
+    return win.permute(0, 4, 5, 6, 1, 2, 3).reshape(c, w * w * w, sz * sy * sx)
+
+
+def patches_spmv(win_vals: torch.Tensor, x: torch.Tensor, dims, radius: int) -> torch.Tensor:
+    """``y = A x`` with A as window-ordered stencil values ``(W^3, S)``
+    (``DiaOperator.window_vals``), for ``x (S,)`` or ``(C, S)``."""
+    single = x.dim() == 1
+    xb = x[None] if single else x
+    y = torch.einsum("ws,cws->cs", win_vals, _extract_patches(xb, dims, radius))
+    return y[0] if single else y
 
 
 def coarse_to_fine(p: torch.Tensor, coarse_dims, fine_dims) -> torch.Tensor:
@@ -37,6 +84,49 @@ def coarse_to_fine(p: torch.Tensor, coarse_dims, fine_dims) -> torch.Tensor:
     pf = p.new_zeros((fz, fy, fx))
     pf[::2, ::2, ::2] = p.reshape(cz, cy, cx)
     return pf.reshape(-1)
+
+
+def fine_to_coarse(y: torch.Tensor, coarse_dims, fine_dims) -> torch.Tensor:
+    """The even fine-grid positions of ``y (S,)`` in coarse grid order."""
+    fx, fy, fz = fine_dims
+    return y[: fx * fy * fz].reshape(fz, fy, fx)[::2, ::2, ::2].reshape(-1)
+
+
+def dia_grad_apply(g_vals, p: torch.Tensor, offsets, coarse_dims, fine_dims,
+                   s_pad: int | None = None) -> torch.Tensor:
+    """``(3, s_pad)`` <- [G1 p, G2 p, G3 p] with each Gd in fine-grid DIA form
+    on its own offset set: ``g_vals[d] (n_d, S)``, ``offsets[d]``.  The
+    embedded pressure is zero-padded to ``s_pad`` (default: no padding)."""
+    pf = coarse_to_fine(p, coarse_dims, fine_dims)
+    if s_pad is not None:
+        pf = torch.nn.functional.pad(pf, (0, s_pad - pf.shape[0]))
+    return torch.stack([dia_spmv(g_vals[d], pf, offsets[d]) for d in range(3)])
+
+
+def dia_div_apply(gt_vals, u: torch.Tensor, offsets, coarse_dims, fine_dims) -> torch.Tensor:
+    """``(NNp,)`` <- sum_d Gd^T u_d with each Gd^T in fine-grid DIA form on
+    its own offset set (``gt_vals[d]``, ``offsets[d]``; its rows live on the
+    embedded coarse positions)."""
+    acc = dia_spmv(gt_vals[0], u[0], offsets[0])
+    for d in (1, 2):
+        acc = acc + dia_spmv(gt_vals[d], u[d], offsets[d])
+    return fine_to_coarse(acc, coarse_dims, fine_dims)
+
+
+def patches_grad_apply(g_win: torch.Tensor, p: torch.Tensor, coarse_dims, fine_dims,
+                       radius: int) -> torch.Tensor:
+    """``(3, S)`` gradient from one window extraction of the embedded
+    pressure (``g_win (3, W^3, S)``)."""
+    pf = coarse_to_fine(p, coarse_dims, fine_dims)
+    pat = _extract_patches(pf[None], fine_dims, radius)[0]        # (W^3, S)
+    return torch.einsum("dws,ws->ds", g_win, pat)
+
+
+def patches_div_apply(gt_win: torch.Tensor, u: torch.Tensor, coarse_dims, fine_dims,
+                      radius: int) -> torch.Tensor:
+    """``(NNp,)`` divergence from one batched window extraction of ``u (3, S)``."""
+    pat = _extract_patches(u, fine_dims, radius)                  # (3, W^3, S)
+    return fine_to_coarse(torch.einsum("dws,dws->s", gt_win, pat), coarse_dims, fine_dims)
 
 
 def gather_elem_stencil(u: torch.Tensor, elem_dims, fine_dims) -> torch.Tensor:

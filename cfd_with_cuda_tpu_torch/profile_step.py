@@ -6,6 +6,7 @@
     python -m cfd_with_cuda_tpu_torch.profile_step --layout interleaved [--solver implicit]
     python -m cfd_with_cuda_tpu_torch.profile_step --deck bfs [--solver implicit]
     python -m cfd_with_cuda_tpu_torch.profile_step --deck-n 44 [--solver implicit]  # NE85184
+    python -m cfd_with_cuda_tpu_torch.profile_step --policy f64 [--solver implicit]  # XLA path
 
 ``--solver explicit`` (the default) runs the explicit BCH solver (F32, CG
 tol 1e-6, warm-started fused CG) on ``cavity_deck(deck_n, cluster=2.0)``
@@ -47,6 +48,20 @@ of A(u) into the compact table (implicit, and the explicit
 ``conv_mode="assemble"`` form) or the parity-grouped scatter (explicit
 matrix-free form).
 
+``--policy {f32,mixed,f64}``, ``--precond {auto,jacobi,mg}`` and
+``--backend {auto,xla}`` set ``dtype_policy``, ``pressure_precond`` and
+``pressure_backend`` (defaults F32, "auto", "auto": the kernel path).  Off
+the kernel path (F64, "xla" or "mg": the JAX package's default config at
+``--policy f64``) a cavity takes the XLA structured path, torch ops only:
+each regime then adds the device time by PyTorch op, the host gap, and
+each op of the step alone (the DIA apply of K or A, M, G, G^T, the coarse
+Z apply, one V-cycle, one pressure solve, the A(u) build).
+
+Every regime also prints the device kernels per step (launches of any
+kernel, the trace's count) and the host reads per step (the trace's
+``aten::_local_scalar_dense`` calls: the CG's and BiCGStab's residual
+tests, the sub-iteration and steady flags).
+
 ``--deck bfs`` runs the unstructured path instead, on the backward-facing
 step ``bfs_deck(96, 40, 40, lengths=(15, 2, 2), step_frac=(0.2, 0.5),
 viscosity=0.01)`` (``--bfs-dims`` for another size): the explicit solver at
@@ -76,11 +91,13 @@ import torch
 from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
 from cfd_with_cuda_tpu_torch.ops import cuda_lib, spmv
 from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
+from cfd_with_cuda_tpu_torch.ops.multigrid import make_vcycle
 from cfd_with_cuda_tpu_torch.ops.stencil import (
     assemble_compact_values,
     coarse_to_fine,
     convection_elem_matrices,
     gather_elem_stencil,
+    patches_spmv,
     scatter_elem_stencil,
 )
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
@@ -122,8 +139,10 @@ def _trace(solver, state):
     short = lambda name: name.replace("void ", "").replace("(anonymous namespace)::", "")[:100]
     by_name = defaultdict(float)
     spans = []
+    reads = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            reads += e.name == "aten::_local_scalar_dense"
             continue
         start, end = e.time_range.start, e.time_range.end
         by_name[short(e.name)] += (end - start) / 1e3 / PROFILE_STEPS
@@ -144,7 +163,9 @@ def _trace(solver, state):
             by_op[a.key] = us / 1e3 / PROFILE_STEPS
     by_op = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:15])
     busy_share = busy / wall_us if spans else None
-    return state, top, busy_share, wall_us / 1e3 / PROFILE_STEPS, by_op
+    counts = dict(device_kernels_per_step=len(spans) / PROFILE_STEPS,
+                  host_reads_per_step=reads / PROFILE_STEPS)
+    return state, top, busy_share, wall_us / 1e3 / PROFILE_STEPS, by_op, counts
 
 
 def _regime(name, solver, state, n_timed, ops=None):
@@ -152,14 +173,14 @@ def _regime(name, solver, state, n_timed, ops=None):
     state, hist, ms = _timed(solver, state, n_timed)
     launches = {k: v / n_timed for k, v in cuda_lib.launch_counts.items() if v}
     subs = [int(h["iters"]) for h in hist]
-    state, top, busy, traced_ms, by_op = _trace(solver, state)
+    state, top, busy, traced_ms, by_op, counts = _trace(solver, state)
     out = dict(
         regime=name, ms_per_step=ms, timed_steps=n_timed,
         sub_iters_hist={str(s): subs.count(s) for s in sorted(set(subs))},
         cg_iters_mean=sum(h["cg_iters"] for h in hist) / len(hist),
         mom_iters_mean=sum(h["mom_iters"] for h in hist) / len(hist),
         launches_per_step=launches, traced_ms_per_step=traced_ms, device_busy_share=busy,
-        device_ms_per_step_by_kernel=top,
+        device_ms_per_step_by_kernel=top, **counts,
     )
     if ops is not None:
         out.update(device_ms_per_step_by_op=by_op,
@@ -167,6 +188,54 @@ def _regime(name, solver, state, n_timed, ops=None):
                    op_ms_alone=ops(state))
     print(json.dumps(out), flush=True)
     return state
+
+
+def _xla_ops(solver, implicit):
+    """The ops of one step on the XLA structured path, each alone at its
+    shapes."""
+    def ops(state):
+        d = solver.d
+        if implicit:
+            u, p = state.uk, state.pk
+            a_mul, m_mul, grad, div, a_diag = solver._xla_operators(d, u)
+            # the next step's solve: its momentum solution's divergence,
+            # warm-started from the last increment
+            r1 = (m_mul(u) - grad(2.0 * p - state.pk_prev)) * d["bc_mask"][None] + d["bc_vel"]
+            div_u = div(solver._momentum_solve(a_mul, r1, u, a_diag).x)
+            solve = lambda: solver._pressure_update(d, div_u, p, state.pk_prev)
+            out = dict(dia_apply_a=_event_ms(lambda: a_mul(u)),
+                       dia_apply_m=_event_ms(lambda: m_mul(u)),
+                       lhs_build=_event_ms(lambda: solver._xla_operators(d, u), 3))
+        else:
+            u, p = state.un, state.pn
+            (k_mul, ka_mul, grad, div, pressure_solve, _, (mask, md_inv, _),
+             pin) = solver._xla_operators(d, u)
+            # the first sub-iteration's solve: its right-hand side, warm-started
+            # from the carried pdot
+            dt = solver.dt
+            r2 = div((u - dt * (ka_mul(u) + grad(p)) * mask * md_inv) / (dt * dt))
+            if pin >= 0:
+                r2[pin] = 0.0
+            solve = lambda: pressure_solve(r2, state.pdot)
+            out = dict(dia_apply_k=_event_ms(lambda: k_mul(u)),
+                       k_plus_a_apply=_event_ms(lambda: ka_mul(u)),
+                       ae_build=_event_ms(lambda: convection_elem_matrices(
+                           u[:, :solver.nn], d["Sv"], d["gDSv"], d["gq"], solver.elem_dims,
+                           solver.fine_dims), 3))
+        out |= dict(
+            grad=_event_ms(lambda: grad(p)),
+            div=_event_ms(lambda: div(u)),
+            z_apply=_event_ms(lambda: patches_spmv(d["Z_win"], p, solver.coarse_dims,
+                                                   solver.z_radius)),
+            pressure_solve=_event_ms(solve, 2),
+            pressure_solve_cg_iters=int((solve()[1] if implicit else solve()).iters),
+        )
+        if solver.use_mg:
+            vc = make_vcycle(d, solver.mg_dims, solver.mg_radii, solver.mg_omegas)
+            out["vcycle"] = _event_ms(lambda: vc(p))
+            out["mg_levels"] = len(solver.mg_radii)
+        return out
+    return ops
 
 
 def _padded_size(solver) -> dict:
@@ -295,19 +364,30 @@ def main() -> None:
     ap.add_argument("--deck", choices=("cavity", "bfs"), default="cavity")
     ap.add_argument("--layout", choices=("parity", "interleaved"), default="parity",
                     help="the cavity's structured layout")
+    ap.add_argument("--policy", choices=("f32", "mixed", "f64"), default="f32",
+                    help="dtype_policy (f64: the XLA structured path)")
+    ap.add_argument("--precond", choices=("auto", "jacobi", "mg"), default="auto",
+                    help="pressure_precond (mg: the XLA structured path)")
+    ap.add_argument("--backend", choices=("auto", "xla"), default="auto",
+                    help="pressure_backend (xla: the XLA structured path)")
     ap.add_argument("--bfs-dims", default="96x40x40")
     ap.add_argument("--timed", type=int, default=None,
                     help="timed steps of the BFS regime (default 50 explicit, 15 implicit)")
     args = ap.parse_args()
     dt = BENCH_DT.get(args.deck_n, 1e-3)
+    choice = dict(dtype_policy=DTypePolicy(args.policy), pressure_precond=args.precond,
+                  pressure_backend=args.backend)
+    # the cavity's layout: "parity" asks for nothing off the kernel path,
+    # where the XLA structured path has the interleaved layout
+    layout = "auto" if args.layout == "parity" else args.layout
 
     if args.deck == "bfs":
         dims = tuple(int(v) for v in args.bfs_dims.split("x"))
         implicit = args.solver == "implicit"
         deck = bfs_deck(*dims, lengths=(15.0, 2.0, 2.0), step_frac=(0.2, 0.5),
                         viscosity=0.01, dt=0.01 if implicit else 0.002)
-        cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
-                           pressure_warm_start=implicit, steps_per_chunk=25)
+        cfg = SolverConfig(pressure_cg_tol=1e-6, pressure_warm_start=implicit,
+                           steps_per_chunk=25, **choice)
         t0 = time.perf_counter()
         solver = (ImplicitGQSolver if implicit else ExplicitBCHSolver)(deck, cfg)
         print(json.dumps(dict(deck=f"bfs_deck{dims}", layout=solver.layout, nn=solver.nn,
@@ -317,14 +397,17 @@ def main() -> None:
                 ops=(_implicit_ops if implicit else _explicit_ops)(solver))
     elif args.solver == "explicit":
         deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=dt)
-        cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
-                           pressure_warm_start=True, pressure_cg_fuse_loop=True,
-                           steps_per_chunk=50, structured_layout=args.layout)
+        cfg = SolverConfig(pressure_cg_tol=1e-6, pressure_warm_start=True,
+                           pressure_cg_fuse_loop=True, steps_per_chunk=50,
+                           structured_layout=layout, **choice)
+        t0 = time.perf_counter()
         solver = ExplicitBCHSolver(deck, cfg)
         print(json.dumps(dict(deck=f"cavity_deck({args.deck_n}, cluster=2.0, dt={dt})",
-                              layout=solver.layout, nn=solver.nn, **_padded_size(solver))),
+                              layout=solver.layout, xla=solver.xla, nn=solver.nn,
+                              setup_s=time.perf_counter() - t0, **_padded_size(solver))),
               flush=True)
-        ops = _interleaved_ops(solver, False) if args.layout == "interleaved" else None
+        ops = (_xla_ops(solver, False) if solver.xla else
+               _interleaved_ops(solver, False) if args.layout == "interleaved" else None)
         state, _ = solver.run(n_steps=5)           # warm-up: kernel build and first launches
         state = _regime("spin_up", solver, state, 50, ops=ops)
         done = 5 + 50 + PROFILE_STEPS
@@ -332,14 +415,17 @@ def main() -> None:
         _regime("warm", solver, state, args.timed_warm, ops=ops)
     else:
         deck = cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=dt)
-        cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
-                           pressure_warm_start=True, steps_per_chunk=25,
-                           structured_layout=args.layout)
+        cfg = SolverConfig(pressure_cg_tol=1e-6, pressure_warm_start=True, steps_per_chunk=25,
+                           structured_layout=layout, **choice)
+        t0 = time.perf_counter()
         solver = ImplicitGQSolver(deck, cfg)
         print(json.dumps(dict(deck=f"cavity_deck({args.deck_n}, cluster=2.0, dt={dt})",
-                              layout=solver.layout, nn=solver.nn, **_padded_size(solver))),
+                              layout=solver.layout, xla=solver.xla, nn=solver.nn,
+                              setup_s=time.perf_counter() - t0, **_padded_size(solver))),
               flush=True)
-        ops = _interleaved_ops(solver, True) if args.layout == "interleaved" else None
+        interleaved_ops = _xla_ops if solver.xla else _interleaved_ops
+        ops = (interleaved_ops(solver, True)
+               if solver.xla or args.layout == "interleaved" else None)
         state, _ = solver.run(n_steps=5)
         _regime("from_rest", solver, state, 50, ops=ops)
         seed = np.load(args.state)
@@ -348,7 +434,7 @@ def main() -> None:
             deck.dt, deck.max_iter = 0.01, 1
             solver = ImplicitGQSolver(deck, cfg)
             state, _ = solver.run(solver.state_from_fields(seed["u"], seed["p"]), n_steps=5)
-            _regime("seeded", solver, state, 50, ops=ops and _interleaved_ops(solver, True))
+            _regime("seeded", solver, state, 50, ops=ops and interleaved_ops(solver, True))
         else:
             print(json.dumps(dict(regime="seeded", skipped=f"{args.state} holds "
                                   f"{seed['u'].shape[0]} nodes, the deck {solver.nn}")), flush=True)

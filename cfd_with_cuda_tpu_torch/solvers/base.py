@@ -22,6 +22,13 @@ import numpy as np
 import torch
 
 from cfd_with_cuda_tpu_torch.device import resolve_device
+from cfd_with_cuda_tpu_torch.ops.multigrid import attach_hierarchy
+from cfd_with_cuda_tpu_torch.ops.stencil import (
+    dia_div_apply,
+    dia_grad_apply,
+    patches_div_apply,
+    patches_grad_apply,
+)
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     compact_spmv_diag,
     compact_spmv_rows,
@@ -31,7 +38,8 @@ from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = [
     "StepStats", "ChunkedTimeLoop", "unpack_chunk_stats", "unsupported_config",
-    "unsupported_on_box", "compact_spmv_tables",
+    "kernel_path", "compact_spmv_tables", "xla_g_tables", "xla_grad_div",
+    "xla_attach_multigrid",
 ]
 
 # the interleaved steps' full window tables (the JAX package's, kept under
@@ -66,22 +74,68 @@ class StepStats(NamedTuple):
     mom_iters: torch.Tensor | int   # momentum-solver iterations (0 for explicit)
 
 
-def unsupported_on_box(cfg) -> str | None:
-    """The ``ROADMAP.md`` item of the first ``SolverConfig`` choice that the
-    port does not run on a box mesh that the JAX package takes onto its
-    structured path (None when there is none): off its kernel path (F32 or
-    MIXED, backend not ``"xla"``, preconditioner not ``"mg"``) it runs its
-    XLA DIA operators and multigrid preconditioner, which are not ported.
-    On the ELL path (any other mesh, and for the implicit solver a box whose
-    elements do not tile it, as in the JAX package) F64 and
-    ``pressure_backend="xla"`` run (the torch CG)."""
-    if cfg.dtype_policy.value == "f64":
-        return ("dtype_policy=F64 on a box mesh (the XLA DIA / multigrid path: "
-                "ROADMAP.md queue 1 item 6)")
-    if cfg.pressure_backend == "xla" or cfg.pressure_precond == "mg":
-        return ("the XLA pressure CG / multigrid preconditioner on a box mesh "
-                "(ROADMAP.md queue 1 item 6)")
-    return None
+def kernel_path(cfg) -> bool:
+    """Whether a box mesh (or a banded pressure operator) takes the kernel
+    path: the JAX package's ``fused_pressure_eligible`` on its own chip,
+    f32 storage (F32 or MIXED), a backend other than ``"xla"`` and a
+    preconditioner other than ``"mg"`` (the fused CG is Jacobi-only).
+    Otherwise a box takes the XLA structured path: DIA / window-patches
+    applies of torch ops, the torch CG and, under ``pressure_precond="auto"``
+    or ``"mg"``, the multigrid V-cycle."""
+    return (cfg.dtype_policy.value != "f64" and cfg.pressure_backend != "xla"
+            and cfg.pressure_precond != "mg")
+
+
+def xla_g_tables(solver, g_dias, gt_dias, dtype, pad) -> dict:
+    """G and G^T of the XLA structured path from their per-direction DIA
+    operators, padded by ``pad``: under F64 (``solver.f64_dia``) the DIA
+    tables ``G_dia{i}`` / ``GT_dia{i}`` with their offsets
+    (``solver.g_dia_off`` / ``gt_dia_off``), applied in roll form; otherwise
+    the windows ``G_win`` / ``GT_win`` at ``solver.g_radius`` /
+    ``gt_radius``, applied in window-patches form (explicit_bch.py:385-402:
+    the patches form of G^T extracts a (3, W^3, S) tensor per apply)."""
+    solver.f64_dia = np.dtype(dtype) == np.float64
+    if solver.f64_dia:
+        solver.g_dia_off = tuple(g.flat_offsets for g in g_dias)
+        solver.gt_dia_off = tuple(g.flat_offsets for g in gt_dias)
+        out = {f"G_dia{i}": pad(np.asarray(g_dias[i].vals, dtype=dtype)) for i in range(3)}
+        return out | {f"GT_dia{i}": pad(np.asarray(gt_dias[i].vals, dtype=dtype))
+                      for i in range(3)}
+    solver.g_dia_off = solver.gt_dia_off = None
+    return {
+        "G_win": pad(np.stack([g.window_vals(solver.g_radius, dtype) for g in g_dias])),
+        "GT_win": pad(np.stack([g.window_vals(solver.gt_radius, dtype) for g in gt_dias])),
+    }
+
+
+def xla_grad_div(solver, d: dict, size: int):
+    """(G, G^T) applies of the XLA structured path on the tables of
+    :func:`xla_g_tables`: ``grad(p) (3, s_pad)`` from the coarse pressure,
+    ``div(u) (NNp,)`` from ``u (3, s_pad)``; ``size`` is the real fine-grid
+    size (<= s_pad)."""
+    fine, coarse, s_pad = solver.fine_dims, solver.coarse_dims, solver.s_pad
+    pad = lambda y: torch.nn.functional.pad(y, (0, s_pad - y.shape[-1]))
+    if solver.f64_dia:
+        g = [d[f"G_dia{i}"] for i in range(3)]
+        gt = [d[f"GT_dia{i}"] for i in range(3)]
+        grad = lambda p: dia_grad_apply(g, p, solver.g_dia_off, coarse, fine, s_pad)
+        div = lambda u: dia_div_apply(gt, u, solver.gt_dia_off, coarse, fine)
+    else:
+        grad = lambda p: pad(patches_grad_apply(d["G_win"][..., :size], p, coarse, fine,
+                                                solver.g_radius))
+        div = lambda u: patches_div_apply(d["GT_win"][..., :size], u[:, :size], coarse, fine,
+                                          solver.gt_radius)
+    return grad, div
+
+
+def xla_attach_multigrid(solver, d: dict, Z, box, dtype, wanted: bool) -> None:
+    """``solver.use_mg`` and the multigrid levels of the pinned Z in grid
+    order when ``wanted`` (``ops/multigrid.attach_hierarchy``); the mg
+    attributes stay None otherwise."""
+    solver.use_mg, solver.mg_dims, solver.mg_radii, solver.mg_omegas = False, None, None, None
+    if wanted:
+        inv_p = np.argsort(box.perm_p)          # flat grid id -> node id
+        attach_hierarchy(solver, d, Z[inv_p][:, inv_p].tocsr(), box.coarse_dims, dtype)
 
 
 def unsupported_config(cfg) -> str | None:
@@ -104,11 +158,14 @@ def unpack_chunk_stats(packed) -> tuple[StepStats, bool]:
 class ChunkedTimeLoop:
     """Base of the solvers: setup once from a deck, then run chunks of
     time steps.  Subclasses provide ``STATIC_ATTRS``,
-    ``INTERLEAVED_STATIC_ATTRS`` and ``ELL_STATIC_ATTRS``, ``_setup``,
-    ``_time_step``, ``_monitor_only`` and ``initial_state``.  ``layout`` is
-    ``"parity"`` (a box mesh, class-major fields), ``"interleaved"`` (a box
-    mesh, flat grid-order fields) or ``"ell"`` (any other mesh, or
-    ``structured="never"``).
+    ``INTERLEAVED_STATIC_ATTRS``, ``XLA_STATIC_ATTRS`` and
+    ``ELL_STATIC_ATTRS``, ``_setup``, ``_time_step``, ``_monitor_only`` and
+    ``initial_state``.  ``layout`` is ``"parity"`` (a box mesh, class-major
+    fields), ``"interleaved"`` (a box mesh, flat grid-order fields) or
+    ``"ell"`` (any other mesh, or ``structured="never"``), as the JAX
+    package names it.  ``xla`` marks the XLA structured path of a box (off
+    the kernel path, :func:`kernel_path`), whose layout reads
+    ``"interleaved"`` as in the JAX package.
 
     ``device=None`` runs on the CUDA card (raises without one);
     ``device="cpu"`` runs every kernel's plain PyTorch version.
@@ -120,6 +177,7 @@ class ChunkedTimeLoop:
     # layout (the interop module carries the JAX solver's across)
     STATIC_ATTRS: tuple[str, ...] = ()
     INTERLEAVED_STATIC_ATTRS: tuple[str, ...] = ()
+    XLA_STATIC_ATTRS: tuple[str, ...] = ()
     ELL_STATIC_ATTRS: tuple[str, ...] = ()
 
     def __init__(self, deck, config=None, device=None, *, plain: bool = False):
@@ -132,31 +190,33 @@ class ChunkedTimeLoop:
         """A solver from ready tables (the interop module's, or another
         solver's ``d``) and the static values of its layout
         (:meth:`static_attrs`; ``attrs["layout"]`` defaults to
-        ``"parity"``), skipping the host setup."""
+        ``"parity"``, ``attrs["xla"]`` to False), skipping the host setup."""
         self = cls.__new__(cls)
         self._configure(deck, config, device, plain)
-        self._set_layout(attrs.get("layout", "parity"))
+        self._set_layout(attrs.get("layout", "parity"), xla=attrs.get("xla", False))
         for k in self._layout_attrs():
             setattr(self, k, attrs[k])
         self.d = {k: v.to(self.device) for k, v in tables.items()}
         return self
 
     def _layout_attrs(self) -> tuple[str, ...]:
+        if self.xla:
+            return self.XLA_STATIC_ATTRS
         return {"parity": self.STATIC_ATTRS, "interleaved": self.INTERLEAVED_STATIC_ATTRS,
                 "ell": self.ELL_STATIC_ATTRS}[self.layout]
 
     def static_attrs(self) -> dict:
         """The layout and its static values, for :meth:`from_tables`."""
-        return {"layout": self.layout, **{k: getattr(self, k) for k in self._layout_attrs()}}
+        return {"layout": self.layout, "xla": self.xla,
+                **{k: getattr(self, k) for k in self._layout_attrs()}}
 
-    def _set_layout(self, layout: str) -> None:
-        """Take a box mesh's parity or interleaved layout or the unstructured
-        ELL path, raising for what that path does not run."""
+    def _set_layout(self, layout: str, *, xla: bool = False) -> None:
+        """Take a box mesh's parity or interleaved layout (``xla``: the XLA
+        structured path, whose layout is ``"interleaved"``) or the
+        unstructured ELL path, raising the JAX package's errors for what
+        that path cannot run."""
         cfg = self.config
         if layout in ("parity", "interleaved"):
-            why = unsupported_on_box(cfg)
-            if why is not None:
-                raise NotImplementedError(f"not ported yet: {why}")
             if layout == "interleaved" and cfg.structured_layout == "parity":
                 # the JAX package's own error (explicit_bch.py:202-207)
                 raise ValueError(
@@ -179,6 +239,7 @@ class ChunkedTimeLoop:
         else:
             raise ValueError(f"unknown layout {layout!r}")
         self.layout = layout
+        self.xla = xla
 
     def _configure(self, deck, config, device, plain) -> None:
         self.deck = deck

@@ -43,8 +43,16 @@ an ELL pressure operator run the torch ``cg`` (``ops/krylov.py``), as the
 JAX package runs its XLA CG there.  The sub-iteration convergence flag is
 read on the host once per sub-iteration.
 
-Configurations that the JAX package runs on another branch raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Off the kernel path (F64, ``pressure_backend="xla"`` or
+``pressure_precond="mg"``: the JAX package's default ``SolverConfig()``) a
+box mesh takes the XLA structured path, whose layout is the interleaved one
+(``xla`` set): torch ops only, K by ``dia_spmv`` (a roll and a
+multiply-add per diagonal), G and G^T as per-direction DIA tables under F64
+and as window patches otherwise, A(un) u* matrix-free per sub-iteration,
+and the torch CG on the coarse Z window (``patches_spmv``) with the
+multigrid V-cycle of ``ops/multigrid.py`` (``pressure_precond="auto"`` or
+``"mg"``) or Jacobi.  A choice invalid for the mesh raises the JAX
+package's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -77,11 +85,14 @@ from cfd_with_cuda_tpu_torch.ops import spmv
 from cfd_with_cuda_tpu_torch.ops.banded import banded_from_csr, banded_spmv
 from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
 from cfd_with_cuda_tpu_torch.ops.krylov import cg
+from cfd_with_cuda_tpu_torch.ops.multigrid import make_vcycle
 from cfd_with_cuda_tpu_torch.ops.stencil import (
     assemble_compact_values,
     coarse_to_fine,
     convection_apply_elem,
     convection_elem_matrices,
+    dia_spmv,
+    patches_spmv,
 )
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     compact_g_window,
@@ -94,7 +105,15 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     window_spmv_compact,
     window_spmv_compact_plain,
 )
-from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, compact_spmv_tables
+from cfd_with_cuda_tpu_torch.solvers.base import (
+    ChunkedTimeLoop,
+    StepStats,
+    compact_spmv_tables,
+    kernel_path,
+    xla_attach_multigrid,
+    xla_g_tables,
+    xla_grad_div,
+)
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = ["ExplicitState", "StepStats", "ExplicitBCHSolver"]
@@ -120,12 +139,6 @@ class ExplicitState(NamedTuple):
 _PLANES_MAX_SP = 100_000
 
 
-def _banded_kernel_cg(cfg: SolverConfig) -> bool:
-    """Whether a banded pressure operator goes through the CG kernels (the
-    JAX package's ``fused_pressure_eligible``: f32 storage, not "xla")."""
-    return cfg.dtype_policy.value != "f64" and cfg.pressure_backend != "xla"
-
-
 class ExplicitBCHSolver(ChunkedTimeLoop):
     """Setup once from a deck, then run chunks of time steps.
 
@@ -147,6 +160,12 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         "nn", "nnp", "dt", "pin_grid", "perm", "perm_p", "fine_dims",
         "coarse_dims", "elem_dims", "elem_structured", "local_off", "k_offsets",
         "z_radius", "g_radius", "s_pad", "conv_oij", "monitor_node", "monitor_node_p",
+    )
+    XLA_STATIC_ATTRS = (
+        "nn", "nnp", "dt", "pin_grid", "perm", "perm_p", "fine_dims", "coarse_dims",
+        "elem_dims", "elem_structured", "local_off", "k_offsets", "z_radius", "g_radius",
+        "gt_radius", "s_pad", "monitor_node", "monitor_node_p", "f64_dia", "g_dia_off",
+        "gt_dia_off", "use_mg", "mg_dims", "mg_radii", "mg_omegas",
     )
     ELL_STATIC_ATTRS = ("nn", "nnp", "dt", "pin", "monitor_node", "monitor_node_p", "z_offs")
 
@@ -211,6 +230,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                 dias = None
         if dias is None:
             d = self._setup_ell
+        elif not kernel_path(cfg):
+            d = self._setup_xla
         elif box.elem_perm is not None and cfg.structured_layout != "interleaved":
             d = self._setup_parity
         else:
@@ -375,6 +396,66 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         self.monitor_node = int(box.perm[mon])
         # pressure lives on the COARSE grid in perm_p order
         self.monitor_node_p = int(box.perm_p[mon])
+        return d
+
+    def _setup_xla(self, tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv) -> dict:
+        """Tables of the XLA structured path (the JAX package's
+        ``_try_structured`` off its kernel path, explicit_bch.py:320-503):
+        the K DIA table, the coarse Z window and diagonal, G and G^T as
+        per-direction DIA tables under F64 (``f64_dia``: the window-patches
+        form would extract a (3, 125, S) patch tensor per apply) or as
+        windows otherwise, the mass and BC vectors, every fine-grid table
+        padded to ``s_pad`` (a ``shard_pad`` multiple, no block padding),
+        the element tables as the interleaved layout has them, and the
+        multigrid ladder of the pinned, grid-ordered Z under
+        ``pressure_precond="auto"`` or ``"mg"``."""
+        self._set_layout("interleaved", xla=True)
+        deck, cfg, mesh = self.deck, self.config, self.mesh
+        dtype = cfg.np_dtype()
+        dev = lambda x: np.asarray(x, dtype=dtype)
+        k_dia, z_dia, g_dias, gt_dias = dias
+        fx, fy, _ = box.fine_dims
+        self.perm, self.perm_p = box.perm, box.perm_p
+        self.fine_dims, self.coarse_dims = box.fine_dims, box.coarse_dims
+        self.elem_structured = box.elem_perm is not None
+        self.elem_dims, self.local_off = box.elem_dims, box.local_off
+        self.k_offsets = k_dia.flat_offsets
+        self.z_radius = z_dia.radius
+        self.g_radius = max(g.radius for g in g_dias)
+        self.gt_radius = max(g.radius for g in gt_dias)
+        size = box.size
+        self.s_pad = shard_pad_size(size, cfg, False)
+        pad = lambda v: np.pad(v, [(0, 0)] * (v.ndim - 1) + [(0, self.s_pad - size)])
+        permute_vec = box.permute_vec
+        gw = xla_g_tables(self, g_dias, gt_dias, dtype, pad)
+        d = gw | {
+            "K_vals": pad(dev(k_dia.vals)),
+            "Z_win": dev(z_dia.window_vals(dtype=dtype)),
+            "Z_diag": dev(box.permute_vec_p(np.asarray(Z.diagonal()))),
+            "md_inv": pad(dev(permute_vec(md_inv))),
+            "md_orig_inv": pad(dev(permute_vec(md_orig_inv))),
+            "bc_mask": pad(dev(permute_vec(np.where(is_bc, 0.0, 1.0)))),
+            "bc_vel": pad(dev(np.stack([permute_vec(bc_vel[:, i]) for i in range(3)]))),
+        }
+        if self.elem_structured:
+            d |= dict(zip(("Sv", "gDSv", "gq"), map(dev, box.elem_grid_tables(tab))))
+        else:
+            # the elemental convection of ops/spmv.py on grid-order node ids
+            ltog = np.asarray(box.perm[mesh.ltog_node], dtype=np.int32)     # (NE, 27)
+            d |= {"ltog": ltog, "rev": spmv.build_reverse_incidence(ltog, size),
+                  "Sv": dev(tab.Sv), "gDSv": dev(np.transpose(tab.gDSv, (0, 3, 2, 1))),
+                  "gq": dev(tab.gq_factor)}
+        pin = deck.zero_pressure_node
+        self.pin_grid = int(box.perm_p[pin]) if pin >= 0 else -1
+        mon = find_monitor_node(
+            deck.coords,
+            deck.monitor_xyz if deck.monitor_xyz is not None else (0.5,) * 3,
+        )
+        self.monitor_node = int(box.perm[mon])
+        # pressure lives on the COARSE grid in perm_p order
+        self.monitor_node_p = int(box.perm_p[mon])
+        # the V-cycle on the pinned Z in grid order (explicit_bch.py:491-503)
+        xla_attach_multigrid(self, d, Z, box, dtype, cfg.pressure_precond in ("auto", "mg"))
         return d
 
     def _setup_ell(self, tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv) -> dict:
@@ -578,6 +659,45 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         return (k_mul, ka_mul, grad, div, self._box_pressure_solve(d), probe, masks,
                 self.pin_grid)
 
+    def _xla_operators(self, d, un):
+        """The same on the XLA structured path (explicit_bch.py:655-743,
+        1086-1110): K by ``dia_spmv``, Z by ``patches_spmv``, G and G^T in
+        roll form under F64 and in window-patches form otherwise, A(un) u*
+        matrix-free per sub-iteration, and the torch CG with the V-cycle
+        (or Jacobi) preconditioner."""
+        cfg = self.config
+        fine, coarse, nn, s_pad = self.fine_dims, self.coarse_dims, self.nn, self.s_pad
+        pad = lambda y: torch.nn.functional.pad(y, (0, s_pad - y.shape[-1]))
+        k_mul = lambda u: dia_spmv(d["K_vals"], u, self.k_offsets)
+        z_mul = lambda p: patches_spmv(d["Z_win"], p, coarse, self.z_radius)
+        grad, div = xla_grad_div(self, d, nn)
+        if self.elem_structured:
+            # A_e(un) once per step; A(un) u* matrix-free per sub-iteration
+            # (the JAX package's convection_apply_stencil)
+            ae = convection_elem_matrices(un[:, :nn], d["Sv"], d["gDSv"], d["gq"],
+                                          self.elem_dims, fine, stab_coef=cfg.conv_stab)
+            ka_mul = lambda u: k_mul(u) + pad(convection_apply_elem(
+                ae, u[:, :nn], self.local_off, self.elem_dims, fine))
+        else:
+            def ka_mul(u):
+                conv = spmv.convection_apply(un, u, d["ltog"], d["Sv"], d["gDSv"], d["gq"],
+                                             d["rev"], stab_coef=cfg.conv_stab)
+                return k_mul(u) + pad(conv)
+        if self.use_mg:
+            precond = make_vcycle(d, self.mg_dims, self.mg_radii, self.mg_omegas)
+        else:
+            precond = lambda r: r / d["Z_diag"]
+        warm = cfg.pressure_warm_start
+
+        def pressure_solve(r2, x0):
+            return cg(z_mul, r2, x0 if warm else None, tol=cfg.pressure_cg_tol,
+                      maxiter=cfg.pressure_cg_maxiter, precond=precond,
+                      dot_dtype=cfg.krylov_dot_dtype())
+
+        probe = lambda u, c: u[c, self.monitor_node]
+        masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
+        return k_mul, ka_mul, grad, div, pressure_solve, probe, masks, self.pin_grid
+
     def _ell_operators(self, d, un):
         """The same on the unstructured path (explicit_bch.py:707-743,
         978-1068): elemental applies, Ke + Ae(un) built once per step, and
@@ -594,7 +714,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         ka_mul = lambda u: spmv.elem_matvec_apply(ka, u, ltog, rev)
         warm = cfg.pressure_warm_start
 
-        if self.z_offs is not None and _banded_kernel_cg(cfg):
+        if self.z_offs is not None and kernel_path(cfg):
             cg_solve = fused_cg_plain if self.plain else fused_cg
 
             def pressure_solve(r2, x0):
@@ -630,8 +750,9 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             pdot_init = pdot0 + (pdot0 - pdot_nm1)
         else:
             pdot_init = pdot0
-        operators = {"parity": self._parity_operators, "interleaved": self._interleaved_operators,
-                     "ell": self._ell_operators}[self.layout]
+        operators = self._xla_operators if self.xla else {
+            "parity": self._parity_operators, "interleaved": self._interleaved_operators,
+            "ell": self._ell_operators}[self.layout]
         (k_mul, ka_mul, grad, div, pressure_solve, probe,
          (mask, md_inv_b, md_orig_inv_b), pin) = operators(d, un)
         g_pn = grad(pn)                     # loop-invariant: pn is fixed

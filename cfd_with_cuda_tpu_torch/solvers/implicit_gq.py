@@ -42,9 +42,15 @@ check at :3347-3353 assigns ``maxAcc`` *signed* (a bug — its own explicit
 solver takes |.| at ``blascoCodinaHuerta.cpp:3049-3061``), which can
 spuriously stop the run; this rebuild uses the correct |.| semantics.
 
-Configurations that the JAX package runs on its XLA structured path (F64,
-``pressure_backend="xla"``, multigrid on a box mesh) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Off the kernel path (F64, ``pressure_backend="xla"`` or
+``pressure_precond="mg"``: the JAX package's default ``SolverConfig()``) an
+element-structured box takes the XLA structured path, whose layout is the
+interleaved one (``xla`` set): A(u^k) assembled into the full A DIA table
+each step, A and M by ``dia_spmv``, G and G^T as per-direction DIA tables
+under F64 and as window patches otherwise, BiCGStab, and the torch CG on the
+direct Z window with the multigrid V-cycle (``pressure_precond="mg"``, or
+``"auto"`` when Z is regular) or Jacobi.  A choice invalid for the mesh
+raises the JAX package's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -75,10 +81,14 @@ from cfd_with_cuda_tpu_torch.ops import spmv
 from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
 from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
 from cfd_with_cuda_tpu_torch.ops.krylov import cg, solver_by_name
+from cfd_with_cuda_tpu_torch.ops.multigrid import make_vcycle
 from cfd_with_cuda_tpu_torch.ops.stencil import (
     assemble_compact_values,
+    assemble_window_values,
     coarse_to_fine,
     convection_elem_matrices,
+    dia_spmv,
+    patches_spmv,
 )
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     compact_g_window,
@@ -91,7 +101,15 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     window_spmv_compact,
     window_spmv_compact_plain,
 )
-from cfd_with_cuda_tpu_torch.solvers.base import ChunkedTimeLoop, StepStats, compact_spmv_tables
+from cfd_with_cuda_tpu_torch.solvers.base import (
+    ChunkedTimeLoop,
+    StepStats,
+    compact_spmv_tables,
+    kernel_path,
+    xla_attach_multigrid,
+    xla_g_tables,
+    xla_grad_div,
+)
 
 __all__ = ["ImplicitState", "ImplicitGQSolver"]
 
@@ -115,6 +133,12 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         "nn", "nnp", "dt", "pin_grid", "perm", "perm_p", "fine_dims", "coarse_dims",
         "elem_dims", "local_off", "a_offsets", "a_zero_off", "z_radius", "g_radius",
         "s_pad", "conv_oij", "monitor_node", "monitor_node_p", "ppe_project",
+    )
+    XLA_STATIC_ATTRS = (
+        "nn", "nnp", "dt", "pin_grid", "perm", "perm_p", "fine_dims", "coarse_dims",
+        "elem_dims", "local_off", "a_offsets", "a_zero_off", "z_radius", "g_radius",
+        "gt_radius", "s_pad", "conv_oij", "monitor_node", "monitor_node_p", "ppe_project",
+        "f64_dia", "g_dia_off", "gt_dia_off", "use_mg", "mg_dims", "mg_radii", "mg_omegas",
     )
     ELL_STATIC_ATTRS = ("nn", "nnp", "dt", "pin", "monitor_node", "monitor_node_p",
                         "ppe_project")
@@ -223,7 +247,8 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         """DIA operators of a box grid and the per-step assembly maps of its
         parity layout, or of its interleaved layout when asked for or when
         the parity LHS assembly cannot route (``_try_structured`` of the JAX
-        package, :339-663, less the multigrid branch, which its kernel path
+        package, :339-663; off the kernel path the XLA structured path's tables,
+:func:`_xla_tables`, with its multigrid branch, which the kernel path
         never takes).  False, with nothing set, for a mesh that the JAX
         package runs on its ELL step."""
         deck = self.deck
@@ -263,6 +288,21 @@ class ImplicitGQSolver(ChunkedTimeLoop):
 
         dev = lambda x: np.asarray(x, dtype=dtype)
         sv_t, gdsv_t, gq_t = map(dev, box.elem_grid_tables(self.tables))
+        self.pin_grid = int(perm_p[pin]) if pin >= 0 else -1
+        mon = find_monitor_node(
+            deck.coords,
+            deck.monitor_xyz if deck.monitor_xyz is not None else (0.5,) * 3,
+        )
+        self.monitor_node = int(perm[mon])
+        # the pressure field lives on the COARSE grid in perm_p order
+        self.monitor_node_p = int(perm_p[mon])
+        bc_mask = dev(box.permute_vec(np.where(is_bc, 0.0, 1.0)))
+        bc_vel = dev(np.stack([box.permute_vec(bc_vel[:, i]) for i in range(3)]))
+        if not kernel_path(cfg):
+            self._set_layout("interleaved", xla=True)
+            self.d = self._xla_tables(box, is_bc, Z, p_mask, mk_dia, m_dia, z_dia, g_dias,
+                                      gt_dias, sv_t, gdsv_t, gq_t, bc_mask, bc_vel)
+            return True
         z_diag = dev(box.permute_vec_p(np.asarray(Z.diagonal())))
         z_win = dev(z_dia.window_vals(dtype=dtype))
         if cfg.pressure_cg_sym:
@@ -281,18 +321,8 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         tabs = dict(
             box=box, mk_dia=mk_dia, m_dia=m_dia, gt_win=gt_win, gDSv=gdsv_t,
             gq=gq_t, g_win=dev(np.stack([g.window_vals(self.g_radius, dtype) for g in g_dias])),
-            bc_mask=dev(box.permute_vec(np.where(is_bc, 0.0, 1.0))),
-            bc_vel=dev(np.stack([box.permute_vec(bc_vel[:, i]) for i in range(3)])),
+            bc_mask=bc_mask, bc_vel=bc_vel,
         )
-
-        self.pin_grid = int(perm_p[pin]) if pin >= 0 else -1
-        mon = find_monitor_node(
-            deck.coords,
-            deck.monitor_xyz if deck.monitor_xyz is not None else (0.5,) * 3,
-        )
-        self.monitor_node = int(perm[mon])
-        # the pressure field lives on the COARSE grid in perm_p order
-        self.monitor_node_p = int(perm_p[mon])
 
         d = None
         if cfg.structured_layout != "interleaved":
@@ -425,6 +455,62 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         # class-major table of the window SPMV
         return d | compact_spmv_tables(d, self.a_offsets, box.fine_dims)
 
+    def _xla_tables(self, box, is_bc, Z, p_mask, mk_dia, m_dia, z_dia, g_dias, gt_dias, sv,
+                    gdsv, gq, bc_mask, bc_vel) -> dict:
+        """The XLA structured path's tables (implicit_gq.py:339-537 off the
+        kernel path): the MK and M DIA tables with the LHS's row mask and
+        unit-diagonal add (padding rows get the unit diagonal), the direct
+        27-slot Z window and diagonal, G and G^T as per-direction DIA tables
+        under F64 and as windows otherwise, every fine-grid table padded to
+        ``s_pad`` (a ``shard_pad`` multiple, no block padding), and the
+        multigrid ladder of the pinned, grid-ordered Z under "mg", or under
+        "auto" when Z is regular (a pin or outflow rows)."""
+        cfg = self.config
+        dtype = cfg.np_dtype()
+        dev = lambda x: np.asarray(x, dtype=dtype)
+        size = box.size
+        self.s_pad = shard_pad_size(size, cfg, False)
+        pad = lambda v: np.pad(v, [(0, 0)] * (v.ndim - 1) + [(0, self.s_pad - size)])
+        self.gt_radius = max(g.radius for g in gt_dias)
+        fx, fy, _ = box.fine_dims
+        self.local_off = box.local_off
+        # channel pair (i, j) -> the fixed A offset fo(j) - fo(i) it lands at
+        fo = [ox + fx * (oy + fy * oz) for (ox, oy, oz) in box.local_off]
+        slot = {o: k for k, o in enumerate(self.a_offsets)}
+        self.conv_oij = tuple(tuple(slot[fo[j] - fo[i]] for j in range(len(fo)))
+                              for i in range(len(fo)))
+        diag_add = np.zeros(self.s_pad)
+        diag_add[box.perm[is_bc]] = 1.0
+        diag_add[size:] = 1.0          # padding rows -> identity (keeps Jacobi finite)
+        d = xla_g_tables(self, g_dias, gt_dias, dtype, pad)
+        d |= {
+            "Sv": sv,
+            "gDSv": gdsv,
+            "gq": gq,
+            "MK_vals": pad(dev(mk_dia.vals)),
+            "M_vals": pad(dev(m_dia.vals)),
+            "row_mask_grid": pad(bc_mask),
+            "diag_add_grid": dev(diag_add),
+            "Z_win": dev(z_dia.window_vals(dtype=dtype)),
+            "Z_diag": dev(box.permute_vec_p(np.asarray(Z.diagonal()))),
+            "p_mask": dev(box.permute_vec_p(p_mask)),
+            "bc_mask": pad(bc_mask),
+            "bc_vel": pad(bc_vel),
+        }
+        # the V-cycle needs a nonsingular Z: the Galerkin coarse solve of the
+        # unpinned all-Neumann Laplacian inverts a singular matrix
+        # (implicit_gq.py:515-537)
+        z_regular = self.deck.zero_pressure_node >= 0 or float(np.min(p_mask)) == 0.0
+        if cfg.pressure_precond == "mg" and not z_regular:
+            raise ValueError(
+                "pressure_precond='mg' needs a nonsingular Z (a pressure "
+                "pin node > 0 or outflow Dirichlet rows); this deck's "
+                "all-Neumann Z is singular"
+            )
+        xla_attach_multigrid(self, d, Z, box, dtype, cfg.pressure_precond == "mg" or (
+            cfg.pressure_precond == "auto" and z_regular))
+        return d
+
     def _setup_ell(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> None:
         """Slot-major ELL operators and the per-step assembly maps of the
         ELL step (implicit_gq.py:224-337): Dirichlet row masks on the CSR
@@ -513,15 +599,17 @@ class ImplicitGQSolver(ChunkedTimeLoop):
 
     # ------------------------------------------------------------- one step
     def _time_step(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
+        if self.xla:
+            return self._time_step_xla(d, state)
         return {"parity": self._time_step_parity, "interleaved": self._time_step_interleaved,
                 "ell": self._time_step_ell}[self.layout](d, state)
 
     def _pressure_update(self, d, div_uk, pk_prev, pk_prevprev):
         """step2 of the box layouts: R2 = -(1/dt) G^T u^k, the pressure CG on
-        the coarse Z window, p^{k+1} = p^k + Pdiff.  Returns (p^{k+1}, CG
-        result)."""
+        the coarse Z window (the CG kernels, or on the XLA path the torch CG
+        with the V-cycle or Jacobi), p^{k+1} = p^k + Pdiff.  Returns (p^{k+1},
+        CG result)."""
         cfg = self.config
-        cg_solve = fused_cg_plain if self.plain else fused_cg
         r2 = (-1.0 / self.dt) * div_uk * d["p_mask"]
         if self.ppe_project:
             # all-Neumann + boundary thru-flow: remove the null-space
@@ -530,17 +618,28 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         if self.pin_grid >= 0:
             r2[self.pin_grid] = 0.0
         warm = bool(cfg.implicit_warm_start)
-        sol = cg_solve(
-            d["Z_win"], r2, d["Z_dinv"],
-            dims=self.coarse_dims, radius=self.z_radius,
-            tol=cfg.pressure_cg_tol, maxiter=cfg.pressure_cg_maxiter,
-            x0=(pk_prev - pk_prevprev) if warm else None,
-            unroll=max(1, int(cfg.pressure_cg_unroll)),
-            fuse_loop=cfg.pressure_cg_fuse_loop,
-            sym=cfg.pressure_cg_sym,
-            # MIXED policy: f64-accumulated dots inside the kernels
-            dot_mode="compensated" if cfg.krylov_dot_dtype() is not None else "plain",
-        )
+        x0 = (pk_prev - pk_prevprev) if warm else None
+        if self.xla:
+            if self.use_mg:
+                precond = make_vcycle(d, self.mg_dims, self.mg_radii, self.mg_omegas)
+            else:
+                precond = lambda r: r / d["Z_diag"]
+            sol = cg(lambda p: patches_spmv(d["Z_win"], p, self.coarse_dims, self.z_radius),
+                     r2, x0=x0, tol=cfg.pressure_cg_tol, maxiter=cfg.pressure_cg_maxiter,
+                     dot_dtype=cfg.krylov_dot_dtype(), precond=precond)
+        else:
+            cg_solve = fused_cg_plain if self.plain else fused_cg
+            sol = cg_solve(
+                d["Z_win"], r2, d["Z_dinv"],
+                dims=self.coarse_dims, radius=self.z_radius,
+                tol=cfg.pressure_cg_tol, maxiter=cfg.pressure_cg_maxiter,
+                x0=x0,
+                unroll=max(1, int(cfg.pressure_cg_unroll)),
+                fuse_loop=cfg.pressure_cg_fuse_loop,
+                sym=cfg.pressure_cg_sym,
+                # MIXED policy: f64-accumulated dots inside the kernels
+                dot_mode="compensated" if cfg.krylov_dot_dtype() is not None else "plain",
+            )
         pdiff = sol.x
         if self.ppe_project:
             # singular all-Neumann solve: pick the mean-zero representative
@@ -697,6 +796,56 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         # ---- step2: pressure CG on the coarse grid
         div_uk = div_c(d["GT_cwin"], uk, fine, self.coarse_dims)[: self.nnp]
         pk, sol = self._pressure_update(d, div_uk, pk_prev, pk_prevprev)
+
+        max_acc = torch.max(torch.abs(uk - uk_prev)) / dt
+        mon = self.monitor_node
+        stats = StepStats(
+            u_mon=uk[0, mon], v_mon=uk[1, mon], w_mon=uk[2, mon],
+            p_mon=pk[self.monitor_node_p], max_acc=max_acc,
+            iters=1, cg_iters=sol.iters, mom_iters=mom.iters,
+        )
+        return ImplicitState(uk=uk, pk=pk, pk_prev=pk_prev), stats
+
+    def _xla_operators(self, d, uk_prev):
+        """(A, M, G, G^T, diag(A)) of the XLA structured step
+        (implicit_gq.py:836-870, 955-990): the per-step LHS assembled into
+        the full A DIA table (``assemble_window_values``), A and M by
+        ``dia_spmv``, G and G^T in roll form under F64 and in window-patches
+        form otherwise."""
+        cfg = self.config
+        fine, s_pad = self.fine_dims, self.s_pad
+        size = int(np.prod(fine))               # real fine-grid size (<= s_pad)
+        # A = M/dt + K + A(u^k), BC rows zeroed with a unit diagonal (padding
+        # rows too); each element's (i, j) entry lands at the fixed offset
+        # conv_oij[i][j]
+        ae = convection_elem_matrices(uk_prev[:, :size], d["Sv"], d["gDSv"], d["gq"],
+                                      self.elem_dims, fine, stab_coef=cfg.conv_stab)
+        conv_vals = assemble_window_values(ae, self.local_off, self.conv_oij,
+                                           len(self.a_offsets), self.elem_dims, fine, s_pad)
+        a_vals = (d["MK_vals"] + conv_vals) * d["row_mask_grid"][None, :]
+        a_vals[self.a_zero_off] += d["diag_add_grid"]
+        a_mul = lambda x: dia_spmv(a_vals, x, self.a_offsets)
+        m_mul = lambda x: dia_spmv(d["M_vals"], x, self.a_offsets)
+        grad, div = xla_grad_div(self, d, size)
+        return a_mul, m_mul, grad, div, a_vals[self.a_zero_off]
+
+    def _time_step_xla(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
+        """The XLA structured step (implicit_gq.py:836-870, 955-990,
+        1073-1091): :meth:`_xla_operators`, the Jacobi BiCGStab and the
+        torch pressure CG."""
+        dt = self.dt
+        uk_prev, pk_prev, pk_prevprev = state   # uk (3, s_pad)
+        a_mul, m_mul, grad, div, a_diag = self._xla_operators(d, uk_prev)
+
+        # ---- RHS = (M/dt) u^k - G (2 p^k - p^{k-1}); BC rows = BC values
+        pdiff2 = 2.0 * pk_prev - pk_prevprev
+        r1 = m_mul(uk_prev) - grad(pdiff2)
+        r1 = r1 * d["bc_mask"][None, :] + d["bc_vel"]
+        mom = self._momentum_solve(a_mul, r1, uk_prev, a_diag)
+        uk = mom.x
+
+        # ---- step2: pressure CG on the coarse grid
+        pk, sol = self._pressure_update(d, div(uk), pk_prev, pk_prevprev)
 
         max_acc = torch.max(torch.abs(uk - uk_prev)) / dt
         mon = self.monitor_node

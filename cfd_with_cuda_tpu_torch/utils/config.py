@@ -1,9 +1,11 @@
 """Solver configuration: the same fields and defaults as the JAX package.
 
 Port of ``cfd_with_cuda_tpu/utils/config.py``.  The dataclass keeps every
-field so one configuration reads the same in both packages; the port runs
-only the fields' values on its main path and its solver raises
-``NotImplementedError`` (naming the ``ROADMAP.md`` item) for the rest.
+field so one configuration reads the same in both packages.  Where a value
+is invalid for a mesh the solvers raise the JAX package's own
+``ValueError``; the few choices the port does not run yet (``spmd_devices``,
+``setup_cache``, the GMRES / CR / BiCG Krylov solvers) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@
     python3 chip_smoke.py      # NE27000 and NE85184 cavities + NE144600-class BFS
     python3 chip_smoke.py --deck-n 4 --steps 8 --implicit-steps 8 \
         --bfs-dims 12x4x4 --bfs-steps 8 --bfs-implicit-steps 8 \
-        --ne85-n 4 --ne85-steps 8 --ne85-finite-steps 12 --ne85-implicit-steps 8   # quick
+        --ne85-n 4 --ne85-steps 8 --ne85-finite-steps 12 --ne85-implicit-steps 8 \
+        --xla-steps 8 --xla-implicit-steps 4   # quick
 
 Drives the port's main paths on the generated NE27000 lid-driven cavity
 (``cavity_deck(30, cluster=2.0)``, 61^3 velocity and 31^3 pressure nodes):
@@ -88,7 +89,19 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    reaching the outflow plane, 3 steps against the plain path) and
    ``e2e_bfs_implicit`` (the implicit ELL step at dt 0.01: torch ops only,
    no launch; the outflow pressure rows stay 0; 3 steps against the plain
-   path).
+   path);
+9. the XLA structured path of both solvers on the cavity (the JAX
+   package's default ``SolverConfig()``: F64 and the multigrid V-cycle, torch
+   ops only, every hand-written kernel's launch counter at 0):
+   ``e2e_xla_f64`` (100 explicit steps from rest in the stored f64 run's
+   config, held against ``precision_ne27000.npz``'s f64 rows: the final
+   field and the CG count of every step, the monitor trace printed; ms/step,
+   peak memory; its first 20 steps against the port's CPU path on the same
+   tables), ``e2e_xla_f64_implicit`` (20 implicit steps from rest in the
+   default F64 config with ``"mg"`` and with ``"jacobi"``: counts and the
+   fields held together), ``e2e_xla_f32_mg`` (F32 through the V-cycle
+   against the same stored run at the f32 bounds) and ``xla_card_vs_cpu``
+   (3 F64 steps of both solvers on ``cavity_deck(8)``, card against CPU).
 
 Each phase prints one JSON line.  Any failure raises (non-zero exit, no
 result line).  The last lines are the ``kernels`` summary, the card's name
@@ -2189,6 +2202,305 @@ def phase_parity_box(pstl, box_cavity_deck, ExplicitBCHSolver, ImplicitGQSolver,
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+
+# The XLA structured path (the JAX package's default SolverConfig(): F64 and
+# pressure_precond="auto", off the kernel path, so DIA / window-patches
+# applies of torch ops, the torch CG and the multigrid V-cycle) against the
+# stored f64 run of precision_ne27000.npz (scripts/precision_parity.py:67-76:
+# F64, CG tol 1e-6, warm start, chunks of 5, "auto" = multigrid), the JAX
+# package's on a TPU, where f64 is emulated.  The aims were 1e-9 absolute for
+# the monitor and 1e-8 of max|u| for the field, never above 1e-8 and 1e-6.
+# The card read (H100 80GB HBM3, 700 W): every one of the 100 CG counts equal
+# to the stored run's, the monitor apart by 8.7e-14 at step 1, over 1e-9 from
+# step 20, over 1e-8 from step 78, 2.4e-8 at step 100, the field by 6.1e-7 of
+# max|u|.  The monitor misses the 1e-8 cap, and a reading that far off cannot
+# tell F64 from F32 (the port's F32 run reads 2.2e-8 against the same rows).
+# So against the stored run the CG count of every step and the field (at the
+# cap) are held and the monitor is printed; what holds the card's F64 run is
+# the port's own CPU path at the same size: the first XLA_F64_CPU_STEPS steps
+# on the same tables, monitors and fields within XLA_CARD_CPU_TOL, every count
+# equal (read: fields 3.3e-16 / 4.4e-16, monitors 1.3e-18; the F32 run of (c)
+# reads 2.8e-7 against the same CPU run, so the bound tells F64 from F32).
+# tests/test_torch_xla_solvers.py holds that CPU path against the JAX
+# package's on the CPU in this config, with a V-cycle as deep as NE27000's
+XLA_F64_FIELD_TOL = 1e-6
+# the f32 bounds of the parity path's e2e phase against the same run
+XLA_F32_U_MON_TOL, XLA_F32_FIELD_TOL = 1e-5, 1e-2
+# the card against the CPU (3 F64 steps of both solvers on cavity_deck(8), and
+# the first steps of (a)): two f64 runs of one algorithm whose reductions sum
+# in different orders, of max|u| and max|p|
+XLA_CARD_CPU_TOL = 1e-11
+XLA_F64_CPU_STEPS = 20
+XLA_DECK_N = 8
+
+
+def _xla_run(solver, cuda_lib, n_steps, what):
+    """``n_steps`` from rest with every launch counter set to 0 first: (state,
+    history, ms/step after the warm-up, peak device GB).  Raises if a
+    hand-written kernel launched (the XLA path runs torch ops only) or a field
+    is not finite."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    warm = min(WARMUP_STEPS, n_steps - 1)
+    state, h_w = solver.run(solver.initial_state(), n_steps=warm)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    state, h_t = solver.run(state, n_steps=n_steps - warm)
+    torch.cuda.synchronize()
+    ms = (time.time() - t1) / (n_steps - warm) * 1e3
+    launched = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+    if launched:
+        raise AssertionError(f"{what}: hand-written kernels launched on the XLA path: {launched}")
+    fields = state[:2]
+    if not all(bool(torch.isfinite(f).all()) for f in fields):
+        raise AssertionError(f"{what}: non-finite fields")
+    return state, h_w + h_t, ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _vs_stored_f64(solver, state, hist, tols):
+    """The run's monitor trace, final velocity and CG counts against the
+    stored f64 run's: the largest differences (the monitor's also relative to
+    the stored |u_mon| of each step), the first step over each bound, and the
+    steps whose CG count differs.  ``tols``: ``field`` (of max|u|) and, where
+    the monitor is held, ``u_mon`` (absolute)."""
+    import numpy as np
+
+    ref = np.load(REPO / "cfd_with_cuda_tpu" / "validation" / "data" / "precision_ne27000.npz")
+    n = len(ref["f64_u_mon"])
+    dmon = np.abs(np.asarray([h["u_mon"] for h in hist[:n]]) - ref["f64_u_mon"])
+    rmon = dmon / np.abs(ref["f64_u_mon"])
+    over = np.flatnonzero(dmon > tols.get("u_mon", np.inf))
+    u, _ = solver.fields(state)
+    cg = np.asarray([int(h["cg_iters"]) for h in hist[:n]])
+    off = np.flatnonzero(cg != ref["f64_cg"])
+    return dict(du_mon=float(dmon.max()), du_mon_rel=float(rmon.max()), tols=tols,
+                first_step_over_u_mon_bound=int(over[0]) + 1 if over.size else None,
+                first_step_over_abs={str(a): next((k + 1 for k, v in enumerate(dmon) if v > a),
+                                                  None) for a in (1e-9, 1e-8)},
+                du_mon_at=[float(v) for v in dmon[[0, 9, 19, 49, n - 1]]],
+                dfield=float(np.abs(u - ref["f64_u"]).max() / np.abs(ref["f64_u"]).max()),
+                cg_iters_total=int(cg.sum()), stored_cg_iters_total=int(ref["f64_cg"].sum()),
+                cg_steps_differing=[int(i) + 1 for i in off[:10]])
+
+
+def _vs_cpu(solver, cls, cuda_lib, n_steps, ref=None):
+    """The card's first ``n_steps`` from rest against the same steps of the
+    port's CPU path on the same tables (or against ``ref``, such a CPU run
+    kept from another phase): the largest monitor difference over the steps
+    and the final fields' (of max|u| and max|p|), whether the sub-iteration
+    and CG counts of every step are equal, the CPU's seconds; and the CPU
+    run, ``(u, p, history)``."""
+    import numpy as np
+
+    cuda_lib.reset_launch_counts()
+    state_c, hist_c = solver.run(n_steps=n_steps)
+    if any(cuda_lib.launch_counts.values()):
+        raise AssertionError("card against CPU: hand-written kernels launched")
+    t0 = time.time()
+    if ref is None:
+        cpu = cls.from_tables(solver.deck, solver.config,
+                              {k: v.cpu() for k, v in solver.d.items()},
+                              solver.static_attrs(), device="cpu")
+        state_h, hist_h = cpu.run(n_steps=n_steps)
+        ref = (*cpu.fields(state_h), hist_h)
+    cpu_s = time.time() - t0
+    (u_c, p_c), (u_h, p_h, hist_h) = solver.fields(state_c), ref
+    u_max, p_max = float(np.abs(u_h).max()), float(np.abs(p_h).max())
+    mon = lambda f: max(abs(float(a[f]) - float(b[f])) for a, b in zip(hist_c, hist_h))
+    counts = lambda h: [[int(x["iters"]), int(x["cg_iters"])] for x in h]
+    return dict(steps=n_steps, tol=XLA_CARD_CPU_TOL,
+                du_mon=max(mon(f) for f in ("u_mon", "v_mon", "w_mon")) / u_max,
+                dp_mon=mon("p_mon") / p_max,
+                du=float(np.abs(u_c - u_h).max()) / u_max,
+                dp=float(np.abs(p_c - p_h).max()) / p_max,
+                counts_equal=counts(hist_c) == counts(hist_h),
+                cg_iters_total=sum(c[1] for c in counts(hist_h)), cpu_s=cpu_s), ref
+
+
+def _within_card_cpu_tol(r) -> bool:
+    return r["counts_equal"] and max(r["du_mon"], r["dp_mon"], r["du"],
+                                     r["dp"]) <= XLA_CARD_CPU_TOL
+
+
+def phase_e2e_xla_explicit(deck, ExplicitBCHSolver, cuda_lib, cfg, n_steps, tag, tols,
+                           strict, cpu_steps=0, cpu_ref=None) -> dict:
+    """(a) and (c): ``n_steps`` explicit steps from rest on the XLA
+    structured path, held against the stored f64 run (at NE27000 and 100
+    steps): the final field, under F64 the CG count of every step, and the
+    monitor trace where ``tols`` holds it.  Under F64 also the first
+    ``cpu_steps`` against the port's CPU path (:func:`_vs_cpu`), whose run
+    is returned as ``out["cpu_ref"]``; given that run as ``cpu_ref``, an F32
+    run's first steps are read against it, and must fail the card-against-CPU
+    bound that holds the F64 run."""
+    t0 = time.time()
+    solver = ExplicitBCHSolver(deck, cfg)
+    setup_s = time.time() - t0
+    if not (solver.xla and solver.use_mg and solver.layout == "interleaved"):
+        raise AssertionError(f"{tag}: the XLA structured path with multigrid was not taken")
+    state, hist, ms, peak = _xla_run(solver, cuda_lib, n_steps, tag)
+    subs = [int(h["iters"]) for h in hist]
+    out = dict(phase=tag, steps=n_steps, setup_s=setup_s, ms_per_step=ms, peak_mem_gb=peak,
+               table_mb=sum(v.numel() * v.element_size() for v in solver.d.values()) / 1e6,
+               f64_dia=solver.f64_dia, mg_dims=solver.mg_dims, mg_omegas=solver.mg_omegas,
+               sub_iters_hist={str(v): subs.count(v) for v in sorted(set(subs))},
+               cg_iters_mean=sum(h["cg_iters"] for h in hist) / len(hist),
+               u_mon=hist[-1]["u_mon"], launches=0)
+    if strict and n_steps >= 100:
+        out["vs_stored_f64"] = cmp = _vs_stored_f64(solver, state, hist, tols)
+    ref = None
+    if solver.f64_dia and cpu_steps:
+        out["vs_cpu"], ref = _vs_cpu(solver, ExplicitBCHSolver, cuda_lib, cpu_steps)
+    elif cpu_ref is not None:
+        out["vs_f64_cpu"], _ = _vs_cpu(solver, ExplicitBCHSolver, cuda_lib,
+                                       len(cpu_ref[2]), cpu_ref)
+    out["seconds"] = time.time() - t0
+    emit(out)
+    out["cpu_ref"] = ref
+    if strict and n_steps >= 100:
+        ok = (cmp["first_step_over_u_mon_bound"] is None
+              and (n_steps > 100 or cmp["dfield"] <= tols["field"]))
+        if solver.f64_dia:
+            ok = ok and not cmp["cg_steps_differing"]
+        if not ok:
+            raise AssertionError(f"{tag} against the stored f64 run: {cmp}")
+    if "vs_cpu" in out and not _within_card_cpu_tol(out["vs_cpu"]):
+        raise AssertionError(f"{tag}: card against CPU: {out['vs_cpu']}")
+    if "vs_f64_cpu" in out and _within_card_cpu_tol(out["vs_f64_cpu"]):
+        raise AssertionError(f"{tag}: the card-against-CPU bound does not tell this run from "
+                             f"F64: {out['vs_f64_cpu']}")
+    return out
+
+
+# The implicit F64 default config with "mg" against "jacobi".  Both CGs stop
+# at 1e-12 of ||b||, so the pressure increments part by about cond(Z) x
+# 1e-12 relative: bound 1e-9 of max|p| and max|u| (a condition allowance of
+# 1e3) after step 1, where both momentum solves see the same inputs (p = 0)
+# and u agrees bit for bit, and after 20 steps, where the momentum BiCGStab
+# (2-4 iterations a step here) carries the difference on.  Read on the card
+# (H100 80GB HBM3, 700 W): p 1.9e-13 after step 1, u 2.8e-15 and p 5.2e-15
+# after 20.  (A BiCGStab of ~30 iterations, as on cavity_deck(6), does not
+# track its RHS so closely: there a 1e-13 difference grew to 8e-6 of max|u|
+# in two steps.)
+XLA_MG_JACOBI_TOLS = dict(p_step1=1e-9, u=1e-9, p=1e-9)
+
+
+def phase_e2e_xla_implicit(deck, ImplicitGQSolver, cuda_lib, SolverConfig, n_steps,
+                           strict) -> dict:
+    """(b): ``n_steps`` implicit steps from rest in the JAX package's default
+    F64 config, with ``"mg"`` and with ``"jacobi"`` (the latter on the former's
+    tables): counts, ms/step, and the fields held together after step 1 and
+    after the run."""
+    import numpy as np
+
+    t0 = time.time()
+    solver = ImplicitGQSolver(deck, SolverConfig(steps_per_chunk=5, pressure_precond="mg"))
+    setup_s = time.time() - t0
+    if not (solver.xla and solver.use_mg and solver.f64_dia):
+        raise AssertionError("e2e_xla_f64_implicit: the XLA path with multigrid was not taken")
+    attrs = solver.static_attrs() | {"use_mg": False}
+    jac = ImplicitGQSolver.from_tables(solver.deck, SolverConfig(steps_per_chunk=5,
+                                                                 pressure_precond="jacobi"),
+                                       {k: v for k, v in solver.d.items()
+                                        if not k.startswith("mg_")}, attrs)
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
+    runs, first = {}, {}
+    for name, s in (("mg", solver), ("jacobi", jac)):
+        state, hist, ms, peak = _xla_run(s, cuda_lib, n_steps, f"e2e_xla_f64_implicit {name}")
+        first[name] = s.fields(s.run(n_steps=1)[0])
+        runs[name] = dict(fields=s.fields(state), ms_per_step=ms, peak_mem_gb=peak,
+                          cg_iters=[int(h["cg_iters"]) for h in hist],
+                          mom_iters=[int(h["mom_iters"]) for h in hist],
+                          u_mon=hist[-1]["u_mon"])
+    (u_m, p_m), (u_j, p_j) = runs["mg"].pop("fields"), runs["jacobi"].pop("fields")
+    (u1_m, p1_m), (u1_j, p1_j) = first["mg"], first["jacobi"]
+    out = dict(phase="e2e_xla_f64_implicit", steps=n_steps, setup_s=setup_s,
+               mg_dims=solver.mg_dims, runs=runs, du_step1=rel(u1_m, u1_j),
+               dp_step1=rel(p1_m, p1_j), du=rel(u_m, u_j), dp=rel(p_m, p_j),
+               tols=XLA_MG_JACOBI_TOLS, launches=0, seconds=time.time() - t0)
+    emit(out)
+    maxiter = solver.config.pressure_cg_maxiter
+    if strict and not (out["du_step1"] == 0.0 and out["dp_step1"] <= XLA_MG_JACOBI_TOLS["p_step1"]
+                       and out["du"] <= XLA_MG_JACOBI_TOLS["u"]
+                       and out["dp"] <= XLA_MG_JACOBI_TOLS["p"]
+                       and max(runs["jacobi"]["cg_iters"]) < maxiter
+                       and sum(runs["mg"]["cg_iters"]) < sum(runs["jacobi"]["cg_iters"])):
+        raise AssertionError(f"implicit mg against jacobi: {out}")
+    return out
+
+
+def phase_xla_card_vs_cpu(cavity_deck, ExplicitBCHSolver, ImplicitGQSolver, SolverConfig,
+                          cuda_lib) -> dict:
+    """(d): 3 F64 steps of both solvers on ``cavity_deck(8)`` in the default
+    config, on the card and on the CPU: fields within XLA_CARD_CPU_TOL of
+    max|u| and max|p|, equal sub-iteration, CG and BiCGStab counts."""
+    import numpy as np
+
+    t0 = time.time()
+    out = dict(phase="xla_card_vs_cpu", deck=f"cavity_deck({XLA_DECK_N})", steps=3,
+               tol=XLA_CARD_CPU_TOL)
+    for name, cls in (("explicit", ExplicitBCHSolver), ("implicit", ImplicitGQSolver)):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            s = cls(cavity_deck(XLA_DECK_N, viscosity=0.01, dt=0.001),
+                    SolverConfig(steps_per_chunk=3), device=dev)
+            cuda_lib.reset_launch_counts()
+            state, hist = s.run(n_steps=3)
+            if any(cuda_lib.launch_counts.values()) or not s.xla:
+                raise AssertionError(f"xla_card_vs_cpu {name}: not the XLA path")
+            res[dev] = (s.fields(state),
+                        [[int(h[f]) for f in ("iters", "cg_iters", "mom_iters")] for h in hist])
+        (u_c, p_c), counts_c = res["cuda"]
+        (u_h, p_h), counts_h = res["cpu"]
+        out[name] = dict(du=float(np.abs(u_c - u_h).max() / np.abs(u_h).max()),
+                         dp=float(np.abs(p_c - p_h).max() / np.abs(p_h).max()),
+                         counts=[counts_c, counts_h])
+    out["seconds"] = time.time() - t0
+    emit(out)
+    for name in ("explicit", "implicit"):
+        r = out[name]
+        if not (r["du"] <= XLA_CARD_CPU_TOL and r["dp"] <= XLA_CARD_CPU_TOL
+                and r["counts"][0] == r["counts"][1]):
+            raise AssertionError(f"xla_card_vs_cpu {name}: {r}")
+    return out
+
+
+def xla_phases(args, cavity_deck, cuda_lib, ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy,
+               SolverConfig) -> None:
+    """Phase 9: the XLA structured path of both solvers on the cavity."""
+    import torch
+
+    t0 = time.time()
+    full = args.deck_n == 30
+    deck = lambda: cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
+    # (a) the stored f64 run's config, no setup cache
+    f64 = SolverConfig(dtype_policy=DTypePolicy.F64, pressure_cg_tol=1e-6,
+                       pressure_warm_start=True, steps_per_chunk=5, pressure_precond="auto")
+    cpu_ref = phase_e2e_xla_explicit(deck(), ExplicitBCHSolver, cuda_lib, f64, args.xla_steps,
+                                     "e2e_xla_f64", dict(field=XLA_F64_FIELD_TOL), full,
+                                     args.xla_cpu_steps)["cpu_ref"]
+    torch.cuda.empty_cache()
+    # (b) the implicit solver in the default F64 config, "mg" and "jacobi"
+    phase_e2e_xla_implicit(deck(), ImplicitGQSolver, cuda_lib, SolverConfig,
+                           args.xla_implicit_steps, full)
+    torch.cuda.empty_cache()
+    # (c) F32 through the multigrid V-cycle
+    f32 = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                       pressure_warm_start=True, steps_per_chunk=25, pressure_precond="mg")
+    phase_e2e_xla_explicit(deck(), ExplicitBCHSolver, cuda_lib, f32, args.xla_steps,
+                           "e2e_xla_f32_mg", dict(u_mon=XLA_F32_U_MON_TOL,
+                                                  field=XLA_F32_FIELD_TOL), full,
+                           cpu_ref=cpu_ref)
+    torch.cuda.empty_cache()
+    # (d) the card against the CPU
+    phase_xla_card_vs_cpu(cavity_deck, ExplicitBCHSolver, ImplicitGQSolver, SolverConfig,
+                          cuda_lib)
+    emit(dict(phase="xla_total", seconds=time.time() - t0))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck-n", type=int, default=30, help="cavity elements per edge (30: NE27000)")
@@ -2211,6 +2523,13 @@ def main() -> int:
                     help="explicit NE85184 steps from rest (5 warm-up + 60 timed)")
     ap.add_argument("--ne85-finite-steps", type=int, default=200,
                     help="explicit NE85184 steps from rest with finite fields (untimed)")
+    ap.add_argument("--xla-steps", type=int, default=100,
+                    help="explicit steps from rest of the XLA structured path phases (100: "
+                         "held against the stored f64 run at NE27000)")
+    ap.add_argument("--xla-cpu-steps", type=int, default=XLA_F64_CPU_STEPS,
+                    help="first steps of the F64 XLA run repeated on the CPU (0: none)")
+    ap.add_argument("--xla-implicit-steps", type=int, default=20,
+                    help="implicit steps from rest of the XLA structured path phase")
     ap.add_argument("--ne85-implicit-steps", type=int, default=20,
                     help="implicit NE85184 steps from rest (warm-up included)")
     args = ap.parse_args()
@@ -2262,6 +2581,11 @@ def main() -> int:
                         pressure_warm_start=True, steps_per_chunk=25)
     phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, icfg,
                            args.bfs_implicit_steps, strict)
+    torch.cuda.empty_cache()
+
+    # ---- the XLA structured path of both solvers (no hand-written kernel)
+    xla_phases(args, cavity_deck, cuda_lib, ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy,
+               SolverConfig)
 
     # row 9: the CG kernels on the banded window (launches: the explicit BFS
     # run; cg_iter per launch of UNROLL iterations, which no single PyTorch

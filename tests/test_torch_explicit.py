@@ -172,16 +172,44 @@ def test_assemble_request_takes_the_planes_route_as_jax_does(reference):
     _compare(js, ref_rows, ref_state, ts, state, rows)
 
 
-# structured="never" runs (the unstructured path: tests/test_torch_unstructured_*.py);
-# F64 and the XLA CG run there too and raise only on a box mesh like this one
+# off the kernel path this box takes the JAX package's XLA structured path:
+# F64, the multigrid preconditioner or the XLA CG (held at length in
+# tests/test_torch_xla_solvers.py); 3 steps of rung 1's config with the
+# choice, against the JAX solver: F64 at 1e-12 of max|u| and max|p|, F32 at
+# this file's bounds, equal sub-iteration and CG counts
+@pytest.mark.parametrize("override", [
+    pytest.param(dict(dtype_policy=DTypePolicy.F64), id="f64"),
+    pytest.param(dict(pressure_precond="mg"), id="mg"),
+    pytest.param(dict(pressure_backend="xla"), id="xla"),
+])
+def test_xla_path_choices_match_jax(override):
+    cfg = dict(dtype_policy=DTypePolicy.F32, **RUNG1) | override
+    pol = cfg.pop("dtype_policy")
+    js = JaxSolver(jax_cavity_deck(4, viscosity=0.01, dt=0.001),
+                   JaxConfig(dtype_policy=JaxPolicy(pol.value), setup_cache="off", **cfg))
+    ts = ExplicitBCHSolver(_deck(), SolverConfig(dtype_policy=pol, **cfg), device="cpu")
+    assert ts.xla and ts.use_mg and js.use_mg and ts.layout == js.layout == "interleaved"
+    step = jax.jit(js._time_step)
+    st = js.initial_state()
+    ref_rows = []
+    for _ in range(N_STEPS):
+        st, stats = step(js.d, st)
+        ref_rows.append([float(getattr(stats, f)) for f in STAT_FIELDS])
+    state, rows = _run_port(ts)
+    np.testing.assert_array_equal(rows[:, 5:], np.asarray(ref_rows)[:, 5:])
+    (u_j, p_j), (u_t, p_t) = js.fields(st), ts.fields(state)
+    if pol is DTypePolicy.F64:
+        assert np.abs(u_t - u_j).max() <= 1e-12 * np.abs(u_j).max()
+        assert np.abs(p_t - p_j).max() <= 1e-12 * np.abs(p_j).max()
+    else:
+        np.testing.assert_allclose(u_t, u_j, rtol=0, atol=5e-6)
+        np.testing.assert_allclose(p_t, p_j, rtol=0, atol=5e-5)
+
+
+# structured="never" runs (the unstructured path: tests/test_torch_unstructured_*.py)
 @pytest.mark.parametrize("override,msg", [
-    pytest.param(dict(dtype_policy=DTypePolicy.F64), "F64 on a box mesh", id="override0"),
-    pytest.param(dict(pressure_precond="mg"), "multigrid preconditioner on a box mesh",
-                 id="override1"),
     pytest.param(dict(spmd_devices=2), "multi-device", id="override6"),
     pytest.param(dict(setup_cache="auto"), "setup_cache", id="override7"),
-    pytest.param(dict(pressure_backend="xla"), "XLA pressure CG .* on a box mesh",
-                 id="override8"),
 ])
 def test_other_branches_raise_with_roadmap_item(override, msg):
     cfg = dict(dtype_policy=DTypePolicy.F32, **RUNG1) | override

@@ -271,15 +271,39 @@ def test_runs_on_the_card_by_default_and_raises_without_one():
         ImplicitGQSolver(_deck(), SolverConfig(dtype_policy=DTypePolicy.F32, **BASE))
 
 
-# structured="never" runs (the ELL step: tests/test_torch_unstructured_implicit.py);
-# F64 and the XLA CG run there too and raise only on a box mesh like this one
+# off the kernel path this box takes the JAX package's XLA structured path:
+# F64, the XLA CG or the multigrid preconditioner (held at length in
+# tests/test_torch_xla_solvers.py); 3 steps of this file's config with the
+# choice, against the JAX solver: F64 at 1e-9 of max|u| and max|p| (that
+# file's bound for the implicit step, with its reason), F32 at this file's
+# bounds; equal CG counts, BiCGStab counts within MOM_ITERS_TOL
+@pytest.mark.parametrize("override", [
+    pytest.param(dict(dtype_policy=DTypePolicy.F64), id="f64"),
+    pytest.param(dict(pressure_backend="xla"), id="xla"),
+    pytest.param(dict(pressure_precond="mg"), id="mg"),
+])
+def test_xla_path_choices_match_jax(override):
+    cfg = dict(dtype_policy=DTypePolicy.F32, **BASE) | override
+    pol = cfg.pop("dtype_policy")
+    js = JaxSolver(jax_cavity_deck(4, viscosity=0.01, dt=0.01),
+                   JaxConfig(dtype_policy=JaxPolicy(pol.value), setup_cache="off", **cfg))
+    ts = ImplicitGQSolver(_deck(), SolverConfig(dtype_policy=pol, **cfg), device="cpu")
+    assert ts.xla and ts.use_mg and js.use_mg and ts.layout == js.layout == "interleaved"
+    ref_rows, ref_state = _jax_run(js, 3)
+    rows, state = _port_run(ts, 3)
+    np.testing.assert_array_equal(rows[:, 6], ref_rows[:, 6])
+    assert np.abs(rows[:, 7] - ref_rows[:, 7]).max() <= MOM_ITERS_TOL
+    (u_j, p_j), (u_t, p_t) = js.fields(ref_state), ts.fields(state)
+    if pol is DTypePolicy.F64:
+        assert np.abs(u_t - u_j).max() <= 1e-9 * np.abs(u_j).max()
+        assert np.abs(p_t - p_j).max() <= 1e-9 * np.abs(p_j).max()
+    else:
+        np.testing.assert_allclose(u_t, u_j, rtol=0, atol=U_TOL)
+        np.testing.assert_allclose(p_t, p_j, rtol=0, atol=P_TOL)
+
+
+# structured="never" runs (the ELL step: tests/test_torch_unstructured_implicit.py)
 @pytest.mark.parametrize("override,item,msg", [
-    pytest.param(dict(dtype_policy=DTypePolicy.F64), "queue 1 item 6", "F64 on a box mesh",
-                 id="override0-queue 1 item 6"),
-    pytest.param(dict(pressure_backend="xla"), "queue 1 item 6", "on a box mesh",
-                 id="override1-queue 1 item 6"),
-    pytest.param(dict(pressure_precond="mg"), "queue 1 item 6", "on a box mesh",
-                 id="override2-queue 1 item 6"),
     pytest.param(dict(momentum_solver="gmres"), "queue 1 item 6", "gmres",
                  id="override5-queue 1 item 6"),
     pytest.param(dict(spmd_devices=2), "queue 1 item 11", "multi-device",

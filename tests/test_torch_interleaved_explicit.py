@@ -263,15 +263,27 @@ def test_forced_parity_layout_raises_where_jax_does():
         ExplicitBCHSolver(_turned_box(cavity_deck), tcfg, device="cpu")
 
 
-# off the kernel path a box mesh is the JAX package's XLA DIA / multigrid path
-@pytest.mark.parametrize("override,msg", [
-    pytest.param(dict(dtype_policy="f64"), "F64 on a box mesh", id="f64"),
-    pytest.param(dict(pressure_backend="xla"), "XLA pressure CG .* on a box mesh", id="xla"),
-    pytest.param(dict(pressure_precond="mg"), "multigrid preconditioner on a box mesh",
-                 id="mg"),
+# off the kernel path a box mesh is the JAX package's XLA structured path, whose
+# layout is the interleaved one: 3 steps with the choice, against the JAX solver
+# (F64 at 1e-12 of max|u| and max|p|, F32 at this file's bounds;
+# equal sub-iteration and CG counts)
+@pytest.mark.parametrize("override", [
+    pytest.param(dict(dtype_policy="f64"), id="f64"),
+    pytest.param(dict(pressure_backend="xla"), id="xla"),
+    pytest.param(dict(pressure_precond="mg"), id="mg"),
 ])
-def test_xla_path_choices_raise_on_the_interleaved_layout(override, msg):
-    cfg = _configs(dict(INTERLEAVED, **override))[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6") as err:
-        ExplicitBCHSolver(_deck(), cfg, device="cpu")
-    assert err.match(msg)
+def test_xla_path_choices_match_jax_on_the_interleaved_layout(override):
+    jcfg, tcfg = _configs(dict(INTERLEAVED, **override))
+    js = JaxSolver(jax_cavity_deck(4, viscosity=0.01, dt=0.001), jcfg)
+    ts = ExplicitBCHSolver(_deck(), tcfg, device="cpu")
+    assert ts.xla and ts.use_mg and js.use_mg and ts.layout == js.layout == "interleaved"
+    (ref_rows, ref_state), (rows, state) = _jax_run(js), _port_run(ts)
+    np.testing.assert_array_equal(rows[:, 5:], ref_rows[:, 5:])
+    tol = (1e-12, 1e-12) if override.get("dtype_policy") == "f64" else None
+    (u_j, p_j), (u_t, p_t) = js.fields(ref_state), ts.fields(state)
+    if tol:
+        assert np.abs(u_t - u_j).max() <= tol[0] * np.abs(u_j).max()
+        assert np.abs(p_t - p_j).max() <= tol[1] * np.abs(p_j).max()
+    else:
+        np.testing.assert_allclose(u_t, u_j, rtol=0, atol=TOLS['u'])
+        np.testing.assert_allclose(p_t, p_j, rtol=0, atol=TOLS['p'])
