@@ -23,7 +23,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["Deck", "read_deck"]
+__all__ = ["Deck", "read_deck", "write_fractional_deck"]
 
 
 @dataclass
@@ -356,3 +356,74 @@ def _read_poisson(lines: list[str], fields: dict[str, str]) -> Deck:
         en[:, 1] -= 1
         d.bc_vel_nodes = en                              # scalar EBC nodes
     return d
+
+
+def write_fractional_deck(path: str | Path, deck: Deck) -> None:
+    """Write a fractionalStep-dialect deck the reference reader can parse."""
+    p = Path(path)
+    out = []
+    out.append(deck.title or "Generated by cfd_with_cuda_tpu")
+    out.append("=" * 48)
+    out.append(f"eType    : {deck.etype} ")
+    out.append(f"NE       : {deck.ne} ")
+    out.append(f"NCN      : {deck.ncn} ")
+    out.append(f"NENv     : {deck.nenv} ")
+    out.append(f"NENp     : {deck.nenp} ")
+    out.append(f"NGP      : {deck.ngp} ")
+    out.append(f"alpha    : {deck.alpha if deck.alpha is not None else 1.0:.10g}")
+    out.append(f"dt       : {deck.dt:.10g}")
+    out.append(f"t_ini    : {deck.t_ini:.10g} ")
+    out.append(f"t_final  : {deck.t_final:.10g} ")
+    out.append(f"maxIter  : {deck.max_iter} ")
+    out.append(f"tolerance: {deck.tolerance:.10g}")
+    out.append(f"converge : {deck.convergence_criteria:.10g} ")
+    out.append(f"isRestart: {int(deck.is_restart)}")
+    out.append(f"density  : {deck.density:.10g} ")
+    out.append(f"viscosity: {deck.viscosity:.10g} ")
+    out.append(f"fx       : {deck.fx} ")
+    out.append(f"fy       : {deck.fy} ")
+    out.append("=" * 48)
+    out.append("Corner Node No         x                y                z")
+    for i, (x, y, z) in enumerate(deck.coords):
+        out.append(f"{i + 1:9d}   {x:16.7f} {y:16.7f} {z:16.7f}")
+    out.append("=" * 48)
+    out.append(
+        "Elem No   corner1  corner2  corner3  corner4  corner5  corner6  corner7  corner8"
+    )
+    for e, row in enumerate(deck.conn):
+        out.append(f"{e + 1:6d}  " + "  ".join(f"{n + 1:7d}" for n in row))
+    out.append("=" * 48)
+    out.append("BCs (Number of specified BCs, their types and strings) ")
+    out.append(f"nBC       : {len(deck.bc_type)} ")
+    for b in range(len(deck.bc_type)):
+        s = deck.bc_str[b]
+        out.append(
+            f"BC {b + 1}      : {int(deck.bc_type[b])}  {s[0]} : {s[1]} : {s[2]}"
+        )
+    out.append("=" * 48)
+    out.append(f"nVelFaces : {len(deck.bc_vel_faces)} ")
+    out.append(f"nOutFaces : {len(deck.bc_out_faces)} ")
+    out.append("=" * 48)
+    out.append("Velocity BC (Elem# Face# BC#)")
+    for e, f, b in deck.bc_vel_faces:
+        out.append(f"{e + 1:5d} {f + 1:4d} {b + 1:4d}")
+    out.append("=" * 48)
+    out.append("Outflow BC (Elem# Face# BC#)")
+    for e, f, b in deck.bc_out_faces:
+        out.append(f"{e + 1:5d} {f + 1:4d} {b + 1:4d}")
+    out.append("=" * 48)
+    out.append("Node number where pressure is taken to be zero")
+    out.append(f"{deck.zero_pressure_node + 1}")
+    out.append("=" * 48)
+    out.append("Monitor point coordinates")
+    mx = deck.monitor_xyz if deck.monitor_xyz is not None else (0.5, 0.5, 0.5)
+    out.append(f"{mx[0]}  {mx[1]}  {mx[2]}")
+    if deck.inlet_profile is not None:
+        # extension section AFTER everything the reference reads (its
+        # reader stops at the monitor point, so reference compatibility
+        # is preserved); round-tripped by _read_fractional
+        kind, bc_index, param, scale = deck.inlet_profile
+        out.append("=" * 48)
+        out.append(f"inletProfile : {kind} {int(bc_index)} {param} {scale}")
+    out.append("")
+    p.write_text("\n".join(out))

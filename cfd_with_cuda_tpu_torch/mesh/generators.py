@@ -1,4 +1,4 @@
-"""Structured hexahedral mesh generators (cube / cavity).
+"""Structured hexahedral mesh generators (cube / cavity / channel / duct).
 
 Rebuilds the reference's MATLAB tooling
 (``oldFiles/meshGenerators&Converters/cavityMeshGenerator.m``,
@@ -7,7 +7,8 @@ Rebuilds the reference's MATLAB tooling
 deck data: corner coordinates, 8-node connectivity, face-based velocity BC
 tables, zero-pressure node, monitor point.  The sinh() wall clustering of
 ``cavityMeshGenerator.m:48-60`` is reproduced exactly.  Port of the cube,
-cavity and backward-facing step part of ``cfd_with_cuda_tpu/mesh/generators.py``.
+cavity, channel, bending-duct, Kovasznay and backward-facing step part of
+``cfd_with_cuda_tpu/mesh/generators.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ import numpy as np
 
 from cfd_with_cuda_tpu_torch.io.deck import Deck
 
-__all__ = ["clustered_axis", "cube_hex_mesh", "cavity_deck", "box_cavity_deck", "bfs_deck"]
+__all__ = [
+    "clustered_axis", "cube_hex_mesh", "cavity_deck", "box_cavity_deck", "channel_deck",
+    "bending_duct_deck", "kovasznay_deck", "bfs_deck",
+]
 
 
 def clustered_axis(n_nodes: int, length: float = 1.0, cluster: float = 0.0) -> np.ndarray:
@@ -201,6 +205,299 @@ def box_cavity_deck(
     deck.zero_pressure_node = int(np.argmin(((coords - np.asarray(zero_pressure_xyz)) ** 2)
                                             .sum(axis=1)))
     deck.monitor_xyz = np.asarray(monitor_xyz, dtype=np.float64)
+    return deck
+
+
+def channel_deck(
+    ne_x: int,
+    ne_y: int,
+    ne_z: int,
+    *,
+    lengths=(10.0, 1.0, 1.0),
+    cluster: float = 0.0,
+    inlet_velocity=(1.0, 0.0, 0.0),
+    dt: float = 0.001,
+    t_final: float = 1.0,
+    max_iter: int = 4,
+    tolerance: float = 1e-3,
+    convergence: float = 1e-6,
+    density: float = 1.0,
+    viscosity: float = 0.01,
+    inlet_profile: str | None = None,
+) -> Deck:
+    """Rectangular channel/duct deck: inflow at x=0, outflow at x=L, no-slip
+    walls (rebuilds ``HexaMeshGeneratorInAChannel...m``).
+
+    ``inlet_profile="duct_developed"`` replaces the plug inlet with the
+    reference's fully-developed separable profile (mean = |inlet_velocity|;
+    ``blascoCodinaHuerta.cpp:4086-4102``); ``"duct_series"`` uses the exact
+    analytic series profile (mesh/profiles.py).  Outflow faces carry the
+    natural (do-nothing) BC: their nodes are simply absent from the
+    velocity-BC set, exactly as in the reference (which parses
+    ``BCoutFaces`` at :684-693 and never constrains them).
+    """
+    coords, conn = cube_hex_mesh(
+        ne_x + 1, ne_y + 1, ne_z + 1, lengths=lengths, cluster=cluster
+    )
+    fb = _boundary_faces((ne_x, ne_y, ne_z))
+    walls = np.concatenate([fb[k] for k in ("zmin", "zmax", "ymin", "ymax")])
+    inlet = fb["xmin"]
+    outlet = fb["xmax"]
+    vel_faces = np.concatenate(
+        [
+            np.column_stack([walls, np.zeros(len(walls), dtype=np.int64)]),
+            np.column_stack([inlet, np.ones(len(inlet), dtype=np.int64)]),
+        ]
+    ).astype(np.int64)
+    out_faces = np.column_stack(
+        [outlet, np.full(len(outlet), 2, dtype=np.int64)]
+    ).astype(np.int64)
+
+    target = np.array([lengths[0], lengths[1] / 2, lengths[2] / 2])
+    zp = int(np.argmin(((coords - target) ** 2).sum(axis=1)))
+
+    deck = Deck(dialect="fractional", title=f"3D channel {ne_x}x{ne_y}x{ne_z}")
+    deck.etype = 1
+    deck.ne = ne_x * ne_y * ne_z
+    deck.ncn = (ne_x + 1) * (ne_y + 1) * (ne_z + 1)
+    deck.nenv, deck.nenp, deck.ngp = 27, 8, 8
+    deck.alpha = 1.0
+    deck.dt = dt
+    deck.t_ini = 0.0
+    deck.t_final = t_final
+    deck.max_iter = max_iter
+    deck.tolerance = tolerance
+    deck.convergence_criteria = convergence
+    deck.density = density
+    deck.viscosity = viscosity
+    deck.coords = coords
+    deck.conn = conn
+    deck.bc_type = np.array([1.0, 1.0, 3.0])
+    deck.bc_str = np.array([[0.0, 0.0, 0.0], list(inlet_velocity), [0.0, 0.0, 0.0]])
+    deck.bc_vel_faces = vel_faces
+    deck.bc_out_faces = out_faces
+    deck.zero_pressure_node = zp
+    deck.monitor_xyz = np.array([lengths[0] / 2, lengths[1] / 2, lengths[2] / 2])
+    if inlet_profile is not None:
+        # (kind, bc_index=1 (inlet), axis=0 (x flow), scale=mean speed)
+        deck.inlet_profile = (
+            inlet_profile, 1, 0, float(np.abs(inlet_velocity[0]))
+        )
+    return deck
+
+
+def bending_duct_deck(
+    ne_s: int = 48,
+    ne_y: int = 32,
+    ne_z: int = 32,
+    *,
+    r_mean: float = 2.3,
+    inlet_len: float = 2.0,
+    outlet_len: float = 2.0,
+    cluster: float = 0.0,
+    inlet_velocity: float = 1.0,
+    dt: float = 0.002,
+    t_final: float = 20.0,
+    max_iter: int = 4,
+    tolerance: float = 1e-3,
+    convergence: float = 1e-6,
+    density: float = 1.0,
+    viscosity: float = 0.01,
+    inlet_profile: str | None = "duct_developed",
+) -> Deck:
+    """90-degree bending square duct (the reference's stripped
+    ``bendingSquareDuct_49x33x33.inp`` benchmark class,
+    ``.MISSING_LARGE_BLOBS``; its fully-developed inlet survives as the
+    commented profile at ``blascoCodinaHuerta.cpp:4086-4102`` — mean 1.0).
+
+    Geometry (unit duct width D=1, all lengths in D): a straight inlet
+    run of ``inlet_len`` along +x, a 90-degree circular bend of mean
+    centerline radius ``r_mean`` turning the flow from +x to +y (the
+    classic laminar Dean-/secondary-flow configuration, e.g. Humphrey,
+    Taylor & Whitelaw 1977 used Rc/D = 2.3), then a straight outlet run
+    of ``outlet_len`` along +y with natural outflow.  The bend is in the
+    x-y plane; z is the vertical cross-section axis.  Streamwise
+    stations are uniform in centerline arc length; ``cluster`` applies
+    the cavity generator's sinh wall-clustering to both cross-section
+    axes.
+
+    The coordinates are curved, but the mesh is topologically a box: the
+    solvers detect it as an element-structured box grid and take the box
+    layouts (``structured="never"`` forces the unstructured path).
+    ``ne_s, ne_y, ne_z = 48, 32, 32`` rebuilds the reference's
+    49x33x33-node deck geometry.
+    """
+    if r_mean <= 0.5:
+        raise ValueError("r_mean must exceed D/2 = 0.5 (inner radius > 0)")
+    arc = 0.5 * np.pi * r_mean
+    total = inlet_len + arc + outlet_len
+    s = np.linspace(0.0, total, ne_s + 1)
+
+    # centerline position c(s) and in-plane lateral normal n(s) such that
+    # (tangent, n, z) is right-handed (positive Jacobians)
+    cx = np.empty_like(s)
+    cy = np.empty_like(s)
+    nx_ = np.empty_like(s)
+    ny_ = np.empty_like(s)
+    a = s <= inlet_len
+    cx[a] = s[a] - inlet_len
+    cy[a] = 0.0
+    nx_[a] = 0.0
+    ny_[a] = 1.0
+    b = (s > inlet_len) & (s < inlet_len + arc)
+    phi = (s[b] - inlet_len) / r_mean
+    cx[b] = r_mean * np.sin(phi)
+    cy[b] = r_mean * (1.0 - np.cos(phi))
+    nx_[b] = -np.sin(phi)
+    ny_[b] = np.cos(phi)
+    c = s >= inlet_len + arc
+    cx[c] = r_mean
+    cy[c] = r_mean + (s[c] - inlet_len - arc)
+    nx_[c] = -1.0
+    ny_[c] = 0.0
+
+    # cross-section offsets: lateral r in [-1/2, 1/2], vertical z in [0, 1]
+    r = clustered_axis(ne_y + 1, 1.0, cluster) - 0.5
+    zs = clustered_axis(ne_z + 1, 1.0, cluster)
+
+    # node ordering must match cube_hex_mesh: streamwise (i) fastest,
+    # then lateral (j), then vertical (k)
+    X = cx[None, None, :] + r[None, :, None] * nx_[None, None, :]
+    Y = cy[None, None, :] + r[None, :, None] * ny_[None, None, :]
+    Z = np.broadcast_to(zs[:, None, None], (ne_z + 1, ne_y + 1, ne_s + 1))
+    coords = np.stack(
+        [X + 0.0 * Z, Y + 0.0 * Z, Z + 0.0 * X], axis=-1
+    ).reshape(-1, 3)
+
+    # connectivity of the index-space box (ignore its coords)
+    _, conn = cube_hex_mesh(ne_s + 1, ne_y + 1, ne_z + 1)
+
+    fb = _boundary_faces((ne_s, ne_y, ne_z))
+    walls = np.concatenate([fb[k] for k in ("zmin", "zmax", "ymin", "ymax")])
+    inlet = fb["xmin"]
+    outlet = fb["xmax"]
+    vel_faces = np.concatenate(
+        [
+            np.column_stack([walls, np.zeros(len(walls), dtype=np.int64)]),
+            np.column_stack([inlet, np.ones(len(inlet), dtype=np.int64)]),
+        ]
+    ).astype(np.int64)
+    out_faces = np.column_stack(
+        [outlet, np.full(len(outlet), 2, dtype=np.int64)]
+    ).astype(np.int64)
+
+    # zero-pressure pin at the outlet cross-section center
+    target = np.array([r_mean, r_mean + outlet_len, 0.5])
+    zp = int(np.argmin(((coords - target) ** 2).sum(axis=1)))
+
+    deck = Deck(
+        dialect="fractional",
+        title=f"3D bending square duct {ne_s}x{ne_y}x{ne_z}",
+    )
+    deck.etype = 1
+    deck.ne = ne_s * ne_y * ne_z
+    deck.ncn = (ne_s + 1) * (ne_y + 1) * (ne_z + 1)
+    deck.nenv, deck.nenp, deck.ngp = 27, 8, 8
+    deck.alpha = 1.0
+    deck.dt = dt
+    deck.t_ini = 0.0
+    deck.t_final = t_final
+    deck.max_iter = max_iter
+    deck.tolerance = tolerance
+    deck.convergence_criteria = convergence
+    deck.density = density
+    deck.viscosity = viscosity
+    deck.coords = coords
+    deck.conn = conn
+    deck.bc_type = np.array([1.0, 1.0, 3.0])
+    deck.bc_str = np.array(
+        [[0.0, 0.0, 0.0], [float(inlet_velocity), 0.0, 0.0], [0.0, 0.0, 0.0]]
+    )
+    deck.bc_vel_faces = vel_faces
+    deck.bc_out_faces = out_faces
+    deck.zero_pressure_node = zp
+    # monitor at the mid-bend cross-section center (phi = 45 deg), where
+    # the secondary (Dean) circulation peaks
+    deck.monitor_xyz = np.array(
+        [
+            r_mean * np.sin(np.pi / 4),
+            r_mean * (1.0 - np.cos(np.pi / 4)),
+            0.5,
+        ]
+    )
+    if inlet_profile is not None:
+        deck.inlet_profile = (inlet_profile, 1, 0, float(abs(inlet_velocity)))
+    return deck
+
+
+def kovasznay_deck(
+    ne_x: int = 8,
+    ne_y: int = 12,
+    ne_z: int = 2,
+    *,
+    re: float = 40.0,
+    dt: float = 0.05,
+    t_final: float = 20.0,
+    max_iter: int = 4,
+    tolerance: float = 1e-3,
+    convergence: float = 1e-7,
+) -> Deck:
+    """Kovasznay-flow MMS deck: the exact steady NS solution
+    (``mesh.profiles.kovasznay_uv``) imposed as Dirichlet data on ALL
+    boundary faces of the box [-0.5, 1] x [-0.5, 1.5] x [0, 0.25]
+    (z-thin: the 2-D solution extends with w = 0, d/dz = 0).
+
+    Running any integrator to steady state must reproduce the exact
+    interior field to discretisation error — a full-NS manufactured-
+    solution test WITH convection active, which none of the reference's
+    benchmark decks provide (SURVEY.md section 4: the reference
+    validates by eyeballing benchmark-deck Tecplot output only).
+    """
+    lengths = (1.5, 2.0, 0.25)
+    coords, conn = cube_hex_mesh(
+        ne_x + 1, ne_y + 1, ne_z + 1, lengths=lengths
+    )
+    coords = coords + np.array([-0.5, -0.5, 0.0])
+    fb = _boundary_faces((ne_x, ne_y, ne_z))
+    faces = np.concatenate([fb[k] for k in sorted(fb)])
+    vel_faces = np.column_stack(
+        [faces, np.zeros(len(faces), dtype=np.int64)]
+    ).astype(np.int64)
+
+    # zero-pressure pin at the (x_max, y_max, z=0) corner — NOT the
+    # first corner: node id 0 means "no pin" in the reference's 1-based
+    # deck convention, which would leave the all-Neumann Z singular.
+    # The exact p there is known (p = (1 - exp(2 lam x)) / 2), so the
+    # pin only fixes the additive constant.
+    zp = int(np.argmin(((coords - np.array([1.0, 1.5, 0.0])) ** 2).sum(axis=1)))
+    assert zp > 0
+
+    deck = Deck(
+        dialect="fractional",
+        title=f"Kovasznay Re={re:g} {ne_x}x{ne_y}x{ne_z}",
+    )
+    deck.etype = 1
+    deck.ne = ne_x * ne_y * ne_z
+    deck.ncn = (ne_x + 1) * (ne_y + 1) * (ne_z + 1)
+    deck.nenv, deck.nenp, deck.ngp = 27, 8, 8
+    deck.alpha = 1.0
+    deck.dt = dt
+    deck.t_ini = 0.0
+    deck.t_final = t_final
+    deck.max_iter = max_iter
+    deck.tolerance = tolerance
+    deck.convergence_criteria = convergence
+    deck.density = 1.0
+    deck.viscosity = 1.0 / re
+    deck.coords = coords
+    deck.conn = conn
+    deck.bc_type = np.array([1.0])
+    deck.bc_str = np.array([[0.0, 0.0, 0.0]])
+    deck.bc_vel_faces = vel_faces
+    deck.zero_pressure_node = zp
+    deck.monitor_xyz = np.array([0.25, 0.5, lengths[2] / 2])
+    # full-vector exact-solution BC ("axis" slot carries Re)
+    deck.inlet_profile = ("kovasznay", 0, float(re), 1.0)
     return deck
 
 

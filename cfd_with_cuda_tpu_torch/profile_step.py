@@ -109,6 +109,7 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
 from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
+from cfd_with_cuda_tpu_torch.utils.timers import busy_share
 
 PROFILE_STEPS = 5
 # dt of the JAX package's bench-matrix cavities by elements per edge (the
@@ -147,11 +148,6 @@ def _trace(solver, state):
         start, end = e.time_range.start, e.time_range.end
         by_name[short(e.name)] += (end - start) / 1e3 / PROFILE_STEPS
         spans.append((start, end))
-    busy, last = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > last:
-            busy += end - max(start, last)
-            last = end
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:15])
     by_op = {}
     for a in prof.key_averages():
@@ -162,10 +158,10 @@ def _trace(solver, state):
         if us > 0:
             by_op[a.key] = us / 1e3 / PROFILE_STEPS
     by_op = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:15])
-    busy_share = busy / wall_us if spans else None
+    share = busy_share(spans, wall_us)
     counts = dict(device_kernels_per_step=len(spans) / PROFILE_STEPS,
                   host_reads_per_step=reads / PROFILE_STEPS)
-    return state, top, busy_share, wall_us / 1e3 / PROFILE_STEPS, by_op, counts
+    return state, top, share, wall_us / 1e3 / PROFILE_STEPS, by_op, counts
 
 
 def _regime(name, solver, state, n_timed, ops=None):

@@ -16,12 +16,16 @@ chunks are the same as the JAX package's.
 
 from __future__ import annotations
 
+import time
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from cfd_with_cuda_tpu_torch.device import resolve_device
+from cfd_with_cuda_tpu_torch.io.tecplot import read_restart, write_tecplot
+from cfd_with_cuda_tpu_torch.mesh.topology import promote_hex_mesh
 from cfd_with_cuda_tpu_torch.ops.multigrid import attach_hierarchy
 from cfd_with_cuda_tpu_torch.ops.stencil import (
     dia_div_apply,
@@ -34,6 +38,7 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     compact_spmv_rows,
     compact_spmv_window,
 )
+from cfd_with_cuda_tpu_torch.utils import setup_cache as sc
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = [
@@ -143,8 +148,6 @@ def unsupported_config(cfg) -> str | None:
     solver of the port runs on any mesh yet (None when there is none)."""
     if int(cfg.spmd_devices or 0) >= 1:
         return "spmd_devices (multi-device: ROADMAP.md queue 1 item 11)"
-    if cfg.setup_cache not in (None, "", "off", "none", "0"):
-        return "setup_cache (ROADMAP.md queue 1 item 8)"
     return None
 
 
@@ -171,6 +174,12 @@ class ChunkedTimeLoop:
     ``device="cpu"`` runs every kernel's plain PyTorch version.
     ``plain=True`` runs the plain versions on any device (the reference
     path the kernels are held against on the card).
+
+    With ``config.setup_cache`` set (``"auto"`` or a directory) the host
+    setup goes through the on-disk cache of ``utils/setup_cache.py``:
+    ``setup_cache_hit`` says whether the tables came from a snapshot, and
+    on a miss ``setup_cache_bytes`` / ``setup_cache_store_s`` what storing
+    the new one took.
     """
 
     # static attributes that define a set-up solver besides its tables, by
@@ -182,7 +191,33 @@ class ChunkedTimeLoop:
 
     def __init__(self, deck, config=None, device=None, *, plain: bool = False):
         self._configure(deck, config or SolverConfig(), device, plain)
+        self._setup_cached()
+        self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                  for k, v in self.d.items()}
+
+    def _setup_cached(self) -> None:
+        """``_setup`` (host tables in ``self.d``) through the setup cache: a
+        hit restores a snapshot's tables, static values and mesh; a miss
+        runs the setup and stores one.  The key covers the deck's contents,
+        the config fields that shape the tables, the solver class and
+        whether the config takes the kernel path (``plain`` picks the step
+        functions only, so a plain and a kernel solver share a snapshot)."""
+        cache_dir = self.config.setup_cache_dir()
+        self.setup_cache_hit = False
+        self.setup_cache_bytes, self.setup_cache_store_s = 0, 0.0
+        if cache_dir:
+            key = sc.deck_fingerprint(self.deck, self.config, type(self).__name__,
+                                      kernel_path(self.config))
+            snap = sc.snapshot_load(cache_dir, key)
+            if snap is not None:
+                sc.solver_restore(self, snap)
+                self.setup_cache_hit = True
+                return
         self._setup()
+        if cache_dir:
+            t0 = time.perf_counter()
+            self.setup_cache_bytes = sc.snapshot_store(cache_dir, key, sc.solver_snapshot(self))
+            self.setup_cache_store_s = time.perf_counter() - t0
 
     @classmethod
     def from_tables(cls, deck, config, tables: dict, attrs: dict, device=None, *,
@@ -267,19 +302,64 @@ class ChunkedTimeLoop:
     def _monitor_only(self, state) -> StepStats:
         raise NotImplementedError
 
+    # ------------------------------------------------------------------- io
+    def restart_path(self) -> Path:
+        """``<deck file stem>_restart.dat`` next to the deck file (the
+        reference's ``<whichProblem>_restart.dat``,
+        ``blascoCodinaHuerta.cpp:4223``), or ``<title>_restart.dat`` in the
+        working directory for a generated deck."""
+        src = getattr(self.deck, "source_path", None)
+        if src:
+            return Path(src).parent / f"{Path(src).stem}_restart.dat"
+        return Path(".") / f"{self.deck.title}_restart.dat"
+
     def resolve_initial_state(self):
+        """``initial_state()``, or the restart file when the deck says
+        ``isRestart`` (ref ``blascoCodinaHuerta.cpp:2793-2799``)."""
         if getattr(self.deck, "is_restart", False):
-            raise NotImplementedError(
-                "restart decks need the Tecplot restart reader "
-                "(ROADMAP.md queue 1 item 8)"
-            )
+            path = self.restart_path()
+            if not path.exists():
+                raise FileNotFoundError(
+                    f"deck requests isRestart but {path} does not exist"
+                )
+            return self.state_from_restart(path)
         return self.initial_state()
 
-    def chunk(self, state, n_steps: int, done: bool = False):
+    def _promoted_mesh(self):
+        """The 27-node mesh (a solver made by ``from_tables`` promotes it
+        here, once)."""
+        if getattr(self, "mesh", None) is None:
+            self.mesh = promote_hex_mesh(self.deck.conn, self.deck.coords)
+        return self.mesh
+
+    def write_tecplot(self, state, path) -> None:
+        """FEBRICK ``.dat`` dump of ``state`` (ref ``createTecplot``
+        :4249-4482)."""
+        mesh = self._promoted_mesh()
+        u, p = self.fields(state)
+        write_tecplot(path, self.deck.title, mesh.coords, mesh.ltog_node, u, p)
+
+    def state_from_restart(self, path):
+        """The state of a prior ``.dat`` (ref ``readRestartFile``: u, v, w
+        and the corner pressure only)."""
+        u, p = read_restart(path, self.nn, self.nnp)
+        return self.state_from_fields(u, p)
+
+    def _write_restart_next_to(self, tecplot_path, state) -> None:
+        """Checkpoint at :meth:`restart_path`, the file an ``isRestart`` deck
+        reads, whichever directory the Tecplot product goes to (the
+        reference makes the user copy the periodic dump,
+        ``blascoCodinaHuerta.cpp:3107-3114``)."""
+        self.write_tecplot(state, self.restart_path())
+
+    # ------------------------------------------------------------- the loop
+    def chunk(self, state, n_steps: int, done: bool = False, clock: list | None = None):
         """Run ``n_steps`` steps (monitor-only once steady).  Returns
         ``(state, packed)``: ``packed`` is a ``(9, n_steps)`` device matrix
         in the state dtype, the 8 StepStats rows and the final steady flag,
-        as the JAX package's chunk returns it."""
+        as the JAX package's chunk returns it.  ``clock``: a list that gets
+        the host clock (``time.perf_counter()``) after each step, once the
+        host has read its steady flag."""
         conv_crit = self.deck.convergence_criteria
         rows = []
         for _ in range(n_steps):
@@ -289,6 +369,8 @@ class ChunkedTimeLoop:
                 state, stats = self._time_step(self.d, state)
             # reference steady test: maxAcc > criteria -> keep going
             done = done or not bool(stats.max_acc > conv_crit)
+            if clock is not None:
+                clock.append(time.perf_counter())
             rows.append(stats)
         dt = self.config.torch_dtype()
         packed = torch.stack(
@@ -298,8 +380,17 @@ class ChunkedTimeLoop:
         )
         return state, packed
 
-    def run(self, state=None, *, n_steps: int | None = None):
-        """Run until t_final or steady.  Returns (state, history rows)."""
+    def run(self, state=None, *, n_steps: int | None = None,
+            tecplot_path=None, tecplot_every: int = 1000):
+        """Run until t_final or steady.  Returns (state, history rows); a
+        row holds the StepStats fields, ``time``, ``step`` and ``wall``,
+        the host seconds from the start of the run to the step's end.
+
+        When ``tecplot_path`` is given, the solution and the restart
+        checkpoint are dumped in the reference's cadence: every
+        ``tecplot_every`` steps (at the end of the chunk that reaches it)
+        and once at the end (``blascoCodinaHuerta.cpp:3097-3114``).
+        """
         deck = self.deck
         state = state if state is not None else self.resolve_initial_state()
         total = n_steps if n_steps is not None else int(
@@ -309,10 +400,13 @@ class ChunkedTimeLoop:
         history = []
         done_steps = 0
         done = False
+        next_dump = tecplot_every
         t = deck.t_ini
+        t0 = time.perf_counter()
         while done_steps < total and not done:
             this_len = min(chunk_len, total - done_steps)
-            state, packed = self.chunk(state, this_len, done)
+            clock = []
+            state, packed = self.chunk(state, this_len, done, clock)
             stats, done = unpack_chunk_stats(packed)
             for k in range(this_len):
                 if stats.iters[k] == 0:      # skipped (already steady)
@@ -321,6 +415,7 @@ class ChunkedTimeLoop:
                 row = {f: float(getattr(stats, f)[k]) for f in StepStats._fields}
                 row["time"] = t
                 row["step"] = done_steps + k + 1
+                row["wall"] = clock[k] - t0
                 history.append(row)
                 if self.config.verbose:
                     print(
@@ -330,4 +425,11 @@ class ChunkedTimeLoop:
                         f" {row['max_acc']:12.5f}"
                     )
             done_steps += this_len
+            if tecplot_path is not None and done_steps >= next_dump:
+                self.write_tecplot(state, tecplot_path)
+                self._write_restart_next_to(tecplot_path, state)
+                next_dump += tecplot_every
+        if tecplot_path is not None:
+            self.write_tecplot(state, tecplot_path)
+            self._write_restart_next_to(tecplot_path, state)
         return state, history

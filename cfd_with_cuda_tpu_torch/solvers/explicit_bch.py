@@ -236,10 +236,9 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             d = self._setup_parity
         else:
             d = self._setup_interleaved
-        d = d(tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv)
+        # host tables; the base class snapshots them and moves them to the device
+        self.d = d(tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv)
         self.dt = float(deck.dt)
-        self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                  for k, v in d.items()}
 
     def _setup_parity(self, tab, box, dias, Z, is_bc, bc_vel, md_inv, md_orig_inv) -> dict:
         """Tables of the parity layout (the parity branch of the JAX

@@ -239,9 +239,9 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         if cfg.structured == "never" or not self._setup_box(
                 mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask):
             self._setup_ell(mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask)
+        # self.d holds the host tables; the base class snapshots them and moves
+        # them to the device
         self.dt = float(deck.dt)
-        self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                  for k, v in self.d.items()}
 
     def _setup_box(self, mesh, ops, Z, pin, is_bc, bc_vel, mk_vals, p_mask) -> bool:
         """DIA operators of a box grid and the per-step assembly maps of its

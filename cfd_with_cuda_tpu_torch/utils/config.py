@@ -4,8 +4,11 @@ Port of ``cfd_with_cuda_tpu/utils/config.py``.  The dataclass keeps every
 field so one configuration reads the same in both packages.  Where a value
 is invalid for a mesh the solvers raise the JAX package's own
 ``ValueError``; the few choices the port does not run yet (``spmd_devices``,
-``setup_cache``, the GMRES / CR / BiCG Krylov solvers) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+the GMRES / CR / BiCG Krylov solvers) raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item.  ``setup_cache`` runs: ``"auto"`` caches the host
+setup under ``$CFD_TORCH_CACHE_DIR`` or ``<repo>/.cache/setup_torch``
+(``utils/setup_cache.py``), a path caches it there, None / ``"off"`` not at
+all.
 """
 
 from __future__ import annotations
@@ -67,6 +70,17 @@ class SolverConfig:
     shard_pad: int = 1
     setup_cache: str | None = None
     verbose: bool = False
+
+    def setup_cache_dir(self) -> str | None:
+        """The setup cache's directory, or None when caching is off."""
+        if self.setup_cache == "auto":
+            from cfd_with_cuda_tpu_torch.utils.setup_cache import default_cache_dir
+
+            return default_cache_dir()
+        if self.setup_cache in (None, "", "off", "none", "0"):
+            # "off" / "none" read as intent to disable, not as a directory
+            return None
+        return self.setup_cache
 
     def torch_dtype(self) -> torch.dtype:
         return torch.float64 if self.dtype_policy is DTypePolicy.F64 else torch.float32

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py      # NE27000 and NE85184 cavities + NE144600-class BFS
+    python3 chip_smoke.py      # NE27000 and NE85184 cavities, NE144600-class BFS, the bend
     python3 chip_smoke.py --deck-n 4 --steps 8 --implicit-steps 8 \
         --bfs-dims 12x4x4 --bfs-steps 8 --bfs-implicit-steps 8 \
         --ne85-n 4 --ne85-steps 8 --ne85-finite-steps 12 --ne85-implicit-steps 8 \
-        --xla-steps 8 --xla-implicit-steps 4   # quick
+        --xla-steps 8 --xla-implicit-steps 4 \
+        --cli-steps 8 --bend-dims 16x8x8 --bend-steps 8 --bend-implicit-steps 6   # quick
 
 Drives the port's main paths on the generated NE27000 lid-driven cavity
 (``cavity_deck(30, cluster=2.0)``, 61^3 velocity and 31^3 pressure nodes):
@@ -101,7 +102,21 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    default F64 config with ``"mg"`` and with ``"jacobi"``: counts and the
    fields held together), ``e2e_xla_f32_mg`` (F32 through the V-cycle
    against the same stored run at the f32 bounds) and ``xla_card_vs_cpu``
-   (3 F64 steps of both solvers on ``cavity_deck(8)``, card against CPU).
+   (3 F64 steps of both solvers on ``cavity_deck(8)``, card against CPU);
+10. the run workflow through the command line, ``python -m
+   cfd_with_cuda_tpu_torch`` (``__main__.main`` in-process; F32, CG tol
+   1e-6, warm start, the default CG loop, ``setup_cache="auto"`` pointed at a
+   temporary directory): ``cli_cavity`` (the NE27000 deck written to disk:
+   run A, a setup-cache miss, and run B, a hit, with byte-equal ``.dat`` and
+   ``_restart.dat``; the library run D on the same file, whose step-30 dump
+   is byte-equal to A's; run C with ``isRestart`` resuming from the step-30
+   checkpoint, its first state the file's fields and its ``u_mon`` within
+   rtol 2e-4 of D's; launch counts, setup, snapshot, Tecplot write and read
+   seconds) and ``cli_bend_explicit`` / ``cli_bend_implicit`` (the full-size
+   ``bending_duct_deck()``, 48 x 32 x 32 elements: the parity layout, the
+   field form, setup and ms/step, counts, launches, a traced busy share,
+   the flow out of the outflow plane, and the first 3 steps against the
+   plain path; the implicit pressure solves also against f64 solves).
 
 Each phase prints one JSON line.  Any failure raises (non-zero exit, no
 result line).  The last lines are the ``kernels`` summary, the card's name
@@ -145,6 +160,12 @@ CG_X_TOL = 1e-3    # of max|x|: two f32 CGs whose dots sum in different orders, 
 # and |r| only guards against a wrong recurrence
 CG_FIXED_X_TOL = 1e-5
 CG_FIXED_R_TOL = {0: 1e-5, 1: 1e-4, 40: 5e-2}
+# where a system's own f32 rounding reaches past CG_FIXED_X_TOL at a fixed depth (the
+# full-size bend's warm-started implicit Z, where Z x0 cancels in r0: kernel and plain
+# CG read 7.1e-6 of max|x| apart after 1 iteration and 1.2e-5 after 40 on an H100), the
+# kernel CG is held within this factor of the plain f32 CG's distance from the plain CG
+# on the f64 widened system at the same depth: two f32 sums in other orders against one
+CG_ROUNDING_FACTOR = 4
 # a converged f32 CG against its own system: the f64 true residual ||b - Z x|| / ||b||
 # (Z the f32 table widened to f64), in units of the solve's tol on the recurrence residual.
 # On the card every converged kernel and plain solve of cg_modes (NE27000 explicit and
@@ -2501,6 +2522,455 @@ def xla_phases(args, cavity_deck, cuda_lib, ExplicitBCHSolver, ImplicitGQSolver,
     emit(dict(phase="xla_total", seconds=time.time() - t0))
 
 
+# ---------------------------------------------------------------- phase 10
+
+# The run workflow through the command line, ``python -m
+# cfd_with_cuda_tpu_torch`` (``__main__.main`` in-process, its own config:
+# F32, CG tol 1e-6, warm start, the default CG loop, chunks of 50,
+# setup_cache="auto" pointed at a temporary directory): (a) the NE27000
+# cavity written to disk, a fresh run and a setup-cache hit with byte-equal
+# products, the library on the same deck, and an isRestart resume; (b) the
+# bend at full size, both solvers.
+CLI_STEPS = 30
+# the resumed run against the uninterrupted one, tests/test_restart.py:31-36's
+# explicit bound: the restart file holds u, v, w and p only, so the first
+# resumed step re-converges its sub-iterations anew
+RESTART_RTOL, RESTART_ATOL = 2e-4, 1e-7
+# bendingSquareDuct_49x33x33's class: 48 x 32 x 32 elements, 49 x 33 x 33 corner nodes
+BEND_DIMS = (48, 32, 32)
+# the explicit run goes on, untimed, until the flow leaves the outflow plane: its mean
+# u . n over the plane's interior nodes above tests/test_bending_duct.py:138's 1e-3
+BEND_OUTFLOW_UN, BEND_OUTFLOW_STEPS = 1e-3, 1000
+
+
+def _cli(cli, argv) -> dict:
+    """``main(argv)`` in-process; what it ran (``report``)."""
+    report = {}
+    t0 = time.time()
+    rc = cli.main([str(a) for a in argv], report=report)
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit code {rc}")
+    report["cli_s"] = time.time() - t0
+    return report
+
+
+def _cli_launches(what, hist, counts, solver_kind):
+    """The field form a CLI run took (the default CG loop), its launch counts
+    held against its history: explicit as ``_explicit_parity_expect`` with a
+    ``cg_init`` a solve and ``cg_iter`` groups covering at least the last
+    solves, implicit as ``_implicit_expect``; every kernel of the path
+    launched, nothing else."""
+    streamed = any(v for k, v in counts.items() if k.endswith("_streamed"))
+    sfx = "_streamed" if streamed else ""
+    if solver_kind == "implicit":
+        on_path, expect = _implicit_expect(hist, counts, "parity", f"parity_apply_k{sfx}")
+    else:
+        on_path, _ = _explicit_parity_expect(hist, counts, sfx)
+        on_path["cg_init"] = on_path.pop("cg_solve")
+        on_path["cg_iter"] = counts["cg_iter"]
+        expect = {k: on_path.get(k, 0) for k in counts}
+        if counts["cg_iter"] * UNROLL < sum(int(h["cg_iters"]) for h in hist):
+            raise AssertionError(f"{what}: cg_iter {counts['cg_iter']} groups for the history")
+    if min(on_path.values()) <= 0 or counts != expect:
+        raise AssertionError(f"{what}: launch counts {counts}, expected {expect}")
+    return "streamed" if streamed else "resident"
+
+
+def _ms_after_warmup(hist) -> float:
+    """Host ms/step of steps WARMUP_STEPS + 1 to the end (the CLI's yardstick)."""
+    from cfd_with_cuda_tpu_torch.utils.timers import ms_per_step
+
+    return ms_per_step(hist, WARMUP_STEPS)
+
+
+def phase_cli_cavity(args, work, cavity_deck, cuda_lib, ExplicitBCHSolver, SolverConfig,
+                     DTypePolicy) -> dict:
+    """(a) The NE27000 cavity through the command line: runs A (a setup-cache
+    miss) and B (a hit) with byte-equal products, the library run D on the
+    same file, and the isRestart run C resuming from the step-30 checkpoint."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch import __main__ as cli
+    from cfd_with_cuda_tpu_torch.io.deck import read_deck, write_fractional_deck
+    from cfd_with_cuda_tpu_torch.io.tecplot import read_restart
+
+    n = args.cli_steps
+    d = work / "cavity"
+    d.mkdir()
+    name = f"lidDrivenCavity_NE{args.deck_n ** 3}"
+    inp = d / f"{name}.inp"
+    write_fractional_deck(inp, cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001))
+    (d / "ProblemName.txt").write_text(f"{name}\n")
+    dat, restart = d / f"{name}.dat", d / f"{name}_restart.dat"
+    argv = [d, "--quiet", "--steps", n, "--tecplot-every", n]
+
+    cuda_lib.reset_launch_counts()
+    a = _cli(cli, argv)
+    counts = dict(cuda_lib.launch_counts)
+    sa = a["solver"]
+    form = _cli_launches("cli_cavity A", a["history"], counts, "explicit")
+    products = dat.read_bytes(), restart.read_bytes()
+    rows = len(products[0].decode().splitlines())
+    out = dict(phase="cli_cavity", deck=inp.name, layout=sa.layout, field=form, nn=sa.nn,
+               nnp=sa.nnp, steps=n,
+               a=dict(setup_s=a["setup_s"], hit=sa.setup_cache_hit,
+                      snapshot_bytes=sa.setup_cache_bytes, store_s=sa.setup_cache_store_s,
+                      run_s=a["run_s"], ms_per_step=_ms_after_warmup(a["history"]),
+                      launches=counts),
+               dat_bytes=len(products[0]), dat_rows=rows,
+               dat_rows_expected=3 + sa.nn + 8 * sa.deck.ne)
+    if sa.setup_cache_hit or not sa.setup_cache_bytes or rows != out["dat_rows_expected"]:
+        raise AssertionError(f"cli_cavity A: {out}")
+
+    b = _cli(cli, argv)
+    out["b"] = dict(setup_s=b["setup_s"], hit=b["solver"].setup_cache_hit, run_s=b["run_s"])
+    out["b_bytes_equal_a"] = (dat.read_bytes(), restart.read_bytes()) == products
+    if not (b["solver"].setup_cache_hit and out["b_bytes_equal_a"]):
+        raise AssertionError(f"cli_cavity B: {out}")
+    del a, b, sa
+
+    # D: the library on the same file, the CLI's config, two runs of n steps
+    cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6, steps_per_chunk=50,
+                       setup_cache="auto", pressure_warm_start=True)
+    t0 = time.time()
+    sd = ExplicitBCHSolver(read_deck(inp), cfg)
+    setup_d = time.time() - t0
+    st, _ = sd.run(n_steps=n)
+    t0 = time.time()
+    sd.write_tecplot(st, work / "d.dat")
+    write_s = time.time() - t0
+    (work / "a_restart.dat").write_bytes(products[1])
+    t0 = time.time()
+    u_r, p_r = read_restart(work / "a_restart.dat", sd.nn, sd.nnp)
+    read_s = time.time() - t0
+    _, hist_d = sd.run(st, n_steps=n)
+    out["d"] = dict(setup_s=setup_d, hit=sd.setup_cache_hit,
+                    dat_bytes_equal_a=(work / "d.dat").read_bytes() == products[0],
+                    tecplot_write_s=write_s, restart_read_s=read_s)
+    if not (sd.setup_cache_hit and out["d"]["dat_bytes_equal_a"]):
+        raise AssertionError(f"cli_cavity D: {out}")
+    del sd, st
+
+    # C: isRestart, resuming from the step-n checkpoint (a new fingerprint:
+    # the flag is deck content, as in the JAX package)
+    text = inp.read_text()
+    inp.write_text(text.replace("isRestart: 0", "isRestart: 1", 1))
+    starts = []
+    resolve = ExplicitBCHSolver.resolve_initial_state
+    ExplicitBCHSolver.resolve_initial_state = lambda s: starts.append(resolve(s)) or starts[-1]
+    try:
+        c = _cli(cli, argv)
+    finally:
+        ExplicitBCHSolver.resolve_initial_state = resolve
+    sc = c["solver"]
+    u0, p0 = sc.fields(starts[0])
+    u_c = np.asarray([h["u_mon"] for h in c["history"]])
+    u_d = np.asarray([h["u_mon"] for h in hist_d])
+    out["c"] = dict(setup_s=c["setup_s"], hit=sc.setup_cache_hit,
+                    first_state_equals_file=bool(
+                        np.array_equal(u0, u_r.astype(u0.dtype))
+                        and np.array_equal(p0, p_r.astype(p0.dtype))),
+                    u_mon_max_rel=float(np.max(np.abs(u_c - u_d) / np.abs(u_d))),
+                    rtol=RESTART_RTOL, atol=RESTART_ATOL, u_mon_31_60=[u_c[0], u_c[-1]],
+                    library_u_mon_31_60=[u_d[0], u_d[-1]])
+    emit(out)
+    if not (out["c"]["first_state_equals_file"] and u_c.shape == u_d.shape
+            and np.allclose(u_c, u_d, rtol=RESTART_RTOL, atol=RESTART_ATOL)):
+        raise AssertionError(f"cli_cavity C: {out['c']}")
+    return out
+
+
+def _outflow_un(solver, state) -> float:
+    """Mean u . n over the interior nodes of the bend's outflow plane
+    (y = its largest value, normal +y; the walls' nodes left out)."""
+    import numpy as np
+
+    c = solver.mesh.coords
+    u, _ = solver.fields(state)
+    on = np.isclose(c[:, 1], c[:, 1].max())
+    x, z = c[on, 0], c[on, 2]
+    inner = (x > x.min() + 1e-9) & (x < x.max() - 1e-9) & (z > z.min() + 1e-9) & (z < z.max() - 1e-9)
+    return float(u[on, 1][inner].mean())
+
+
+def _busy_share(solver, state, trace_dir, tag, n_steps=5):
+    """(state, device busy share, traced host ms/step) of ``n_steps`` steps
+    traced by ``utils/timers.torch_trace`` (``timers.busy_share``: the union
+    of the kernel and copy intervals over the host wall time)."""
+    import torch
+
+    from cfd_with_cuda_tpu_torch.utils.timers import busy_share, device_spans, torch_trace
+
+    torch.cuda.synchronize()
+    with torch_trace(str(trace_dir), f"{tag}.json") as prof:
+        t0 = time.perf_counter()
+        state, _ = solver.run(state, n_steps=n_steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return state, busy_share(device_spans(prof), wall_us), wall_us / 1e3 / n_steps
+
+
+def _cg_fixed_depths(s, systems) -> dict:
+    """The CG kernels at the fixed depths BFS_FIXED_DEPTHS on a solver's
+    pressure systems ``(b, x0, x)`` (the implicit bend's step 1, from zero,
+    and step 2, warm-started: Z x0 cancels in r0), against the plain CG,
+    beside the plain f32 CG's own rounding there (against the plain CG on
+    the f64 widened system at the same depth): {"step<i>_k<k>": (iterations,
+    k, kernel vs plain, plain vs f64)}, each of max|x| of the f64 CG."""
+    from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain
+
+    win64, dinv64 = s.d["Z_win"].double(), s.d["Z_dinv"].double()
+    errs = {}
+    for step, (b, x0, _) in enumerate(systems, start=1):
+        cold = x0 is None or not bool(x0.abs().max() > 0)
+        for k in BFS_FIXED_DEPTHS:
+            if k == 0 and cold:
+                continue                  # x = 0 on both
+            run = lambda solve, win, dinv, bb, xx: solve(
+                win, bb, dinv, dims=s.coarse_dims, radius=s.z_radius, tol=0.0, maxiter=k,
+                unroll=max(k, 1), x0=xx)
+            sol = run(fused_cg, s.d["Z_win"], s.d["Z_dinv"], b, x0)
+            ref = run(fused_cg_plain, s.d["Z_win"], s.d["Z_dinv"], b, x0)
+            r64 = run(fused_cg_plain, win64, dinv64, b.double(),
+                      None if x0 is None else x0.double())
+            scale = float(r64.x.abs().max())
+            errs[f"step{step}_k{k}"] = (
+                int(sol.iters), k, float((sol.x - ref.x).abs().max()) / scale,
+                float((ref.x.double() - r64.x).abs().max()) / scale)
+    return errs
+
+
+def _bend_implicit_vs_plain(s, cls, cuda_lib, init, form, strict) -> dict:
+    """The implicit bend's first 3 steps, kernel path against plain path.
+
+    On this deck the pressure CG runs 500-600 iterations a step and its
+    ||r|| lies flat along tol ||b|| for tens of iterations, so the two
+    paths, whose right-hand sides differ by rounding, stop 64 iterations
+    apart on step 1 (568 against 504 on an H100) and their fields part by
+    ~1e-2 of max|u| after 3 steps: IMPLICIT_TOLS do not apply to the
+    fields.  Nor does CG_TRUE_RES_TOL: Z x cancels (||Z|| ||x|| >> ||b||),
+    so the f64 true residual of an f32 x stays far above tol however close
+    x is to the f64 solve's.  Held instead, on the kernel path's own inputs
+    of this run: the first M, MK + A, G and G^T (div_compact) applies on a
+    field that is not all zero, each against its plain version on the same
+    card tensors (APPLY_TOL, as phase_kernels holds them on the cavity); the
+    pressure CG kernels on step 1's and step 2's systems against the plain
+    CG at the fixed depths BFS_FIXED_DEPTHS (CG_FIXED_X_TOL, or
+    CG_ROUNDING_FACTOR times the plain CG's own f32 rounding there); the launch
+    counts, finite fields, step 1's BiCGStab count (both paths start from
+    rest), and every pressure solve of both paths against an f64 CG of the
+    same system (the f32 table widened, tol 1e-10): x within CG_X_TOL of
+    max|x|.  Printed: the fields' differences, and where the kernel CG
+    crosses its bound on each path's step-1 system (||r|| / (tol ||b||)
+    every UNROLL iterations around both stops)."""
+    import torch
+
+    from cfd_with_cuda_tpu_torch.ops import parity_stencil as pstl
+    from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain
+    from cfd_with_cuda_tpu_torch.solvers import implicit_gq
+
+    systems = {"fused_cg": [], "fused_cg_plain": []}
+    saved = {name: getattr(implicit_gq, name) for name in systems}
+    apply_k, div_k = pstl.parity_apply, pstl.parity_div_apply
+    routes = {"M": s.m_pairs, "MK_plus_A": s.a_pairs, "G": s.g_pairs}
+    applies = {}
+
+    def recorder(name):
+        def solve(win, b, dinv, **kw):
+            sol = saved[name](win, b, dinv, **kw)
+            systems[name].append((b.clone(), kw["x0"], sol.x.clone()))
+            return sol
+        return solve
+
+    # the first call of each route on a field that is not all zero (step 1's
+    # G applies to p = 0)
+    def apply_recorder(wc, x, **kw):
+        y = apply_k(wc, x, **kw)
+        for route, pairs in routes.items():
+            if kw.get("pairs") is pairs and route not in applies and bool(x.abs().max() > 0):
+                applies[route] = (wc.clone(), x.clone(), dict(kw), y.clone())
+        return y
+
+    def div_recorder(gt, u, dims):
+        y = div_k(gt, u, dims)
+        if "div_compact" not in applies and bool(u.abs().max() > 0):
+            applies["div_compact"] = (gt, u.clone(), dims, y.clone())
+        return y
+
+    for name in systems:
+        setattr(implicit_gq, name, recorder(name))
+    pstl.parity_apply, pstl.parity_div_apply = apply_recorder, div_recorder
+    try:
+        cmp = _implicit_vs_plain("cli_bend_implicit_kernel_vs_plain_3_steps", s, cls, cuda_lib,
+                                 init, 3, strict=False,
+                                 k_name="parity_apply_k" + ("_streamed" if form == "streamed"
+                                                            else ""))
+    finally:
+        for name, fn in saved.items():
+            setattr(implicit_gq, name, fn)
+        pstl.parity_apply, pstl.parity_div_apply = apply_k, div_k
+
+    # the kernels of the step on the run's own inputs, against their plain versions
+    apply_errs = {}
+    for route, (wc, x, kw, y) in applies.items():
+        if route == "div_compact":
+            y_plain = pstl.parity_div_apply_plain(wc, x, kw)
+            y_abs = pstl.parity_div_apply_plain(wc.abs(), x.abs(), kw)
+        else:
+            y_plain = pstl.parity_apply_plain(wc, x, **kw)
+            y_abs = pstl.parity_apply_plain(wc.abs(), x.abs(), **kw)
+        apply_errs[route] = _apply_err(y, y_plain, y_abs)[1]
+    del applies
+
+    cg_errs = _cg_fixed_depths(s, systems["fused_cg"][:2])
+    tol = s.config.pressure_cg_tol
+    win64, dinv64 = s.d["Z_win"].double(), s.d["Z_dinv"].double()
+
+    def x_err(b, x):
+        ref = fused_cg_plain(win64, b.double(), dinv64, dims=s.coarse_dims, radius=s.z_radius,
+                             tol=1e-10, maxiter=20000, unroll=UNROLL).x
+        return float((x.double() - ref).abs().max() / ref.abs().max())
+
+    x_errs = {name: [x_err(b, x) for b, _, x in solves] for name, solves in systems.items()}
+    stops = [k for ks in cmp["cg_iters"] for k in ks[:1]]
+    ks = list(range(max(UNROLL, min(stops) - 8 * UNROLL), max(stops) + 2 * UNROLL + 1, UNROLL))
+    trace = {}
+    for name, solves in systems.items():
+        b, x0, _ = solves[0]
+        bound = tol * float(torch.linalg.vector_norm(b))
+        trace[name] = [float(fused_cg(s.d["Z_win"], b, s.d["Z_dinv"], dims=s.coarse_dims,
+                                      radius=s.z_radius, tol=0.0, maxiter=k, x0=x0,
+                                      unroll=UNROLL).residual) / bound for k in ks]
+    cmp.update(apply_err_rel=apply_errs, apply_tol=APPLY_TOL, cg_fixed_depth=cg_errs,
+               cg_fixed_x_tol=CG_FIXED_X_TOL, cg_rounding_factor=CG_ROUNDING_FACTOR, x_err_vs_f64=x_errs, x_err_bound=CG_X_TOL,
+               step1_cg_trace=dict(k=ks, kernel_path_system=trace["fused_cg"],
+                                   plain_path_system=trace["fused_cg_plain"]))
+    emit(dict(phase="cli_bend_implicit_cg", apply_err_rel=apply_errs, cg_fixed_depth=cg_errs,
+              x_err_vs_f64=x_errs, step1_cg_trace=cmp["step1_cg_trace"]))
+    if sorted(apply_errs) != sorted([*routes, "div_compact"]) or not all(
+            e <= APPLY_TOL for e in apply_errs.values()):
+        raise AssertionError(f"cli_bend_implicit: kernels vs plain on the run's inputs: "
+                             f"{apply_errs}")
+    if not all(it == k and e <= max(CG_FIXED_X_TOL, CG_ROUNDING_FACTOR * e64)
+               for it, k, e, e64 in cg_errs.values()):
+        raise AssertionError(f"cli_bend_implicit: CG at fixed depths (iters, depth, kernel vs "
+                             f"plain, plain vs f64): {cg_errs}")
+    worst = max(max(v) for v in x_errs.values())
+    if strict and not (worst <= CG_X_TOL
+                       and cmp["mom_iters"][0][0] == cmp["mom_iters"][1][0]):
+        raise AssertionError(f"cli_bend_implicit vs plain: {cmp}")
+    return cmp
+
+
+def phase_cli_bend(args, work, bending_duct_deck, cuda_lib, ExplicitBCHSolver,
+                   ImplicitGQSolver) -> list:
+    """(b) The bend at full size through the command line: the explicit and
+    the implicit solver, each against the plain path over its first 3 steps."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch import __main__ as cli
+    from cfd_with_cuda_tpu_torch.io.deck import write_fractional_deck
+    from cfd_with_cuda_tpu_torch.io.tecplot import read_restart
+
+    dims = tuple(int(v) for v in args.bend_dims.split("x"))
+    strict = dims == BEND_DIMS
+    d = work / "bend"
+    d.mkdir()
+    ne = "x".join(str(v + 1) for v in dims)
+    inp = d / f"bendingSquareDuct_{ne}.inp"
+    write_fractional_deck(inp, bending_duct_deck(*dims))
+    outs = []
+    for kind, steps, cls in (("explicit", args.bend_steps, ExplicitBCHSolver),
+                             ("implicit", args.bend_implicit_steps, ImplicitGQSolver)):
+        cuda_lib.reset_launch_counts()
+        r = _cli(cli, [inp, "--quiet", "--solver", kind, "--steps", steps])
+        counts = dict(cuda_lib.launch_counts)
+        s, hist = r["solver"], r["history"]
+        form = _cli_launches(f"cli_bend_{kind}", hist, counts, kind)
+        u, p = s.fields(r["state"])
+        t0 = time.time()
+        read_restart(s.restart_path(), s.nn, s.nnp)
+        read_s = time.time() - t0
+        col = lambda f: [int(h[f]) for h in hist]
+        out = dict(phase=f"cli_bend_{kind}", deck=inp.name, layout=s.layout, field=form,
+                   nn=s.nn, nnp=s.nnp, setup_s=r["setup_s"], cache_hit=s.setup_cache_hit,
+                   snapshot_bytes=s.setup_cache_bytes, store_s=s.setup_cache_store_s,
+                   steps=len(hist), run_s=r["run_s"], ms_per_step=_ms_after_warmup(hist),
+                   # the run's end: the .dat and the restart file written
+                   tecplot_dumps_s=r["run_s"] - hist[-1]["wall"], restart_read_s=read_s,
+                   sub_iters=col("iters"), cg_iters=col("cg_iters"), mom_iters=col("mom_iters"),
+                   launches=counts, finite=bool(np.isfinite(u).all() and np.isfinite(p).all()),
+                   u_mon=hist[-1]["u_mon"])
+        # the JAX package's rule: a box (curved coordinates, box topology) whose
+        # elements tile it takes the parity layout on the kernel path
+        if s.layout != "parity" or not out["finite"] or len(hist) != steps:
+            emit(out)
+            raise AssertionError(f"cli_bend_{kind}: {out['layout']}, finite {out['finite']}")
+        st, busy, traced_ms = _busy_share(s, r["state"], work / "trace", f"bend_{kind}")
+        out.update(busy_share=busy, traced_ms_per_step=traced_ms)
+        un, ran = _outflow_un(s, st), len(hist) + 5
+        while kind == "explicit" and strict and un <= BEND_OUTFLOW_UN and ran < BEND_OUTFLOW_STEPS:
+            st, _ = s.run(st, n_steps=50)
+            ran += 50
+            un = _outflow_un(s, st)
+        out.update(outflow_mean_un=un, outflow_after_steps=ran)
+        emit(out)
+        if not un > (BEND_OUTFLOW_UN if kind == "explicit" and strict else 0.0):
+            raise AssertionError(f"cli_bend_{kind}: no flow out of the outflow plane: {un}")
+        del st, r
+        # the kernel path against the plain path, the first 3 steps from rest
+        init = s.initial_state()
+        if kind == "explicit":
+            plain = cls.from_tables(s.deck, s.config, s.d, s.static_attrs(), device=s.device,
+                                    plain=True)
+            cuda_lib.reset_launch_counts()
+            st_k, h_k = s.run(init, n_steps=3)
+            ck = dict(cuda_lib.launch_counts)
+            st_p, h_p = plain.run(init, n_steps=3)
+            if dict(cuda_lib.launch_counts) != ck:
+                raise AssertionError("cli_bend_explicit: the plain path launched a kernel")
+            _cli_launches("cli_bend_explicit vs plain", h_k, ck, "explicit")
+            out["vs_plain"] = _compare_runs("cli_bend_explicit_kernel_vs_plain_3_steps", h_k, h_p,
+                                            s.fields(st_k), plain.fields(st_p), STEP_TOLS, UNROLL)
+            del plain
+        else:
+            out["vs_plain"] = _bend_implicit_vs_plain(s, cls, cuda_lib, init, form, strict)
+        outs.append(out)
+        del s
+    return outs
+
+
+def cli_phases(args, cavity_deck, bending_duct_deck, cuda_lib, ExplicitBCHSolver,
+               ImplicitGQSolver, DTypePolicy, SolverConfig) -> None:
+    """Phase 10: the command line, Tecplot output, restart and the setup cache,
+    in a temporary problem directory with the setup cache in a temporary
+    directory, both removed at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.time()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    old = os.environ.get("CFD_TORCH_CACHE_DIR")
+    os.environ["CFD_TORCH_CACHE_DIR"] = str(work / "setup_cache")
+    try:
+        phase_cli_cavity(args, work, cavity_deck, cuda_lib, ExplicitBCHSolver, SolverConfig,
+                         DTypePolicy)
+        torch.cuda.empty_cache()
+        phase_cli_bend(args, work, bending_duct_deck, cuda_lib, ExplicitBCHSolver,
+                       ImplicitGQSolver)
+        torch.cuda.empty_cache()
+    finally:
+        if old is None:
+            os.environ.pop("CFD_TORCH_CACHE_DIR", None)
+        else:
+            os.environ["CFD_TORCH_CACHE_DIR"] = old
+        shutil.rmtree(work, ignore_errors=True)
+    emit(dict(phase="cli_total", seconds=time.time() - t0))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck-n", type=int, default=30, help="cavity elements per edge (30: NE27000)")
@@ -2532,6 +3002,16 @@ def main() -> int:
                     help="implicit steps from rest of the XLA structured path phase")
     ap.add_argument("--ne85-implicit-steps", type=int, default=20,
                     help="implicit NE85184 steps from rest (warm-up included)")
+    ap.add_argument("--cli-steps", type=int, default=CLI_STEPS,
+                    help="steps of each command-line run on the cavity (phase 10)")
+    ap.add_argument("--bend-dims", default="x".join(map(str, BEND_DIMS)),
+                    help="bending duct elements NSxNYxNZ of phase 10 (48x32x32: full size; "
+                         "a smaller one does not run the explicit solver on to the outflow "
+                         "and asserts the implicit plain comparison's counts only)")
+    ap.add_argument("--bend-steps", type=int, default=50,
+                    help="explicit command-line steps on the bend (phase 10)")
+    ap.add_argument("--bend-implicit-steps", type=int, default=20,
+                    help="implicit command-line steps on the bend (phase 10)")
     args = ap.parse_args()
 
     import torch
@@ -2540,7 +3020,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, box_cavity_deck, cavity_deck
+    from cfd_with_cuda_tpu_torch.mesh.generators import (
+        bending_duct_deck,
+        bfs_deck,
+        box_cavity_deck,
+        cavity_deck,
+    )
     from cfd_with_cuda_tpu_torch.ops import (
         cuda_lib,
         fused_cg,
@@ -2586,6 +3071,11 @@ def main() -> int:
     # ---- the XLA structured path of both solvers (no hand-written kernel)
     xla_phases(args, cavity_deck, cuda_lib, ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy,
                SolverConfig)
+    torch.cuda.empty_cache()
+
+    # ---- the command line, Tecplot output, restart and the setup cache
+    cli_phases(args, cavity_deck, bending_duct_deck, cuda_lib, ExplicitBCHSolver,
+               ImplicitGQSolver, DTypePolicy, SolverConfig)
 
     # row 9: the CG kernels on the banded window (launches: the explicit BFS
     # run; cg_iter per launch of UNROLL iterations, which no single PyTorch

@@ -209,13 +209,20 @@ def test_xla_path_choices_match_jax(override):
 # structured="never" runs (the unstructured path: tests/test_torch_unstructured_*.py)
 @pytest.mark.parametrize("override,msg", [
     pytest.param(dict(spmd_devices=2), "multi-device", id="override6"),
-    pytest.param(dict(setup_cache="auto"), "setup_cache", id="override7"),
 ])
 def test_other_branches_raise_with_roadmap_item(override, msg):
     cfg = dict(dtype_policy=DTypePolicy.F32, **RUNG1) | override
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         ExplicitBCHSolver(_deck(), SolverConfig(**cfg), device="cpu")
     assert err.match(msg)
+
+
+# setup_cache="auto" (ROADMAP.md queue 1 item 8, ported): a miss, then a hit
+def test_setup_cache_auto_misses_then_hits(tmp_path, monkeypatch):
+    monkeypatch.setenv("CFD_TORCH_CACHE_DIR", str(tmp_path))
+    cfg = SolverConfig(dtype_policy=DTypePolicy.F32, setup_cache="auto", **RUNG1)
+    hits = [ExplicitBCHSolver(_deck(), cfg, device="cpu").setup_cache_hit for _ in range(2)]
+    assert hits == [False, True]
 
 
 def test_steady_flag_carries_across_chunks():

@@ -308,14 +308,20 @@ def test_xla_path_choices_match_jax(override):
                  id="override5-queue 1 item 6"),
     pytest.param(dict(spmd_devices=2), "queue 1 item 11", "multi-device",
                  id="override6-queue 1 item 11"),
-    pytest.param(dict(setup_cache="auto"), "queue 1 item 8", "setup_cache",
-                 id="override7-queue 1 item 8"),
 ])
 def test_other_branches_raise_with_roadmap_item(override, item, msg):
     cfg = dict(dtype_policy=DTypePolicy.F32, **BASE) | override
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}") as err:
         ImplicitGQSolver(_deck(), SolverConfig(**cfg), device="cpu")
     assert err.match(msg)
+
+
+# setup_cache="auto" (ROADMAP.md queue 1 item 8, ported): a miss, then a hit
+def test_setup_cache_auto_misses_then_hits(tmp_path, monkeypatch):
+    monkeypatch.setenv("CFD_TORCH_CACHE_DIR", str(tmp_path))
+    cfg = SolverConfig(dtype_policy=DTypePolicy.F32, setup_cache="auto", **BASE)
+    hits = [ImplicitGQSolver(_deck(), cfg, device="cpu").setup_cache_hit for _ in range(2)]
+    assert hits == [False, True]
 
 
 def test_steady_flag_stops_the_run():
