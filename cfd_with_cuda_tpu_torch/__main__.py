@@ -4,18 +4,20 @@ The reference solvers are launched next to a ``ProblemName.txt`` naming
 the deck: they read ``<name>.inp``, print the monitor table per step,
 and write ``<name>.dat`` (Tecplot) + ``<name>_restart.dat``
 (``blascoCodinaHuerta.cpp:528-540, 4223, 4263``).  Port of the JAX
-package's ``__main__.py`` for the two fractional-step solvers:
+package's ``__main__.py``, every solver family:
 
     python -m cfd_with_cuda_tpu_torch                      # ./ProblemName.txt
     python -m cfd_with_cuda_tpu_torch path/to/ProblemName.txt
     python -m cfd_with_cuda_tpu_torch path/to/deck.inp --solver implicit
     python -m cfd_with_cuda_tpu_torch deck.inp --dtype f64 --device cpu
+    python -m cfd_with_cuda_tpu_torch deck.inp --solver poisson
 
-A ``fractional`` deck runs the explicit BCH solver (``--solver implicit``
-for Guermond-Quartapelle) on the CUDA card; ``--device cpu`` runs the
-kernels' plain PyTorch versions on the CPU.  The legacy solvers
-(``--solver poisson|segregated|gls|stokes``, and what a legacy or Poisson
-deck selects) are not ported yet and raise ``NotImplementedError``.
+Solver selection defaults by deck dialect: ``fractional`` -> explicit BCH
+(``--solver implicit`` for Guermond-Quartapelle), ``poisson`` -> the
+scalar Poisson solver, ``legacy`` -> the segregated Horoutunian solver
+(``--solver gls`` / ``--solver stokes`` for the monolithic ones).  Every
+solver runs on the CUDA card; ``--device cpu`` runs the kernels' plain
+PyTorch versions (and the legacy solvers' solves) on the CPU.
 """
 
 from __future__ import annotations
@@ -50,10 +52,66 @@ def _resolve_deck(arg: str) -> Path:
     return p
 
 
+def _run_legacy(kind: str, deck, out_base: Path, device, quiet: bool,
+                report: dict | None) -> None:
+    """The one-shot legacy solvers: solve, print the JAX CLI's lines, write
+    ``<name>.dat`` (Poisson: the scalar in the u column, zero pressure)."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch.io.tecplot import write_tecplot
+
+    t0 = time.time()
+    if kind == "poisson":
+        from cfd_with_cuda_tpu_torch.solvers.poisson import PoissonSolver
+
+        s = PoissonSolver(deck, device=device)
+        setup_s = time.time() - t0
+        t0 = time.time()
+        u, iters, res = s.solve()
+        history = iters
+        print(f"poisson: {int(iters)} iterations (residual {float(res):.2e}),"
+              f" {time.time()-t0:.1f}s, max|u|={float(abs(u).max()):.6f}")
+        p = np.zeros(u.shape[0])
+        u = np.column_stack([u, np.zeros((u.shape[0], 2))])   # the scalar in the u column
+    elif kind == "segregated":
+        from cfd_with_cuda_tpu_torch.solvers.segregated import SegregatedSolver
+
+        s = SegregatedSolver(deck, device=device)
+        setup_s = time.time() - t0
+        t0 = time.time()
+        u, p, history = s.solve(verbose=not quiet)
+        print(f"segregated: {len(history)} outer iterations, "
+              f"{time.time()-t0:.1f}s, max|dp| tail {history[-1]['max_dp']:.3e}")
+    elif kind == "gls":
+        from cfd_with_cuda_tpu_torch.solvers.monolithic import GLSNavierStokesSolver
+
+        s = GLSNavierStokesSolver(deck, device=device)
+        setup_s = time.time() - t0
+        t0 = time.time()
+        u, p, history = s.solve(verbose=not quiet)
+        print(f"GLS NS: {len(history)} Picard iterations, {time.time()-t0:.1f}s")
+    else:
+        from cfd_with_cuda_tpu_torch.solvers.monolithic import StokesSolver
+
+        s = StokesSolver(deck, device=device)
+        setup_s = time.time() - t0
+        t0 = time.time()
+        u, p, history = s.solve()
+        print(f"Stokes: {int(history)} iterations, {time.time()-t0:.1f}s")
+    run_s = time.time() - t0
+    dat = out_base.with_suffix(".dat")
+    write_tecplot(dat, deck.title, deck.coords, deck.conn, np.asarray(u),
+                  np.asarray(p)[: deck.coords.shape[0]])
+    print(f"wrote {dat}")
+    if report is not None:
+        report.update(solver=s, fields=(u, p), history=history, setup_s=setup_s, run_s=run_s)
+
+
 def main(argv=None, *, report: dict | None = None) -> int:
     """Run the deck ``argv`` names.  ``report``: a dict that gets what ran
-    (``solver``, ``state``, ``history``, ``setup_s``, ``run_s``), for
-    callers that drive the command in-process."""
+    (``solver``, ``history``, ``setup_s``, ``run_s``; a time integrator's
+    final ``state``, a legacy solver's ``fields`` (u, p)), for callers that
+    drive the command in-process."""
     ap = argparse.ArgumentParser(
         prog="python -m cfd_with_cuda_tpu_torch",
         description=__doc__.split("\n\n")[0],
@@ -98,11 +156,10 @@ def main(argv=None, *, report: dict | None = None) -> int:
     solver_kind = args.solver
     if solver_kind == "auto":
         solver_kind = _AUTO_SOLVER.get(deck.dialect, "explicit")
+    out_base = deck_path.with_suffix("")           # <name>.dat next to the deck
     if solver_kind in _LEGACY:
-        raise NotImplementedError(
-            f"not ported yet: the {solver_kind} solver "
-            "(legacy solvers: ROADMAP.md queue 1 item 9)"
-        )
+        _run_legacy(solver_kind, deck, out_base, device, args.quiet, report)
+        return 0
 
     from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 
@@ -118,7 +175,6 @@ def main(argv=None, *, report: dict | None = None) -> int:
         from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver as cls
     else:
         from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver as cls
-    out_base = deck_path.with_suffix("")           # <name>.dat next to the deck
     t0 = time.time()
     solver = cls(deck, cfg, device)
     setup_s = time.time() - t0

@@ -6,9 +6,10 @@ Rebuilds the reference's MATLAB tooling
 ``HexaMeshGeneratorInAChannel...m``) as numpy functions producing the same
 deck data: corner coordinates, 8-node connectivity, face-based velocity BC
 tables, zero-pressure node, monitor point.  The sinh() wall clustering of
-``cavityMeshGenerator.m:48-60`` is reproduced exactly.  Port of the cube,
-cavity, channel, bending-duct, Kovasznay and backward-facing step part of
-``cfd_with_cuda_tpu/mesh/generators.py``.
+``cavityMeshGenerator.m:48-60`` is reproduced exactly.  Port of
+``cfd_with_cuda_tpu/mesh/generators.py``: the cube, the cavity (both deck
+dialects), the channel, the bending duct, Kovasznay (both dialects) and the
+backward-facing step.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import numpy as np
 from cfd_with_cuda_tpu_torch.io.deck import Deck
 
 __all__ = [
-    "clustered_axis", "cube_hex_mesh", "cavity_deck", "box_cavity_deck", "channel_deck",
-    "bending_duct_deck", "kovasznay_deck", "bfs_deck",
+    "clustered_axis", "cube_hex_mesh", "cavity_deck", "cavity_legacy_deck",
+    "kovasznay_legacy_deck", "box_cavity_deck", "channel_deck", "bending_duct_deck",
+    "kovasznay_deck", "bfs_deck",
 ]
 
 
@@ -172,6 +174,117 @@ def cavity_deck(
     deck.bc_vel_faces = vel_faces
     deck.zero_pressure_node = zp
     deck.monitor_xyz = np.array([0.5, 0.5, 0.5])
+    return deck
+
+
+def cavity_legacy_deck(
+    n_elem: int,
+    *,
+    cluster: float = 0.0,
+    lid_velocity=(1.0, 0.0, 0.0),
+    viscosity: float = 1.0,
+    density: float = 1.0,
+    max_iter: int = 50,
+    tolerance: float = 1e-6,
+    solver_iter_max: int = 2000,
+    solver_tol: float = 1e-10,
+) -> Deck:
+    """Legacy-dialect driven-cavity deck (equal-order 8-node hexes,
+    node-based BCs) like ``oldFiles/segregatedSolver/fem3dCavityInputNE1000.inp``:
+    BC 1 = moving lid (z = zmax, overrides walls at the lid edges — the
+    classic 'leaky lid'), BC 2 = no-slip walls, pressure pinned at node 0.
+    """
+    nx = n_elem + 1
+    coords, conn = cube_hex_mesh(nx, cluster=cluster)
+    on_wall = (
+        np.isclose(coords[:, 0], 0.0) | np.isclose(coords[:, 0], 1.0)
+        | np.isclose(coords[:, 1], 0.0) | np.isclose(coords[:, 1], 1.0)
+        | np.isclose(coords[:, 2], 0.0)
+    )
+    on_lid = np.isclose(coords[:, 2], 1.0)
+    bc_id = np.full(coords.shape[0], -1, dtype=np.int64)
+    bc_id[on_wall] = 1
+    bc_id[on_lid] = 0          # lid wins at the edges
+    nodes = np.flatnonzero(bc_id >= 0)
+
+    deck = Deck(dialect="legacy", title=f"3D legacy cavity {n_elem}^3")
+    deck.etype = 3
+    deck.ne = n_elem**3
+    deck.ncn = deck.nn = nx**3
+    deck.nenv = deck.nenp = 8
+    deck.ngp = 8
+    deck.max_iter = max_iter
+    deck.tolerance = tolerance
+    deck.solver_iter_max = solver_iter_max
+    deck.solver_tol = solver_tol
+    deck.density = density
+    deck.viscosity = viscosity
+    deck.coords = coords
+    deck.conn = conn
+    deck.bc_type = np.array([1.0, 2.0, 0.0])
+    deck.bc_str = np.array([list(lid_velocity), [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]])
+    deck.bc_vel_nodes = np.column_stack([nodes, bc_id[nodes]])
+    deck.bc_pres_nodes = np.array([[0, 2]], dtype=np.int64)
+    deck.zero_pressure_node = 0
+    deck.monitor_xyz = np.array([0.5, 0.5, 0.5])
+    return deck
+
+
+def kovasznay_legacy_deck(
+    ne_x: int = 8,
+    ne_y: int = 12,
+    ne_z: int = 2,
+    *,
+    re: float = 40.0,
+    max_iter: int = 50,
+    tolerance: float = 1e-6,
+    solver_iter_max: int = 2000,
+    solver_tol: float = 1e-10,
+) -> Deck:
+    """Legacy-dialect Kovasznay MMS deck (equal-order 8-node hexes) for
+    the STEADY legacy solvers (monolithic GLS, segregated Horoutunian):
+    the exact steady NS solution is their ideal validation — same
+    geometry/BCs as :func:`kovasznay_deck`, node-based BC tables."""
+    lengths = (1.5, 2.0, 0.25)
+    coords, conn = cube_hex_mesh(
+        ne_x + 1, ne_y + 1, ne_z + 1, lengths=lengths
+    )
+    coords = coords + np.array([-0.5, -0.5, 0.0])
+    eps = 1e-9
+    on_bnd = (
+        (coords[:, 0] < -0.5 + eps) | (coords[:, 0] > 1.0 - eps)
+        | (coords[:, 1] < -0.5 + eps) | (coords[:, 1] > 1.5 - eps)
+        | (coords[:, 2] < eps) | (coords[:, 2] > lengths[2] - eps)
+    )
+    nodes = np.flatnonzero(on_bnd)
+
+    deck = Deck(
+        dialect="legacy",
+        title=f"Kovasznay legacy Re={re:g} {ne_x}x{ne_y}x{ne_z}",
+    )
+    deck.etype = 3
+    deck.ne = ne_x * ne_y * ne_z
+    deck.ncn = deck.nn = (ne_x + 1) * (ne_y + 1) * (ne_z + 1)
+    deck.nenv = deck.nenp = 8
+    deck.ngp = 8
+    deck.max_iter = max_iter
+    deck.tolerance = tolerance
+    deck.solver_iter_max = solver_iter_max
+    deck.solver_tol = solver_tol
+    deck.density = 1.0
+    deck.viscosity = 1.0 / re
+    deck.coords = coords
+    deck.conn = conn
+    deck.bc_type = np.array([1.0, 0.0])
+    deck.bc_str = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 0.0]])
+    deck.bc_vel_nodes = np.column_stack(
+        [nodes, np.zeros(len(nodes), dtype=np.int64)]
+    )
+    zp = int(np.argmin(((coords - np.array([1.0, 1.5, 0.0])) ** 2).sum(axis=1)))
+    deck.bc_pres_nodes = np.array([[zp, 1]], dtype=np.int64)
+    deck.zero_pressure_node = zp
+    deck.monitor_xyz = np.array([0.25, 0.5, lengths[2] / 2])
+    deck.inlet_profile = ("kovasznay", 0, float(re), 1.0)
     return deck
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
-    "apply_inlet_profile",
+    "apply_inlet_profile", "apply_node_bc_profile",
     "duct_developed_profile", "duct_series_profile", "kovasznay_uv",
 ]
 
@@ -123,3 +123,21 @@ def apply_inlet_profile(deck, coords: np.ndarray, bc_of_node: np.ndarray,
     vals[:, int(axis)] = float(scale) * fn(eta, zeta)
     bc_vel[sel] = vals
     return bc_vel
+
+
+def apply_node_bc_profile(deck, coords: np.ndarray, bc_nodes: np.ndarray,
+                          vel_vals: np.ndarray) -> np.ndarray:
+    """Legacy node-based BC tables (``deck.bc_vel_nodes`` rows of
+    (node, bc#), per-row values ``vel_vals``): overwrite the rows whose
+    group carries the deck's profile.  Returns the new ``vel_vals``."""
+    spec = getattr(deck, "inlet_profile", None)
+    if spec is None or len(bc_nodes) == 0:
+        return vel_vals
+    bc_nodes = np.asarray(bc_nodes, dtype=np.int64)
+    nn = coords.shape[0]
+    bc_of_node = np.full(nn, -1, dtype=np.int64)
+    np.put(bc_of_node, bc_nodes[:, 0], bc_nodes[:, 1])
+    full = np.zeros((nn, 3))
+    full[bc_nodes[:, 0]] = vel_vals
+    apply_inlet_profile(deck, coords, bc_of_node, full)
+    return full[bc_nodes[:, 0]]

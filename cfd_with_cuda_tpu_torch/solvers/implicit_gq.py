@@ -119,6 +119,18 @@ class ImplicitState(NamedTuple):
     pk_prev: torch.Tensor    # (NNp,)     p^{k-1}
 
 
+# The momentum solve passes (3, N) right-hand sides, and the JAX package's
+# batched GMRES does not run: the port does not run a configuration the
+# reference cannot run
+_GMRES_DEFECT = (
+    "momentum_solver='gmres': the JAX package's implicit step fails with it on "
+    "every path (its batched GMRES, ops/krylov.py:441, vmaps with out_axes that are "
+    "no prefix of KrylovResult; on the parity layout its a_mul, "
+    "solvers/implicit_gq.py:752, first reshapes a single column) - a reference "
+    "defect, so the port does not run it; use 'bicgstab' or 'cr'"
+)
+
+
 class ImplicitGQSolver(ChunkedTimeLoop):
     """Setup once from a deck, then run chunks of time steps (``device`` and
     ``plain`` as :class:`ChunkedTimeLoop`)."""
@@ -145,6 +157,8 @@ class ImplicitGQSolver(ChunkedTimeLoop):
 
     def _configure(self, deck, config, device, plain) -> None:
         super()._configure(deck, config, device, plain)
+        if config.momentum_solver.lower() == "gmres":
+            raise ValueError(_GMRES_DEFECT)
         self._momentum_solver = solver_by_name(config.momentum_solver)
 
     # ------------------------------------------------------------------ setup

@@ -3,10 +3,12 @@
 Port of ``cfd_with_cuda_tpu/utils/config.py``.  The dataclass keeps every
 field so one configuration reads the same in both packages.  Where a value
 is invalid for a mesh the solvers raise the JAX package's own
-``ValueError``; the few choices the port does not run yet (``spmd_devices``,
-the GMRES / CR / BiCG Krylov solvers) raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.  ``setup_cache`` runs: ``"auto"`` caches the host
-setup under ``$CFD_TORCH_CACHE_DIR`` or ``<repo>/.cache/setup_torch``
+``ValueError``; ``momentum_solver="gmres"``, with which the JAX package's
+implicit step fails on every path, raises a ``ValueError`` naming that
+defect; the one choice the port does not run yet, ``spmd_devices``,
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+``setup_cache`` runs: ``"auto"`` caches the host setup under
+``$CFD_TORCH_CACHE_DIR`` or ``<repo>/.cache/setup_torch``
 (``utils/setup_cache.py``), a path caches it there, None / ``"off"`` not at
 all.
 """

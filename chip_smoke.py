@@ -6,7 +6,9 @@
         --bfs-dims 12x4x4 --bfs-steps 8 --bfs-implicit-steps 8 \
         --ne85-n 4 --ne85-steps 8 --ne85-finite-steps 12 --ne85-implicit-steps 8 \
         --xla-steps 8 --xla-implicit-steps 4 \
-        --cli-steps 8 --bend-dims 16x8x8 --bend-steps 8 --bend-implicit-steps 6   # quick
+        --cli-steps 8 --bend-dims 16x8x8 --bend-steps 8 --bend-implicit-steps 6 \
+        --legacy-poisson-n 16 --legacy-stokes-n 6 --legacy-ns-n 6 --legacy-outer 4 \
+        --legacy-cli-n 4                                                         # quick
 
 Drives the port's main paths on the generated NE27000 lid-driven cavity
 (``cavity_deck(30, cluster=2.0)``, 61^3 velocity and 31^3 pressure nodes):
@@ -2971,6 +2973,403 @@ def cli_phases(args, cavity_deck, bending_duct_deck, cuda_lib, ExplicitBCHSolver
     emit(dict(phase="cli_total", seconds=time.time() - t0))
 
 
+# ---------------------------------------------------------------- phase 11
+
+# The legacy solvers (float64, host assembly, the solves on the card through
+# ops/linsolve.py: torch ops and cuSOLVER's dense LU, no hand-written kernel).
+# (a) Poisson MMS on the unit cube with zero Dirichlet walls
+# (tests/test_poisson.py::_cube_poisson_deck): n = 64, 262,144 hexes and
+# 274,625 nodes, 262x the reference's poissonNE1000.inp; n = 32 against the
+# port's CPU path and every Krylov backend.  (b) Stokes on
+# cavity_legacy_deck(16, viscosity=1.0), 19,652 unknowns, just under
+# DENSE_DIRECT_LIMIT: dense_lu on the card and GMRES against host splu.  (c)
+# GLS and segregated on cavity_legacy_deck(20, viscosity=1.0), 37,044
+# monolithic unknowns (drivenCavityNE8000_hexa_RE1.inp's class), card
+# against the port's CPU path.  (d) python -m cfd_with_cuda_tpu_torch on the
+# n = 32 Poisson deck and cavity_legacy_deck(10) written to disk.
+LEGACY_POISSON_N, LEGACY_STOKES_N, LEGACY_NS_N, LEGACY_CLI_N = 64, 16, 20, 10
+# depths cut to keep the phase near 120 s (H100 80GB HBM3, 700 W: 153.7 s at 3
+# Picard, 10 outer and 50 CLI iterations, then 126.8 and 139.6 s at 2, 10 and 20,
+# the CPU reference runs 52-53 s of it): GLS 2 Picard iterations and segregated
+# 6 outer, not 3 and 10, and the CLI deck's iterMax 10, not the generator's 50
+# (the segregated run contracts slowly at nu = 1 and runs them all, twice with
+# the library run)
+LEGACY_PICARD, LEGACY_OUTER, LEGACY_CLI_ITERMAX = 2, 6, 10
+# card against CPU: two f64 runs of one algorithm whose reductions sum in other
+# orders, of max|u| (Poisson, a CG to 1e-12) and of max|u|, max|p| (GLS and
+# segregated, their Krylov solves to 1e-10 through the Picard / outer iterations)
+POISSON_CARD_CPU_TOL, NS_CARD_CPU_TOL = 1e-10, 1e-8
+# tests/test_poisson.py: every backend within 1e-6 of cg; the MMS error falls
+# 2.5-6x from n/2 to n there (second order: 4x), 3-5x asked of the card
+POISSON_BACKEND_TOL, POISSON_MMS_RATIO = 1e-6, (3.0, 5.0)
+# dense_lu against splu (two direct f64 solves) of max|u| and max|p|, in at most
+# 13 refinement rounds (tests/test_monolithic.py); GMRES to the deck's tolerance
+# is held by its f64 true residual within 2 tol ||F|| and, against splu, to what
+# tol 1e-10 leaves of the saddle-point system's x (the CPU read 1.1e-7 of
+# max|u| and 9.2e-6 of max|p|)
+STOKES_LU_TOL, STOKES_LU_ROUNDS, STOKES_GMRES_U_TOL, STOKES_GMRES_P_TOL = 1e-9, 13, 1e-6, 5e-5
+# the segregated solver's pressure CG (SCPE, tol 1e-10) stops where ||r|| touches
+# its bound after running along it: two summation orders of one system moved the
+# stop by up to 3 on the CPU (tests/test_torch_legacy_solvers.py)
+SCPE_ITERS_TOL = 3
+# the CLI's .dat (12 significant digits) against the in-process solvers on the card
+LEGACY_CLI_TOL = 1e-10
+# the lid's u = 1 at NE8000: its Dirichlet rows are identity rows of the Krylov
+# solves, so they come out to rounding (GLS read exactly 1, segregated within
+# 7.8e-16, on an H100 80GB HBM3 at 700 W), not bit for bit the CPU's
+LID_TOL = 1e-12
+
+
+def _legacy_cube_poisson(n, fxy=0.0):
+    """tests/test_poisson.py::_cube_poisson_deck (``fxy``: a constant source)."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch.io.deck import Deck
+    from cfd_with_cuda_tpu_torch.mesh.generators import cube_hex_mesh
+
+    coords, conn = cube_hex_mesh(n + 1)
+    ebc = np.flatnonzero((np.isclose(coords, 0.0) | np.isclose(coords, 1.0)).any(axis=1))
+    deck = Deck(dialect="poisson", title=f"cube poisson {n}^3")
+    deck.etype, deck.ne, deck.nn, deck.ncn = 3, n**3, (n + 1) ** 3, (n + 1) ** 3
+    deck.nenv = deck.nenp = deck.ngp = 8
+    deck.solver_iter_max, deck.solver_tol = 2000, 1e-12
+    deck.axy, deck.fxy = 1.0, fxy
+    deck.coords, deck.conn = coords, conn
+    deck.bc_type, deck.bc_str = np.array([1.0]), np.array([[0.0, 0.0, 0.0]])
+    deck.bc_vel_nodes = np.column_stack([ebc, np.zeros_like(ebc)])
+    return deck
+
+
+def _deck_mesh_lines(deck) -> list:
+    lines = ["Node#  x  y  z"]
+    lines += [f"{i} {x!r} {y!r} {z!r}" for i, (x, y, z) in enumerate(deck.coords.tolist())]
+    lines += ["=" * 20, "Elem#  nodes"]
+    lines += [f"{e} " + " ".join(map(str, row)) for e, row in enumerate(deck.conn.tolist())]
+    return lines + ["=" * 20]
+
+
+def _write_legacy_deck(path, deck) -> None:
+    """The legacy dialect io/deck.py reads (node BCs, 0-based nodes, 1-based BCs)."""
+    f = lambda v: repr(float(v))  # noqa: E731
+    lines = [deck.title, "=" * 20, f"eType : {deck.etype}", f"NE : {deck.ne}",
+             f"NCN : {deck.ncn}", f"NN : {deck.nn}", f"NENv : {deck.nenv}",
+             f"NENp : {deck.nenp}", f"NGP : {deck.ngp}", f"iterMax : {deck.max_iter}",
+             f"tolerance : {f(deck.tolerance)}", f"solverIterMax : {deck.solver_iter_max}",
+             f"solverTol : {f(deck.solver_tol)}", f"density : {f(deck.density)}",
+             f"viscosity : {f(deck.viscosity)}", "=" * 20] + _deck_mesh_lines(deck)
+    lines.append(f"nBC : {len(deck.bc_type)}")
+    lines += [f"BC {b + 1} : {f(t)} " + " ".join(f(v) for v in deck.bc_str[b])
+              for b, t in enumerate(deck.bc_type)]
+    lines += [f"nVelNodes : {len(deck.bc_vel_nodes)}",
+              f"nPressureNodes : {len(deck.bc_pres_nodes)}", "Velocity BC"]
+    lines += [f"{n} {b + 1}" for n, b in deck.bc_vel_nodes.tolist()]
+    lines.append("Pressure BC")
+    lines += [f"{n} {b + 1}" for n, b in deck.bc_pres_nodes.tolist()]
+    lines += ["nMonitorPoints : 1", "Monitor#  x  y  z",
+              "0 " + " ".join(f(v) for v in deck.monitor_xyz)]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def _write_poisson_deck(path, deck) -> None:
+    """The Poisson dialect io/deck.py reads."""
+    f = lambda v: repr(float(v))  # noqa: E731
+    lines = [deck.title, "=" * 20, f"eType : {deck.etype}", f"NE : {deck.ne}",
+             f"NN : {deck.nn}", f"NEN : {deck.nenv}", f"NGP : {deck.ngp}",
+             f"solverIterMax : {deck.solver_iter_max}", f"solverTol : {f(deck.solver_tol)}",
+             f"axyFunc : {f(deck.axy)}", f"fxyFunc : {f(deck.fxy)}", "=" * 20]
+    lines += _deck_mesh_lines(deck) + [f"nBC : {len(deck.bc_type)}"]
+    lines += [f"BC {b + 1} : {f(t)} {f(deck.bc_str[b, 0])}" for b, t in enumerate(deck.bc_type)]
+    lines += [f"nEBCnodes : {len(deck.bc_vel_nodes)}", "EBC node  BC#"]
+    lines += [f"{n} {b + 1}" for n, b in deck.bc_vel_nodes.tolist()]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def _synced(fn):
+    """(result, seconds) of ``fn()`` ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def _rel(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def phase_legacy_poisson(args) -> dict:
+    """(a) Poisson on the cube: the MMS source (an eigenvector of the uniform
+    grid's operator, so CG takes one iteration) and a constant source (the
+    deck's ``fxyFunc`` 1: a CG of some hundred iterations).  n on the card;
+    n/2 against the port's CPU path, and every backend against cg."""
+    from cfd_with_cuda_tpu_torch.solvers.poisson import PoissonSolver, mms_solution
+
+    n = args.legacy_poisson_n
+    half = n // 2
+    out = dict(phase="legacy_poisson", n=n, hexes=n**3, nodes=(n + 1) ** 3)
+    t0 = time.time()
+    big = PoissonSolver(_legacy_cube_poisson(n, fxy=1.0))
+    out["setup_s"] = time.time() - t0
+    (u, k, res), out["mms_solve_s"] = _synced(lambda: big.solve(source="mms"))
+    err = float(abs(u - mms_solution(big.deck.coords)).max())
+    (_, k_c, res_c), out["const_solve_s"] = _synced(big.solve)
+    out.update(mms_iters=k, mms_residual=res, mms_err=err, const_iters=k_c,
+               const_residual=res_c, const_ms_per_iter=out["const_solve_s"] / k_c * 1e3,
+               ell_slots=int(big._cols.shape[0]))
+    del big
+
+    deck = _legacy_cube_poisson(half, fxy=1.0)
+    card = {}
+    for backend in ("cg", "cr", "bicgstab", "gmres"):
+        s = PoissonSolver(deck, solver=backend)
+        (u_b, k_b, _), sec = _synced(s.solve)
+        card[backend] = (u_b, k_b, sec)
+    s = PoissonSolver(deck)
+    u_mms, k_mms, _ = s.solve(source="mms")
+    t0 = time.time()
+    cpu = PoissonSolver(deck, device="cpu")
+    u_mms_c, k_mms_c, _ = cpu.solve(source="mms")
+    u_c, k_c, _ = cpu.solve()
+    cpu_s = time.time() - t0
+    u_h, k_h, _ = card["cg"]
+    err_h = float(abs(u_mms - mms_solution(deck.coords)).max())
+    out["half"] = dict(
+        n=half, mms_err=err_h, mms_ratio=err_h / err, cpu_s=cpu_s,
+        iters_card_cpu=dict(mms=[k_mms, k_mms_c], const=[k_h, k_c]),
+        card_vs_cpu=dict(mms=_rel(u_mms, u_mms_c), const=_rel(u_h, u_c)),
+        tol=POISSON_CARD_CPU_TOL,
+        backends={b: dict(iters=v[1], solve_s=v[2], vs_cg=float(abs(v[0] - u_h).max()))
+                  for b, v in card.items()})
+    emit(out)
+    lo, hi = POISSON_MMS_RATIO
+    h = out["half"]
+    bad = [b for b, v in h["backends"].items() if v["vs_cg"] > POISSON_BACKEND_TOL]
+    if (max(h["card_vs_cpu"].values()) > POISSON_CARD_CPU_TOL or k_mms != k_mms_c
+            or k_h != k_c or bad or not err < 1.0
+            or (n == LEGACY_POISSON_N and not lo <= h["mms_ratio"] <= hi)):
+        raise AssertionError(f"legacy_poisson: {out}")
+    return out
+
+
+def _count_host_reads(fn):
+    """(result, host reads) of ``fn()``: calls of ``Tensor.cpu`` and ``Tensor.item``."""
+    import torch
+
+    calls = [0]
+    cpu, item = torch.Tensor.cpu, torch.Tensor.item
+
+    def counted(orig):
+        def wrapper(self, *a, **kw):
+            calls[0] += 1
+            return orig(self, *a, **kw)
+        return wrapper
+
+    torch.Tensor.cpu, torch.Tensor.item = counted(cpu), counted(item)
+    try:
+        out = fn()
+    finally:
+        torch.Tensor.cpu, torch.Tensor.item = cpu, item
+    return out, calls[0]
+
+
+def phase_legacy_stokes(args) -> dict:
+    """(b) Stokes at 19,652 unknowns: dense_lu on the card and GMRES against
+    host splu; the dense factor's time alone."""
+    import numpy as np
+    import torch
+
+    from cfd_with_cuda_tpu_torch.mesh.generators import cavity_legacy_deck
+    from cfd_with_cuda_tpu_torch.solvers.monolithic import StokesSolver
+
+    deck = cavity_legacy_deck(args.legacy_stokes_n, viscosity=1.0)
+    out = dict(phase="legacy_stokes", deck=f"cavity_legacy_deck({args.legacy_stokes_n}, "
+               "viscosity=1.0)", unknowns=4 * deck.nn)
+    t0 = time.time()
+    s_lu = StokesSolver(deck, solver="splu")
+    (u_s, p_s, _), out["splu_s"] = _synced(s_lu.solve)
+    out["setup_s"] = time.time() - t0 - out["splu_s"]
+    s_d = StokesSolver(deck, solver="dense_lu")
+    (u_d, p_d, rounds), out["dense_lu_s"] = _synced(s_d.solve)
+    # the factor alone, on the same matrix (CUDA events)
+    K, _ = s_d.assemble(np.zeros((s_d.nn, 3)))
+    dense = torch.from_numpy(K.toarray()).cuda()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    lu, piv, info = torch.linalg.lu_factor_ex(dense)
+    end.record()
+    torch.cuda.synchronize()
+    out["factor_ms"], out["factor_gb"] = start.elapsed_time(end), dense.numel() * 8 / 1e9
+    del dense, lu, piv, info
+    torch.cuda.empty_cache()
+    s_g = StokesSolver(deck, solver="gmres")
+    ((u_g, p_g, its), reads), out["gmres_s"] = _synced(lambda: _count_host_reads(s_g.solve))
+    x_g = np.concatenate([u_g.T.ravel(), p_g])
+    K, F = s_g.assemble(np.zeros((s_g.nn, 3)))
+    cycles = its // s_g.gmres_restart
+    out.update(
+        dense_lu_rounds=rounds, dense_lu_vs_splu=[_rel(u_d, u_s), _rel(p_d, p_s)],
+        dense_lu_tol=STOKES_LU_TOL, gmres_iters=its, gmres_maxiter=s_g.solver_maxiter,
+        gmres_true_res=float(np.linalg.norm(F - K @ x_g) / np.linalg.norm(F)),
+        gmres_tol=s_g.solver_tol, gmres_vs_splu=[_rel(u_g, u_s), _rel(p_g, p_s)],
+        gmres_host_reads=reads, gmres_reads_per_cycle=reads / max(cycles, 1),
+        gmres_ms_per_iter=out["gmres_s"] / max(its, 1) * 1e3)
+    emit(out)
+    if (rounds > STOKES_LU_ROUNDS or max(out["dense_lu_vs_splu"]) > STOKES_LU_TOL
+            or out["gmres_true_res"] > 2 * s_g.solver_tol
+            or out["gmres_vs_splu"][0] > STOKES_GMRES_U_TOL
+            or out["gmres_vs_splu"][1] > STOKES_GMRES_P_TOL):
+        raise AssertionError(f"legacy_stokes: {out}")
+    return out
+
+
+def phase_legacy_ns(args) -> dict:
+    """(c) GLS (LEGACY_PICARD iterations) and segregated (LEGACY_OUTER) at
+    NE8000, the card against the port's CPU path over the same iterations."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch.mesh.generators import cavity_legacy_deck
+    from cfd_with_cuda_tpu_torch.solvers.monolithic import GLSNavierStokesSolver
+    from cfd_with_cuda_tpu_torch.solvers.segregated import SegregatedSolver
+
+    n = args.legacy_ns_n
+    deck = cavity_legacy_deck(n, viscosity=1.0)
+    lid = np.isclose(deck.coords[:, 2], 1.0)
+    out = dict(phase="legacy_ns", deck=f"cavity_legacy_deck({n}, viscosity=1.0)", nodes=deck.nn,
+               unknowns=4 * deck.nn)
+    def recorded(solver, name):
+        """Each solve's count and f64 true residual ||b - A x|| / ||b||."""
+        solves, inner = [], getattr(solver, name)
+
+        def wrapper(A, b, *rest):
+            x, k = inner(A, b, *rest)
+            bn = float(np.linalg.norm(b))
+            solves.append((k, float(np.linalg.norm(b - A @ x)) / bn if bn else 0.0))
+            return x, k
+        setattr(solver, name, wrapper)
+        return solves
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        for kind, cls, method, kw in (
+                ("gls", GLSNavierStokesSolver, "_solve_linear", dict(max_picard=args.legacy_picard)),
+                ("seg", SegregatedSolver, "_krylov", dict(max_outer=args.legacy_outer))):
+            t0 = time.time()
+            solver = cls(deck, device=dev)
+            setup = time.time() - t0
+            solves = recorded(solver, method)
+            (u, p, h), sec = _synced(lambda: solver.solve(**kw))
+            counts = ([r["lin_iters"] for r in h] if kind == "gls"
+                      else [(r["p_iters"], r["mom_iters"]) for r in h])
+            runs[(kind, dev)] = (u, p, counts, sec, setup, solves, solver.solver_maxiter)
+    bad = []
+    for kind in ("gls", "seg"):
+        u, p, c, sec, setup, solves, maxiter = runs[(kind, "cuda")]
+        u_c, p_c, c_c, sec_c = runs[(kind, "cpu")][:4]
+        d = dict(counts=c, cpu_counts=c_c, card_s=sec, cpu_s=sec_c, setup_s=setup,
+                 du=_rel(u, u_c), dp=_rel(p, p_c), tol=NS_CARD_CPU_TOL,
+                 lid_max_dev=float(abs(u[lid, 0] - 1.0).max()),
+                 lid_equal_cpu=bool(np.array_equal(u[lid], u_c[lid])),
+                 solves=len(solves), max_true_res=max(r for _, r in solves),
+                 # solves that stopped at solver_iter_max, with their true residual
+                 at_maxiter=[(k, r) for k, r in solves if k >= maxiter])
+        if kind == "gls":
+            same = c == c_c
+        else:
+            same = (len(c) == len(c_c) and [m for _, m in c] == [m for _, m in c_c]
+                    and all(abs(a - b) <= SCPE_ITERS_TOL for (a, _), (b, _) in zip(c, c_c)))
+        out[kind] = d
+        if (not same or d["du"] > NS_CARD_CPU_TOL or d["dp"] > NS_CARD_CPU_TOL
+                or d["lid_max_dev"] > LID_TOL):
+            bad.append(kind)
+    emit(out)
+    if bad:
+        raise AssertionError(f"legacy_ns {bad}: {out}")
+    return out
+
+
+def phase_legacy_cli(args, work) -> dict:
+    """(d) python -m cfd_with_cuda_tpu_torch on deck files: --solver poisson,
+    auto (segregated), gls and stokes; each .dat against the in-process
+    solver on the card."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch import __main__ as cli
+    from cfd_with_cuda_tpu_torch.io.deck import read_deck
+    from cfd_with_cuda_tpu_torch.mesh.generators import cavity_legacy_deck
+    from cfd_with_cuda_tpu_torch.solvers.monolithic import GLSNavierStokesSolver, StokesSolver
+    from cfd_with_cuda_tpu_torch.solvers.poisson import PoissonSolver
+    from cfd_with_cuda_tpu_torch.solvers.segregated import SegregatedSolver
+
+    d = work / "legacy"
+    d.mkdir()
+    _write_poisson_deck(d / "poisson.inp", _legacy_cube_poisson(args.legacy_poisson_n // 2,
+                                                                fxy=1.0))
+    _write_legacy_deck(d / "cavity.inp", cavity_legacy_deck(args.legacy_cli_n,
+                                                            max_iter=LEGACY_CLI_ITERMAX))
+    library = {
+        "poisson": lambda deck: PoissonSolver(deck).solve(),
+        "segregated": lambda deck: SegregatedSolver(deck).solve(),
+        "gls": lambda deck: GLSNavierStokesSolver(deck).solve(),
+        "stokes": lambda deck: StokesSolver(deck).solve(),
+    }
+    out = dict(phase="legacy_cli")
+    for kind, inp, argv in (("poisson", "poisson.inp", ["--solver", "poisson"]),
+                            ("segregated", "cavity.inp", []),
+                            ("gls", "cavity.inp", ["--solver", "gls"]),
+                            ("stokes", "cavity.inp", ["--solver", "stokes"])):
+        rep = _cli(cli, [d / inp, "--quiet", *argv])
+        s = rep["solver"]
+        dat = np.loadtxt(d / inp.replace(".inp", ".dat"), skiprows=3, max_rows=s.deck.nn)
+        deck = read_deck(d / inp)
+        (u, *rest), lib_s = _synced(lambda: library[kind](deck))
+        if kind == "poisson":
+            u, p = np.column_stack([u, np.zeros((u.shape[0], 2))]), np.zeros(u.shape[0])
+        else:
+            p = rest[0]
+        hist = rep["history"]
+        out[kind] = dict(solver=type(s).__name__, dialect=s.deck.dialect, cli_s=rep["cli_s"],
+                         run_s=rep["run_s"], library_s=lib_s,
+                         count=hist if isinstance(hist, int) else len(hist),
+                         du=_rel(dat[:, 3:6], u), dp=_rel(dat[:, 6], p) if kind != "poisson"
+                         else float(abs(dat[:, 6]).max()))
+    emit(out)
+    if (out["segregated"]["solver"] != "SegregatedSolver"
+            or any(v["du"] > LEGACY_CLI_TOL or v["dp"] > LEGACY_CLI_TOL
+                   for k, v in out.items() if k != "phase")):
+        raise AssertionError(f"legacy_cli: {out}")
+    return out
+
+
+def legacy_phases(args, cuda_lib) -> None:
+    """Phase 11: the legacy solvers; no hand-written kernel launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.time()
+    cuda_lib.reset_launch_counts()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_legacy_"))
+    try:
+        phase_legacy_poisson(args)
+        torch.cuda.empty_cache()
+        phase_legacy_stokes(args)
+        torch.cuda.empty_cache()
+        phase_legacy_ns(args)
+        torch.cuda.empty_cache()
+        phase_legacy_cli(args, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launched = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+    emit(dict(phase="legacy_total", seconds=time.time() - t0, kernel_launches=launched))
+    if launched:
+        raise AssertionError(f"legacy phases launched hand-written kernels: {launched}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck-n", type=int, default=30, help="cavity elements per edge (30: NE27000)")
@@ -3012,6 +3411,19 @@ def main() -> int:
                     help="explicit command-line steps on the bend (phase 10)")
     ap.add_argument("--bend-implicit-steps", type=int, default=20,
                     help="implicit command-line steps on the bend (phase 10)")
+    ap.add_argument("--legacy-poisson-n", type=int, default=LEGACY_POISSON_N,
+                    help="Poisson cube elements per edge of phase 11 (64; n/2 is held "
+                         "against the CPU and every backend, and is the CLI's deck)")
+    ap.add_argument("--legacy-stokes-n", type=int, default=LEGACY_STOKES_N,
+                    help="Stokes cavity elements per edge of phase 11 (16: 19,652 unknowns)")
+    ap.add_argument("--legacy-ns-n", type=int, default=LEGACY_NS_N,
+                    help="GLS and segregated cavity elements per edge of phase 11 (20: NE8000)")
+    ap.add_argument("--legacy-picard", type=int, default=LEGACY_PICARD,
+                    help="GLS Picard iterations of phase 11 (card and CPU)")
+    ap.add_argument("--legacy-outer", type=int, default=LEGACY_OUTER,
+                    help="segregated outer iterations of phase 11 (card and CPU)")
+    ap.add_argument("--legacy-cli-n", type=int, default=LEGACY_CLI_N,
+                    help="elements per edge of phase 11's legacy cavity deck file")
     args = ap.parse_args()
 
     import torch
@@ -3076,6 +3488,10 @@ def main() -> int:
     # ---- the command line, Tecplot output, restart and the setup cache
     cli_phases(args, cavity_deck, bending_duct_deck, cuda_lib, ExplicitBCHSolver,
                ImplicitGQSolver, DTypePolicy, SolverConfig)
+    torch.cuda.empty_cache()
+
+    # ---- the legacy solvers (Poisson, Stokes, GLS, segregated) and their CLI
+    legacy_phases(args, cuda_lib)
 
     # row 9: the CG kernels on the banded window (launches: the explicit BFS
     # run; cg_iter per launch of UNROLL iterations, which no single PyTorch

@@ -149,24 +149,174 @@ def test_cli_monitor_table_and_implicit(tmp_path, capsys):
     assert [int(r[0]) for r in table] == [1, 2, 3] and all(r[1] == "1" for r in table)
 
 
+# ---------------------------------------------------------------- legacy solvers
+
+def _fmt(v) -> str:
+    return repr(float(v))
+
+
+def _write_mesh(out, deck):
+    out.append("Node#  x  y  z")
+    out += [f"{i} {_fmt(x)} {_fmt(y)} {_fmt(z)}" for i, (x, y, z) in enumerate(deck.coords)]
+    out.append("=" * 20)
+    out.append("Elem#  nodes")
+    out += [f"{e} " + " ".join(str(int(n)) for n in row) for e, row in enumerate(deck.conn)]
+    out.append("=" * 20)
+
+
+def write_legacy_deck(path, deck):
+    """A legacy-dialect deck that ``io/deck.py::_read_legacy`` reads back
+    field for field (node-based BC tables, 0-based nodes, 1-based BC
+    numbers, the monitor point as a one-row list)."""
+    out = [deck.title, "=" * 20,
+           f"eType : {deck.etype}", f"NE : {deck.ne}", f"NCN : {deck.ncn}", f"NN : {deck.nn}",
+           f"NENv : {deck.nenv}", f"NENp : {deck.nenp}", f"NGP : {deck.ngp}",
+           f"iterMax : {deck.max_iter}", f"tolerance : {_fmt(deck.tolerance)}",
+           f"solverIterMax : {deck.solver_iter_max}", f"solverTol : {_fmt(deck.solver_tol)}",
+           f"density : {_fmt(deck.density)}", f"viscosity : {_fmt(deck.viscosity)}",
+           "=" * 20]
+    _write_mesh(out, deck)
+    out.append(f"nBC : {len(deck.bc_type)}")
+    out += [f"BC {b + 1} : {_fmt(t)} " + " ".join(_fmt(v) for v in deck.bc_str[b])
+            for b, t in enumerate(deck.bc_type)]
+    out.append(f"nVelNodes : {len(deck.bc_vel_nodes)}")
+    out.append(f"nPressureNodes : {len(deck.bc_pres_nodes)}")
+    out.append("Velocity BC")
+    out += [f"{n} {b + 1}" for n, b in deck.bc_vel_nodes]
+    out.append("Pressure BC")
+    out += [f"{n} {b + 1}" for n, b in deck.bc_pres_nodes]
+    out.append("nMonitorPoints : 1")
+    out.append("Monitor#  x  y  z")
+    out.append("0 " + " ".join(_fmt(v) for v in deck.monitor_xyz))
+    path.write_text("\n".join(out) + "\n")
+
+
+def write_poisson_deck(path, deck):
+    """A Poisson-dialect deck that ``io/deck.py::_read_poisson`` reads back."""
+    out = [deck.title, "=" * 20,
+           f"eType : {deck.etype}", f"NE : {deck.ne}", f"NN : {deck.nn}", f"NEN : {deck.nenv}",
+           f"NGP : {deck.ngp}", f"solverIterMax : {deck.solver_iter_max}",
+           f"solverTol : {_fmt(deck.solver_tol)}", f"axyFunc : {_fmt(deck.axy)}",
+           f"fxyFunc : {_fmt(deck.fxy)}", "=" * 20]
+    _write_mesh(out, deck)
+    out.append(f"nBC : {len(deck.bc_type)}")
+    out += [f"BC {b + 1} : {_fmt(t)} {_fmt(deck.bc_str[b, 0])}"
+            for b, t in enumerate(deck.bc_type)]
+    out.append(f"nEBCnodes : {len(deck.bc_vel_nodes)}")
+    out.append("EBC node  BC#")
+    out += [f"{n} {b + 1}" for n, b in deck.bc_vel_nodes]
+    path.write_text("\n".join(out) + "\n")
+
+
+def _poisson_cube_deck(n):
+    """``test_torch_legacy_solvers.py``'s cube (zero Dirichlet walls) with a
+    constant source (``fxyFunc`` 1): the CLI solves the deck's own
+    right-hand side."""
+    from test_torch_legacy_solvers import _cube_poisson_deck
+
+    deck = _cube_poisson_deck(n)
+    deck.fxy = 1.0
+    return deck
+
+
+# the .dat fields of the port's CLI against the JAX CLI's: tests/test_torch_legacy_solvers.py's
+# bounds (Poisson 1e-10 of max|u|; the Navier-Stokes solvers 1e-9 of max|u| and max|p|), over
+# the file's 12 significant digits
+LEGACY_DAT_TOL = {"poisson": 1e-10, "segregated": 1e-9, "gls": 1e-9, "stokes": 1e-9}
+_COUNT_LINE = re.compile(r"^(poisson|segregated|GLS NS|Stokes): (\d+)")
+
+
+def _legacy_problem(path, kind):
+    from cfd_with_cuda_tpu_torch.mesh.generators import cavity_legacy_deck
+
+    path.mkdir(exist_ok=True)
+    if kind == "poisson":
+        write_poisson_deck(path / "cube.inp", _poisson_cube_deck(4))
+        (path / "ProblemName.txt").write_text("cube\n")
+    else:
+        write_legacy_deck(path / "cube.inp", cavity_legacy_deck(2, viscosity=0.1))
+        (path / "ProblemName.txt").write_text("cube\n")
+    return path
+
+
+def _legacy_vs_jax(tmp_path, capsys, kind, argv):
+    """Run both CLIs on the same deck file; the port's report, and each
+    package's printed lines."""
+    pd, jd = _legacy_problem(tmp_path / "port", kind), _legacy_problem(tmp_path / "jax", kind)
+    report = {}
+    assert main([str(pd), *argv, "--device", "cpu"], report=report) == 0
+    out_t = capsys.readouterr().out
+    assert jax_main.main([str(jd), *argv]) == 0
+    out_j = capsys.readouterr().out
+    nn = report["solver"].deck.coords.shape[0]
+    (u_t, p_t), (u_j, p_j) = (
+        (rows[:, 3:6], rows[:, 6]) for rows in (np.loadtxt(d / "cube.dat", skiprows=3, max_rows=nn)
+                                                for d in (pd, jd)))
+    tol = LEGACY_DAT_TOL[kind]
+    assert np.abs(u_t - u_j).max() <= tol * np.abs(u_j).max()
+    assert np.abs(p_t - p_j).max() <= tol * max(np.abs(p_j).max(), 1e-300)
+    # the same lines, numbers (and the widths of their columns) aside, and
+    # the same solver counts
+    shape = [re.sub(r"[ \t]+", " ", re.sub(r"[-+]?\d[\d.e+-]*", "#",
+                                          o.replace(str(pd), "D").replace(str(jd), "D")))
+             for o in (out_t, out_j)]
+    assert shape[0] == shape[1]
+    counts = [[m.groups() for m in map(_COUNT_LINE.match, o.splitlines()) if m]
+              for o in (out_t, out_j)]
+    assert counts[0] == counts[1] and len(counts[0]) == 1
+    return report, (u_t, p_t)
+
+
 @pytest.mark.parametrize("choice", ["poisson", "segregated", "gls", "stokes"])
-def test_legacy_solver_choice_raises_item_9(tmp_path, choice):
-    d = make_problem_dir(tmp_path / "p")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9") as err:
-        main([str(d), "--solver", choice, "--device", "cpu"])
-    assert err.match(choice)
+def test_legacy_solver_choice_runs(tmp_path, capsys, choice):
+    """``--solver poisson|segregated|gls|stokes`` on a Poisson deck (the
+    constant-source cube, n = 4) or a legacy one (``cavity_legacy_deck(2,
+    viscosity=0.1)``) written to disk: the port's .dat fields against the JAX
+    CLI's, the same printed lines and counts."""
+    report, (u, p) = _legacy_vs_jax(tmp_path, capsys, choice, ["--solver", choice])
+    kind = type(report["solver"]).__name__
+    assert kind == {"poisson": "PoissonSolver", "segregated": "SegregatedSolver",
+                    "gls": "GLSNavierStokesSolver", "stokes": "StokesSolver"}[choice]
+    if choice == "poisson":
+        assert np.all(u[:, 1:] == 0) and np.all(p == 0)      # the scalar in the u column
+    else:
+        lid = np.isclose(report["solver"].deck.coords[:, 2], 1.0)
+        np.testing.assert_allclose(u[lid, 0], 1.0, rtol=0, atol=1e-10)
 
 
 @pytest.mark.parametrize("dialect,solver", [("legacy", "segregated"), ("poisson", "poisson")])
-def test_legacy_deck_under_auto_raises_item_9(tmp_path, monkeypatch, dialect, solver):
-    d = make_problem_dir(tmp_path / "p")
-    from cfd_with_cuda_tpu_torch.io import deck as deck_mod
+def test_legacy_deck_under_auto_runs(tmp_path, capsys, dialect, solver):
+    """``--solver auto`` picks by dialect: a legacy deck runs the segregated
+    solver, a Poisson deck the Poisson solver, in both packages alike."""
+    report, _ = _legacy_vs_jax(tmp_path, capsys, solver, ["--quiet"])
+    assert report["solver"].deck.dialect == dialect
+    assert type(report["solver"]).__name__ == {"segregated": "SegregatedSolver",
+                                               "poisson": "PoissonSolver"}[solver]
 
-    read = deck_mod.read_deck
-    monkeypatch.setattr(deck_mod, "read_deck",
-                        lambda p: dataclasses.replace(read(p), dialect=dialect))
-    with pytest.raises(NotImplementedError, match=f"the {solver} solver .*item 9"):
-        main([str(d), "--device", "cpu"])
+
+def test_written_legacy_decks_read_back():
+    """The test's deck writers against the readers, field for field."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from cfd_with_cuda_tpu_torch.io.deck import read_deck
+    from cfd_with_cuda_tpu_torch.mesh.generators import cavity_legacy_deck
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for deck, writer in ((cavity_legacy_deck(2, viscosity=0.1), write_legacy_deck),
+                             (_poisson_cube_deck(3), write_poisson_deck)):
+            path = Path(tmp) / "d.inp"
+            writer(path, deck)
+            back = read_deck(path)
+            for f in dataclasses.fields(deck):
+                a, b = getattr(back, f.name), getattr(deck, f.name)
+                if f.name in ("source_path", "monitor_points", "ncn", "nenp"):
+                    continue
+                if isinstance(b, np.ndarray):
+                    np.testing.assert_array_equal(a, b, err_msg=f.name)
+                else:
+                    assert a == b, f.name
 
 
 def test_cli_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):

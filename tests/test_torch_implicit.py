@@ -304,8 +304,6 @@ def test_xla_path_choices_match_jax(override):
 
 # structured="never" runs (the ELL step: tests/test_torch_unstructured_implicit.py)
 @pytest.mark.parametrize("override,item,msg", [
-    pytest.param(dict(momentum_solver="gmres"), "queue 1 item 6", "gmres",
-                 id="override5-queue 1 item 6"),
     pytest.param(dict(spmd_devices=2), "queue 1 item 11", "multi-device",
                  id="override6-queue 1 item 11"),
 ])
@@ -314,6 +312,16 @@ def test_other_branches_raise_with_roadmap_item(override, item, msg):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}") as err:
         ImplicitGQSolver(_deck(), SolverConfig(**cfg), device="cpu")
     assert err.match(msg)
+
+
+def test_gmres_momentum_solver_raises_the_reference_defect():
+    """``momentum_solver="gmres"``: the JAX package's implicit step fails with
+    it on every path (``tests/test_torch_legacy_momentum.py`` shows the JAX
+    failure), so the port refuses it when the solver is built."""
+    cfg = dict(dtype_policy=DTypePolicy.F32, **BASE, momentum_solver="gmres")
+    with pytest.raises(ValueError, match="reference defect") as err:
+        ImplicitGQSolver(_deck(), SolverConfig(**cfg), device="cpu")
+    assert err.match("ops/krylov.py:441") and err.match("implicit_gq.py:752")
 
 
 # setup_cache="auto" (ROADMAP.md queue 1 item 8, ported): a miss, then a hit

@@ -177,9 +177,13 @@ def test_cg_miniter_and_atol():
 
 
 @pytest.mark.parametrize("name", ["cr", "bicg", "gmres"])
-def test_solver_by_name_names_the_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tk.solver_by_name(name)
+def test_solver_by_name_returns_the_rest_of_the_suite(name):
+    """CR, BiCG and GMRES (held against the JAX package in
+    ``tests/test_torch_krylov_suite.py``), with fixed keywords too."""
+    assert tk.solver_by_name(name.upper()) is getattr(tk, name)
+    fixed = tk.solver_by_name(name, tol=1e-8)
+    assert fixed.func is getattr(tk, name) and fixed.keywords == {"tol": 1e-8}
+    assert sorted(tk._SOLVERS) == sorted(jk._SOLVERS)
 
 
 def test_solver_by_name():
