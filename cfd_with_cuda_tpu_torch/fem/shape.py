@@ -1,4 +1,4 @@
-"""Hexahedral shape-function library (Q1 trilinear, Q2 triquadratic).
+"""Shape-function library (Q1 trilinear, Q2 triquadratic hexes; P1 tets).
 
 Reproduces the reference element library (``calcShape()``,
 ``fractionalStep/explicit/Cpp/blascoCodinaHuerta.cpp:2215-2488``) but built
@@ -12,7 +12,7 @@ the reference exactly:
 * nodes 20-25: mid-face nodes, face order of the face switch (``:1140-1180``),
 * node 26:     mid-element node.
 
-Port of ``cfd_with_cuda_tpu/fem/shape.py`` (hexes only).
+Port of ``cfd_with_cuda_tpu/fem/shape.py``.
 """
 
 from __future__ import annotations
@@ -156,8 +156,25 @@ def shape_hex(points: np.ndarray, nen: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def shape_functions(etype: int, nen: int, points: np.ndarray):
-    """Dispatch on deck element type (1: hex; the JAX package's 4-node
-    tets are not ported)."""
+    """Dispatch on deck element type (1: hex; 2: tet 4-node)."""
     if etype == 1:
         return shape_hex(points, nen)
-    raise ValueError(f"unsupported element type {etype} (the port runs hexes only)")
+    if etype == 2:
+        if nen != 4:
+            raise ValueError("only 4-node tets are supported")
+        pts = np.atleast_2d(np.asarray(points, dtype=np.float64))
+        ksi, eta, zeta = pts[:, 0], pts[:, 1], pts[:, 2]
+        S = np.stack([1.0 - ksi - eta - zeta, ksi, eta, zeta], axis=-1)
+        dS = np.broadcast_to(
+            np.array(
+                [
+                    [-1.0, -1.0, -1.0],
+                    [1.0, 0.0, 0.0],
+                    [0.0, 1.0, 0.0],
+                    [0.0, 0.0, 1.0],
+                ]
+            ),
+            (pts.shape[0], 4, 3),
+        ).copy()
+        return S, dS
+    raise ValueError(f"unsupported element type {etype}")

@@ -36,7 +36,12 @@ power limit.  Needs one CUDA card.
 ``--deck-n`` sets the cavity's elements per edge; the deck's dt is the JAX
 package's bench-matrix dt for that size (``scripts/bench_matrix.py:136-150``:
 5e-4 at 44, the NE85184 cavity, whose velocity field takes the streamed
-form; 4e-4 at 50; else 1e-3).
+form; 4e-4 at 50, the NE125000 cavity; else 1e-3).  Above a coarse size of
+``_PLANES_MAX_SP`` (NE125000) the explicit parity step takes the flat
+convection route, and each regime adds the device time by PyTorch op, the
+host gap, and each op of the step alone: the A(un) build, the flat gather,
+einsum and scatter, K in its streamed and its resident form, the whole
+(K + A) u, G and G^T.
 
 ``--layout interleaved`` runs either solver on the cavity's interleaved
 structured layout (``structured_layout="interleaved"``) instead of the
@@ -90,6 +95,7 @@ import torch
 
 from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
 from cfd_with_cuda_tpu_torch.ops import cuda_lib, spmv
+from cfd_with_cuda_tpu_torch.ops import parity_stencil as pstl
 from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
 from cfd_with_cuda_tpu_torch.ops.multigrid import make_vcycle
 from cfd_with_cuda_tpu_torch.ops.stencil import (
@@ -106,7 +112,7 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     grad_window_compact,
     window_spmv_compact,
 )
-from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
+from cfd_with_cuda_tpu_torch.solvers.explicit_bch import _PLANES_MAX_SP, ExplicitBCHSolver
 from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 from cfd_with_cuda_tpu_torch.utils.timers import busy_share
@@ -120,11 +126,13 @@ SEEDED_STATE = (Path(__file__).resolve().parents[1] / "cfd_with_cuda_tpu" / "val
 
 
 def _timed(solver, state, n):
+    """(state, history, ms per step run): the run stops early where the
+    steady test passes or the flow is no longer finite."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, hist = solver.run(state, n_steps=n)
     torch.cuda.synchronize()
-    return state, hist, (time.perf_counter() - t0) / n * 1e3
+    return state, hist, (time.perf_counter() - t0) / max(len(hist), 1) * 1e3
 
 
 def _trace(solver, state):
@@ -167,11 +175,11 @@ def _trace(solver, state):
 def _regime(name, solver, state, n_timed, ops=None):
     cuda_lib.reset_launch_counts()
     state, hist, ms = _timed(solver, state, n_timed)
-    launches = {k: v / n_timed for k, v in cuda_lib.launch_counts.items() if v}
+    launches = {k: v / max(len(hist), 1) for k, v in cuda_lib.launch_counts.items() if v}
     subs = [int(h["iters"]) for h in hist]
     state, top, busy, traced_ms, by_op, counts = _trace(solver, state)
     out = dict(
-        regime=name, ms_per_step=ms, timed_steps=n_timed,
+        regime=name, ms_per_step=ms, timed_steps=n_timed, steps_run=len(hist),
         sub_iters_hist={str(s): subs.count(s) for s in sorted(set(subs))},
         cg_iters_mean=sum(h["cg_iters"] for h in hist) / len(hist),
         mom_iters_mean=sum(h["mom_iters"] for h in hist) / len(hist),
@@ -307,6 +315,37 @@ def _implicit_ops(solver):
     return ops
 
 
+def _parity_flat_ops(solver):
+    """The ops of one explicit parity step on the flat convection route
+    (coarse size over ``_PLANES_MAX_SP``), each alone at its shapes: the
+    A(un) build, the flat gather, einsum and scatter of A(un) u, K in the
+    field form the rule picks and in the other (``stream_x`` forced), the
+    whole (K + A) u, G and G^T."""
+    def ops(state):
+        d, un = solver.d, state.un
+        _, ka_mul, grad, div, *_ = solver._parity_operators(d, un)
+        ae = solver._parity_conv_ae(d, un, False)
+        gather = lambda: pstl.parity_gather_elem_flat(un, solver.coarse_dims)
+        ue = gather()
+        einsum = lambda: torch.einsum("ije,dje->die", ae, ue)
+        r1e = einsum()
+        k_form = lambda stream: pstl.parity_apply(d["Kp"], un, pairs=solver.k_pairs, co=3,
+                                                  stream_x=stream)
+        return dict(
+            ae_build=_event_ms(lambda: solver._parity_conv_ae(d, un, False), 3),
+            gather_elem_flat=_event_ms(gather),
+            einsum_ae_u=_event_ms(einsum),
+            scatter_elem_flat=_event_ms(lambda: pstl.parity_scatter_elem_flat(
+                r1e, solver.coarse_dims)),
+            k_apply_streamed=_event_ms(lambda: k_form(True)),
+            k_apply_resident=_event_ms(lambda: k_form(False)),
+            k_plus_a_flat=_event_ms(lambda: ka_mul(un)),
+            grad=_event_ms(lambda: grad(state.pn)),
+            div_compact=_event_ms(lambda: div(un)),
+        )
+    return ops
+
+
 def _interleaved_ops(solver, implicit):
     """The ops of one interleaved cavity step, each alone at its shapes."""
     def ops(state):
@@ -402,8 +441,10 @@ def main() -> None:
                               layout=solver.layout, xla=solver.xla, nn=solver.nn,
                               setup_s=time.perf_counter() - t0, **_padded_size(solver))),
               flush=True)
+        flat = solver.layout == "parity" and solver.sp_c > _PLANES_MAX_SP
         ops = (_xla_ops(solver, False) if solver.xla else
-               _interleaved_ops(solver, False) if args.layout == "interleaved" else None)
+               _interleaved_ops(solver, False) if args.layout == "interleaved" else
+               _parity_flat_ops(solver) if flat else None)
         state, _ = solver.run(n_steps=5)           # warm-up: kernel build and first launches
         state = _regime("spin_up", solver, state, 50, ops=ops)
         done = 5 + 50 + PROFILE_STEPS

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py      # NE27000 and NE85184 cavities, NE144600-class BFS, the bend
+    python3 chip_smoke.py      # NE27000, NE85184, NE125000 cavities, NE144600-class BFS, the bend
     python3 chip_smoke.py --deck-n 4 --steps 8 --implicit-steps 8 \
         --bfs-dims 12x4x4 --bfs-steps 8 --bfs-implicit-steps 8 \
         --ne85-n 4 --ne85-steps 8 --ne85-finite-steps 12 --ne85-implicit-steps 8 \
         --xla-steps 8 --xla-implicit-steps 4 \
         --cli-steps 8 --bend-dims 16x8x8 --bend-steps 8 --bend-implicit-steps 6 \
         --legacy-poisson-n 16 --legacy-stokes-n 6 --legacy-ns-n 6 --legacy-outer 4 \
-        --legacy-cli-n 4                                                         # quick
+        --legacy-cli-n 4 --import-n 4 --tet-ns 4,8 --ne125-n 4 --ne125-steps 8   # quick
 
 Drives the port's main paths on the generated NE27000 lid-driven cavity
 (``cavity_deck(30, cluster=2.0)``, 61^3 velocity and 31^3 pressure nodes):
@@ -99,7 +99,7 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    ``e2e_xla_f64`` (100 explicit steps from rest in the stored f64 run's
    config, held against ``precision_ne27000.npz``'s f64 rows: the final
    field and the CG count of every step, the monitor trace printed; ms/step,
-   peak memory; its first 20 steps against the port's CPU path on the same
+   peak memory; its first 6 steps against the port's CPU path on the same
    tables), ``e2e_xla_f64_implicit`` (20 implicit steps from rest in the
    default F64 config with ``"mg"`` and with ``"jacobi"``: counts and the
    fields held together), ``e2e_xla_f32_mg`` (F32 through the V-cycle
@@ -118,7 +118,26 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    ``bending_duct_deck()``, 48 x 32 x 32 elements: the parity layout, the
    field form, setup and ms/step, counts, launches, a traced busy share,
    the flow out of the outflow plane, and the first 3 steps against the
-   plain path; the implicit pressure solves also against f64 solves).
+   plain path; the implicit pressure solves also against f64 solves);
+11. the legacy solvers in float64 (``legacy_poisson``, ``legacy_stokes``,
+   ``legacy_ns``, ``legacy_cli``), card against CPU and host ``splu``, every
+   launch counter at 0;
+12. mesh import and the NE125000 cavity: ``import_neu`` (the NE27000 corner
+   mesh written as a Gambit .neu, read by ``read_neu``, made a Q2/Q1 deck by
+   ``deck_from_mesh(..., quadratic=True)`` and run by the explicit solver at
+   rung 1's config on the parity layout: the BC tables on the card against
+   the import's and, but for the seam of the two node groups, the
+   generator's; 5 + 20 steps with launch counts, 3 against the plain path),
+   ``import_unv_tet`` (the unit cube split into six tets a hex at n = 16 and
+   32, written as an IDEAS .unv, read by ``read_unv`` and solved by
+   ``PoissonSolver``: card against CPU, equal CG counts, the MMS error's
+   fall; no launch), ``e2e_ne125`` (the "ne125" row of the JAX package's
+   bench matrix, ``cavity_deck(50, cluster=2.0, dt=4e-4)``: 5 + 25 steps
+   with launch counts on the flat convection route with every K streamed,
+   3 against the plain path; its host setup runs in a worker process on the
+   CPU beside phases 2-11 and reaches the phase through the setup cache) and
+   ``ghia_seeded`` (phase 5's seeded state against Ghia et al. within
+   ``BAND_3D``).
 
 Each phase prints one JSON line.  Any failure raises (non-zero exit, no
 result line).  The last lines are the ``kernels`` summary, the card's name
@@ -1077,6 +1096,28 @@ def phase_seeded(deck, cfg, ImplicitGQSolver, n_steps: int = 20) -> dict:
     if not (len(hist) == n_steps and finite and abs(u_mon0 - SEEDED_U_MON) < 1e-6
             and out["u_mon_max_dev"] < 5e-3 and max(max_acc) < 1.0):
         raise AssertionError(f"seeded implicit run: {out}")
+    phase_ghia_seeded(solver, state)
+    return out
+
+
+def phase_ghia_seeded(solver, state) -> dict:
+    """Phase 12 (d): the port's ``centerline_profiles`` and
+    ``check_against_ghia`` on the seeded state after its steps, within
+    ``BAND_3D`` (the stored state itself read 0.049 / 0.040)."""
+    from cfd_with_cuda_tpu_torch.validation.ghia1982 import (
+        BAND_3D,
+        centerline_profiles,
+        check_against_ghia,
+    )
+
+    u, _ = solver.fields(state)
+    z, u_x, x, u_z = centerline_profiles(solver.mesh.coords, u)
+    err_u, err_v = check_against_ghia(z, u_x, x, u_z, re=100)
+    out = dict(phase="ghia_seeded", points=[len(z), len(x)], err_ghia_u=err_u,
+               err_ghia_v=err_v, band=BAND_3D, stored=[0.04895971, 0.03994228])
+    emit(out)
+    if not (len(z) > 0 and len(x) > 0 and err_u < BAND_3D and err_v < BAND_3D):
+        raise AssertionError(f"ghia_seeded: {out}")
     return out
 
 
@@ -2254,7 +2295,9 @@ XLA_F32_U_MON_TOL, XLA_F32_FIELD_TOL = 1e-5, 1e-2
 # the first steps of (a)): two f64 runs of one algorithm whose reductions sum
 # in different orders, of max|u| and max|p|
 XLA_CARD_CPU_TOL = 1e-11
-XLA_F64_CPU_STEPS = 20
+# depth cut to keep the whole script under 1,100 s (H100 80GB HBM3, 700 W: the
+# CPU run took 77.9 s for 20 steps on a slower host): 6 steps, not 20
+XLA_F64_CPU_STEPS = 6
 XLA_DECK_N = 8
 
 
@@ -2993,8 +3036,8 @@ LEGACY_POISSON_N, LEGACY_STOKES_N, LEGACY_NS_N, LEGACY_CLI_N = 64, 16, 20, 10
 # the CPU reference runs 52-53 s of it): GLS 2 Picard iterations and segregated
 # 6 outer, not 3 and 10, and the CLI deck's iterMax 10, not the generator's 50
 # (the segregated run contracts slowly at nu = 1 and runs them all, twice with
-# the library run)
-LEGACY_PICARD, LEGACY_OUTER, LEGACY_CLI_ITERMAX = 2, 6, 10
+# the library run); segregated 4 outer since phase 12 was added
+LEGACY_PICARD, LEGACY_OUTER, LEGACY_CLI_ITERMAX = 2, 4, 10
 # card against CPU: two f64 runs of one algorithm whose reductions sum in other
 # orders, of max|u| (Poisson, a CG to 1e-12) and of max|u|, max|p| (GLS and
 # segregated, their Krylov solves to 1e-10 through the Picard / outer iterations)
@@ -3370,6 +3413,424 @@ def legacy_phases(args, cuda_lib) -> None:
         raise AssertionError(f"legacy phases launched hand-written kernels: {launched}")
 
 
+# ---------------------------------------------------------------- phase 12
+# (a) the NE27000 cavity's corner mesh written as a Gambit .neu and read back
+IMPORT_N = 30
+# (b) the unit cube split into six tets a hex, n elements an edge: card against
+# the port's CPU path (float64, the same summation of one CG), and the P1 MMS
+# error's fall from the coarser to the finer mesh (second order: ~4x)
+TET_NS = (16, 32)
+TET_CARD_CPU_TOL = 1e-10
+TET_MMS_RATIO = 3.0
+# (c) the "ne125" row of the JAX package's bench matrix (scripts/bench_matrix.py:136-150):
+# cavity_deck(50, cluster=2.0, viscosity=0.01, dt=4e-4), 125,000 hexes, 1,030,301 /
+# 132,651 nodes, Sp 133,120: over the 100,000 at which the explicit parity step leaves
+# the convection planes for the flat gather / einsum / scatter route, and its 12.8 MB
+# velocity field over the 6 MiB rule, so every K apply streams
+NE125_N = 50
+NE125_DT = 4e-4
+NE125_SP = 133_120
+# Gambit's brick node order from the deck's (converters.GAMBIT_HEX_TO_DECK's inverse)
+DECK_HEX_TO_GAMBIT = (0, 1, 4, 5, 3, 2, 7, 6)
+# six tets a hex around the diagonal 0-6 (every path 0 -> 6 along the three axes):
+# translated copies of one hex split alike, so the faces meet conformingly
+HEX_TO_TETS = ((0, 1, 2, 6), (0, 1, 5, 6), (0, 3, 2, 6), (0, 3, 7, 6), (0, 4, 5, 6),
+               (0, 4, 7, 6))
+
+
+def _write_neu(path, coords, conn, groups) -> None:
+    """A Gambit neutral file of a hex mesh with node-typed BC groups
+    (``groups``: name -> node ids, in this order)."""
+    out = ["        CONTROL INFO 2.4.6", "** GAMBIT NEUTRAL FILE", "chip_smoke mesh",
+           "PROGRAM:                Gambit     VERSION:  2.4.6", " today",
+           "     NUMNP     NELEM     NGRPS    NBSETS     NDFCD     NDFVL",
+           f"{len(coords):10d}{len(conn):10d}{1:10d}{len(groups):10d}{3:10d}{3:10d}",
+           "ENDOFSECTION", "   NODAL COORDINATES 2.4.6"]
+    out += [f"{i + 1:10d}{x:20.11e}{y:20.11e}{z:20.11e}"
+            for i, (x, y, z) in enumerate(coords.tolist())]
+    out += ["ENDOFSECTION", "      ELEMENTS/CELLS 2.4.6"]
+    gambit = conn[:, list(DECK_HEX_TO_GAMBIT)] + 1
+    out += [f"{e + 1:8d} {4:2d} {8:2d} " + "".join(f"{v:8d}" for v in row)
+            for e, row in enumerate(gambit.tolist())]
+    out.append("ENDOFSECTION")
+    for name, nodes in groups.items():
+        out += ["       BOUNDARY CONDITIONS 2.4.6",
+                f"{name:>32s}{0:8d}{len(nodes):8d}{0:8d}{6:8d}"]
+        out += [f"{v + 1:10d}" for v in nodes.tolist()]
+        out.append("ENDOFSECTION")
+    path.write_text("\n".join(out) + "\n")
+
+
+def _write_unv(path, coords, conn, groups) -> None:
+    """An IDEAS universal file: nodes (2411), tets (2412, type 111) and
+    node groups (2467)."""
+    out = ["    -1", "  2411"]
+    for i, (x, y, z) in enumerate(coords.tolist()):
+        out.append(f"{i + 1:10d}{1:10d}{1:10d}{11:10d}")
+        out.append(f"  {x:.16e}  {y:.16e}  {z:.16e}")
+    out += ["    -1", "    -1", "  2412"]
+    for e, row in enumerate((conn + 1).tolist()):
+        out.append(f"{e + 1:10d}{111:10d}{2:10d}{1:10d}{7:10d}{len(row):10d}")
+        out.append("".join(f"{v:10d}" for v in row))
+    out += ["    -1", "    -1", "  2467"]
+    for g, (name, nodes) in enumerate(groups.items()):
+        out.append(f"{g + 1:10d}" + f"{0:10d}" * 6 + f"{len(nodes):10d}")
+        out.append(name)
+        ids = (nodes + 1).tolist()
+        out += ["".join(f"{7:10d}{v:10d}{0:10d}{0:10d}" for v in ids[k:k + 2])
+                for k in range(0, len(ids), 2)]
+    out.append("    -1")
+    path.write_text("\n".join(out) + "\n")
+
+
+def _tet_cube(n):
+    """(coords, conn (6 n^3, 4) positively oriented) of the unit cube."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch.mesh.generators import cube_hex_mesh
+
+    coords, hexes = cube_hex_mesh(n + 1)
+    conn = hexes[:, np.array(HEX_TO_TETS)].reshape(-1, 4)
+    x = coords[conn]
+    det = np.linalg.det(x[:, 1:] - x[:, :1])
+    conn[det < 0] = conn[det < 0][:, [0, 2, 1, 3]]
+    return coords, conn
+
+
+def _cavity_groups(coords):
+    """The lid (z = 1) and the walls without the lid's nodes, walls first so the
+    lid wins the edges (tests/test_converters.py:110-140)."""
+    import numpy as np
+
+    lid = np.flatnonzero(np.isclose(coords[:, 2], 1.0))
+    side = (np.isclose(coords[:, :2], 0.0) | np.isclose(coords[:, :2], 1.0)).any(axis=1)
+    walls = np.flatnonzero((side | np.isclose(coords[:, 2], 0.0)) & ~np.isclose(coords[:, 2], 1.0))
+    return {"walls": walls, "lid": lid}
+
+
+def phase_import_neu(args, work, cuda_lib, ExplicitBCHSolver, DTypePolicy, SolverConfig) -> dict:
+    """(a) The NE27000 cavity's corner mesh (``cube_hex_mesh(31, cluster=2.0)``)
+    written as a Gambit .neu, read back by ``read_neu`` and made a Q2/Q1 deck by
+    ``deck_from_mesh(..., quadratic=True)`` at the NE27000 deck's nu 0.01 and
+    dt 0.001; rung 1's config (F32, CG tol 1e-6, warm start, fused CG loop) must
+    take the parity layout.  The BC tables on the card against the import's host
+    tables, and against the generator's ``cavity_deck(30, cluster=2.0)``: equal
+    but at the seam of the two node groups, whose side-wall faces in the lid's
+    element layer no group claims (the face-claiming defect of ``ADVICE.md``,
+    kept as the JAX package has it); 5 + 20 steps with launch counts, then 3
+    steps against the plain path at the explicit bounds."""
+    import numpy as np
+    import torch
+
+    from cfd_with_cuda_tpu_torch.mesh.converters import deck_from_mesh, read_neu
+    from cfd_with_cuda_tpu_torch.mesh.generators import cavity_deck, cube_hex_mesh
+    from cfd_with_cuda_tpu_torch.mesh.topology import face_bc_to_node_bc, promote_hex_mesh
+
+    n = args.import_n
+    strict = n == IMPORT_N
+    t0 = time.time()
+    coords, conn = cube_hex_mesh(n + 1, cluster=2.0)
+    path = work / f"cavity_{n}.neu"
+    _write_neu(path, coords, conn, _cavity_groups(coords))
+    t1 = time.time()
+    c2, k2, groups = read_neu(path)
+    t2 = time.time()
+    if not (np.array_equal(k2, conn) and np.abs(c2 - coords).max() < 1e-10
+            and list(groups) == ["walls", "lid"]):
+        raise AssertionError("import_neu: the mesh read back differs from the one written")
+    gen = cavity_deck(n, cluster=2.0, viscosity=0.01, dt=0.001)
+    deck = deck_from_mesh(c2, k2, groups, bc_table=[(1.0, (0.0, 0.0, 0.0)),
+                                                    (1.0, (1.0, 0.0, 0.0))],
+                          group_bc={"walls": 0, "lid": 1}, viscosity=0.01, quadratic=True)
+    deck.dt, deck.t_final = gen.dt, gen.t_final
+    deck.max_iter, deck.tolerance = gen.max_iter, gen.tolerance
+    deck.convergence_criteria = gen.convergence_criteria
+    deck.zero_pressure_node, deck.monitor_xyz = gen.zero_pressure_node, gen.monitor_xyz
+    cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                       pressure_warm_start=True, pressure_cg_fuse_loop=True, steps_per_chunk=25)
+    t3 = time.time()
+    solver = ExplicitBCHSolver(deck, cfg)
+    setup_s = time.time() - t3
+    if solver.layout != "parity":
+        raise AssertionError(f"import_neu: the imported box took the {solver.layout} layout")
+
+    # ---- the BC tables: the card's against the import's host tables ...
+    bc_node = solver.bc_of_node
+    is_bc = bc_node >= 0
+    host_vel = np.where(is_bc[:, None], deck.bc_str[np.maximum(bc_node, 0)], 0.0)
+    card_vel, _ = solver.fields(solver.initial_state())
+    # ... and the import's against the generator's: the seam nodes lack a BC
+    mesh = promote_hex_mesh(gen.conn, gen.coords)
+    gen_node = face_bc_to_node_bc(mesh.ltog_node, gen.bc_vel_faces, mesh.nn)
+    x = solver.mesh.coords
+    z_below = np.unique(coords[:, 2])[-2]
+    seam = ((np.isclose(x[:, :2], 0.0) | np.isclose(x[:, :2], 1.0)).any(axis=1)
+            & (x[:, 2] > z_below + 1e-12) & (x[:, 2] < 1.0 - 1e-12))
+    missing = (gen_node >= 0) & ~is_bc
+    bc = dict(bc_nodes=int(is_bc.sum()), generator_bc_nodes=int((gen_node >= 0).sum()),
+              seam_nodes=int(seam.sum()), missing_nodes=int(missing.sum()),
+              card_vs_host_max_abs=float(np.abs(card_vel - host_vel).max()),
+              faces=int(len(deck.bc_vel_faces)), generator_faces=int(len(gen.bc_vel_faces)))
+    if not (np.array_equal(card_vel, host_vel) and np.array_equal(missing, seam)
+            and seam.sum() > 0 and not (is_bc & (gen_node < 0)).any()
+            and np.array_equal(deck.bc_str[bc_node[is_bc]], gen.bc_str[gen_node[is_bc]])):
+        raise AssertionError(f"import_neu: BC tables {bc}")
+
+    # ---- 5 + 20 steps with launch counts (rows 1, 2, 4, 5)
+    state = solver.initial_state()
+    cuda_lib.reset_launch_counts()
+    state, hist_w = solver.run(state, n_steps=WARMUP_STEPS)
+    torch.cuda.synchronize()
+    t4 = time.time()
+    state, hist_t = solver.run(state, n_steps=args.import_steps)
+    torch.cuda.synchronize()
+    ms = (time.time() - t4) / args.import_steps * 1e3
+    counts = dict(cuda_lib.launch_counts)
+    hist = hist_w + hist_t
+    on_path, want = _explicit_parity_expect(hist, counts)
+    if len(hist) != WARMUP_STEPS + args.import_steps or min(on_path.values()) <= 0 \
+            or counts != want:
+        raise AssertionError(f"import_neu: launch counts {counts}, expected {want}")
+    subs = [int(h["iters"]) for h in hist]
+    out = dict(phase="import_neu", mesh=f"cube_hex_mesh({n + 1}, cluster=2.0)", ne=len(conn),
+               nn=solver.nn, nnp=solver.nnp, layout=solver.layout, neu_bytes=path.stat().st_size,
+               write_s=t1 - t0, read_s=t2 - t1, setup_s=setup_s, bc=bc,
+               steps=len(hist), ms_per_step=ms, u_mon=hist[-1]["u_mon"],
+               sub_iters_hist={str(v): subs.count(v) for v in sorted(set(subs))},
+               launches={k: v for k, v in counts.items() if v})
+    emit(out)
+
+    # ---- 3 steps against the plain path
+    tols = STEP_TOLS if strict else dict(u=float("inf"), p=float("inf"), mon=float("inf"))
+    plain = ExplicitBCHSolver.from_tables(solver.deck, solver.config, solver.d,
+                                          solver.static_attrs(), device=solver.device, plain=True)
+    cuda_lib.reset_launch_counts()
+    st_k, h_k = solver.run(state, n_steps=3)
+    counts_k = dict(cuda_lib.launch_counts)
+    st_p, h_p = plain.run(state, n_steps=3)
+    if dict(cuda_lib.launch_counts) != counts_k or counts_k != _explicit_parity_expect(
+            h_k, counts_k)[1]:
+        raise AssertionError(f"import_neu 3 steps: launch counts {counts_k}")
+    _compare_runs("import_neu_kernel_vs_plain_3_steps", h_k, h_p, solver.fields(st_k),
+                  plain.fields(st_p), tols, UNROLL)
+    return out
+
+
+def phase_import_unv_tet(args, work, cuda_lib) -> dict:
+    """(b) The unit cube split into six tets a hex, written as an IDEAS .unv
+    (tet 111, one node group of the boundary), read by ``read_unv``, made a
+    legacy deck by ``deck_from_mesh`` (etype 4, 4 Gauss points) and solved by
+    ``PoissonSolver`` with the MMS source: the card against the port's CPU path
+    on the same deck, counts equal; the MMS error at n and 2n.  No hand-written
+    kernel launches (float64 torch ops and the torch CG)."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch.mesh.converters import deck_from_mesh, read_unv
+    from cfd_with_cuda_tpu_torch.solvers.poisson import PoissonSolver, mms_solution
+
+    ns = tuple(int(v) for v in args.tet_ns.split(","))
+    strict = ns == TET_NS
+    cuda_lib.reset_launch_counts()
+    runs = []
+    for n in ns:
+        t0 = time.time()
+        coords, conn = _tet_cube(n)
+        boundary = np.flatnonzero((np.isclose(coords, 0.0) | np.isclose(coords, 1.0)).any(axis=1))
+        path = work / f"cube_tets_{n}.unv"
+        _write_unv(path, coords, conn, {"wall": boundary})
+        t1 = time.time()
+        c2, k2, groups = read_unv(path)
+        t2 = time.time()
+        if not (np.array_equal(k2, conn) and np.array_equal(c2, coords)
+                and np.array_equal(groups["wall"], boundary)):
+            raise AssertionError(f"import_unv_tet n={n}: the mesh read back differs")
+        deck = deck_from_mesh(c2, k2, groups, bc_table=[(1.0, (0.0, 0.0, 0.0))],
+                              group_bc={"wall": 0})
+        if (deck.etype, deck.nenv, deck.ngp) != (4, 4, 4):
+            raise AssertionError(f"import_unv_tet: deck etype {deck.etype}, nen {deck.nenv}")
+        card, setup_s = _synced(lambda: PoissonSolver(deck))
+        (u, it, res), solve_s = _synced(lambda: card.solve("mms"))
+        t3 = time.time()
+        u_c, it_c, res_c = PoissonSolver(deck, device="cpu").solve("mms")
+        cpu_s = time.time() - t3
+        rel = _rel(u, u_c)
+        err = float(np.abs(u - mms_solution(c2)).max())
+        runs.append(dict(n=n, nodes=len(c2), tets=len(k2), unv_bytes=path.stat().st_size,
+                         write_s=t1 - t0, read_s=t2 - t1, setup_s=setup_s, solve_s=solve_s,
+                         cpu_s=cpu_s, cg_iters=[it, it_c], residual=[res, res_c],
+                         card_vs_cpu=rel, mms_err=err))
+        if not (np.isfinite(u).all() and it == it_c and rel <= TET_CARD_CPU_TOL):
+            raise AssertionError(f"import_unv_tet n={n}: card against CPU {runs[-1]}")
+    ratio = runs[0]["mms_err"] / runs[-1]["mms_err"]
+    launched = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+    out = dict(phase="import_unv_tet", runs=runs, mms_err_ratio=ratio,
+               mms_ratio_bound=TET_MMS_RATIO, tol=TET_CARD_CPU_TOL, kernel_launches=launched)
+    emit(out)
+    if launched or (strict and not ratio > TET_MMS_RATIO):
+        raise AssertionError(f"import_unv_tet: {out}")
+    return out
+
+
+def _ne125_solver_args(n, setup_cache):
+    """(deck, config) of the "ne125" row: F32, CG tol 1e-6, warm start, chunks
+    of 50, the default CG loop."""
+    from cfd_with_cuda_tpu_torch.mesh.generators import cavity_deck
+    from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
+
+    cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                       pressure_warm_start=True, steps_per_chunk=50, setup_cache=setup_cache)
+    return cavity_deck(n, cluster=2.0, viscosity=0.01, dt=NE125_DT), cfg
+
+
+def ne125_setup_worker(n, cache_dir) -> None:
+    """The NE125000 solver's host setup on the CPU into the setup cache
+    ``cache_dir`` (run in a worker process while the earlier phases use the
+    card); prints its seconds as one JSON line."""
+    from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
+
+    t0 = time.time()
+    solver = ExplicitBCHSolver(*_ne125_solver_args(n, cache_dir), device="cpu")
+    emit(dict(setup_s=time.time() - t0, store_s=solver.setup_cache_store_s,
+              snapshot_bytes=solver.setup_cache_bytes))
+
+
+def start_ne125_setup(args):
+    """Start :func:`ne125_setup_worker` in a process of its own: (process,
+    cache directory).  The NE125000 setup (~70-90 s of host work) then runs
+    beside phases 2-11 on the card, and phase 12 (c) loads its tables from the
+    setup cache; where the worker did not store them, the phase sets up anew."""
+    import os
+    import tempfile
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_ne125_")
+    code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
+            f"chip_smoke.ne125_setup_worker({args.ne125_n}, {cache!r})")
+    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+    with open(Path(cache) / "worker.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                stderr=err, text=True, env=env)
+    return proc, cache
+
+
+def phase_e2e_ne125(args, ne125_setup, cuda_lib, pstl, ExplicitBCHSolver) -> dict:
+    """(c) The "ne125" row's config (F32, CG tol 1e-6, warm start, chunks of 50,
+    the default CG loop) from rest: 5 + 25 steps timed with launch counts, the
+    convection on the flat route (no K + A launch: A(un) u* by gather, einsum and
+    scatter), every K apply streamed (row 3), G resident (row 1), ``div_compact``
+    (row 4), ``cg_init`` / ``cg_iter`` (row 6); then 3 steps against the plain
+    path at the explicit bounds and finite fields.  The host setup ran in the
+    worker process of :func:`start_ne125_setup`; its seconds are printed beside
+    the cache load's."""
+    import numpy as np
+    import torch
+
+    from cfd_with_cuda_tpu_torch.solvers.explicit_bch import _PLANES_MAX_SP
+
+    n = args.ne125_n
+    strict = n == NE125_N
+    proc, cache = ne125_setup
+    out_w, _ = proc.communicate(timeout=900)
+    worker = json.loads(out_w.strip().splitlines()[-1]) if proc.returncode == 0 else dict(
+        returncode=proc.returncode, stderr=(Path(cache) / "worker.err").read_text()[-2000:])
+    t0 = time.time()
+    solver = ExplicitBCHSolver(*_ne125_solver_args(n, cache))
+    setup_s = time.time() - t0
+    sp = solver.sp_c
+    flat = sp > _PLANES_MAX_SP
+    streamed = pstl.stream_field((3, 8, sp), 4, solver.k_pairs)
+    emit(dict(phase="setup_ne125", layout=solver.layout, nn=solver.nn, nnp=solver.nnp, sp=sp,
+              flat_route=flat, k_streamed=streamed, worker=worker,
+              setup_cache_hit=solver.setup_cache_hit, setup_s=setup_s))
+    if solver.layout != "parity" or (strict and not (sp == NE125_SP and flat and streamed)):
+        raise AssertionError(f"ne125: layout {solver.layout}, Sp {sp}, flat {flat}, "
+                             f"streamed {streamed}")
+    sfx = "_streamed" if streamed else ""
+
+    def expect(hist, counts):
+        subs = [int(h["iters"]) for h in hist]
+        on_path = {"parity_apply_g": sum(v + 1 for v in subs), "div_compact": sum(subs),
+                   "cg_init": sum(subs), "cg_iter": counts.get("cg_iter", 0)}
+        if flat:
+            on_path[f"parity_apply_k{sfx}"] = sum(2 * v - 1 for v in subs)
+        else:
+            on_path[f"parity_apply_k_plus_a{sfx}"] = sum(subs)
+            on_path[f"parity_apply_k{sfx}"] = sum(v - 1 for v in subs)
+        want = {k: on_path.get(k, 0) for k in counts}
+        last = sum(int(h["cg_iters"]) for h in hist)
+        ok = (counts == want and min(on_path.values()) > 0
+              and on_path["cg_iter"] * UNROLL >= last)
+        return on_path, ok
+
+    state = solver.initial_state()
+    cuda_lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, hist_w = solver.run(state, n_steps=WARMUP_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    state, hist_t = solver.run(state, n_steps=args.ne125_steps)
+    torch.cuda.synchronize()
+    ms = (time.time() - t1) / args.ne125_steps * 1e3
+    counts = dict(cuda_lib.launch_counts)
+    hist = hist_w + hist_t
+    on_path, ok = expect(hist, counts)
+    if not ok or len(hist) != WARMUP_STEPS + args.ne125_steps:
+        raise AssertionError(f"ne125: launch counts {counts}, expected {on_path}")
+    subs = [int(h["iters"]) for h in hist]
+    out = dict(phase="e2e_ne125", deck=f"cavity_deck({n}, cluster=2.0, dt={NE125_DT})",
+               setup_s=setup_s, flat_route=flat, k_streamed=streamed, steps=len(hist),
+               ms_per_step=ms, sub_iters_hist={str(v): subs.count(v) for v in sorted(set(subs))},
+               cg_iters_first_last=[int(hist[0]["cg_iters"]), int(hist[-1]["cg_iters"])],
+               u_mon=hist[-1]["u_mon"], launches={k: v for k, v in counts.items() if v},
+               launches_per_step=(f"s sub-iterations: parity_apply_k{sfx} 2s - 1 (K u* inside "
+                                  "(K + A) u*, K acc), parity_apply_g s + 1, div_compact s, "
+                                  "cg_init s, cg_iter a group of 4 iterations"
+                                  if flat else "the planes route"),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    emit(out)
+
+    # ---- 3 steps against the plain path, then finite fields
+    tols = STEP_TOLS if strict else dict(u=float("inf"), p=float("inf"), mon=float("inf"))
+    plain = ExplicitBCHSolver.from_tables(solver.deck, solver.config, solver.d,
+                                          solver.static_attrs(), device=solver.device, plain=True)
+    cuda_lib.reset_launch_counts()
+    st_k, h_k = solver.run(state, n_steps=3)
+    counts_k = dict(cuda_lib.launch_counts)
+    st_p, h_p = plain.run(state, n_steps=3)
+    if dict(cuda_lib.launch_counts) != counts_k or not expect(h_k, counts_k)[1]:
+        raise AssertionError(f"ne125 3 steps: launch counts {counts_k}")
+    u_k, p_k = solver.fields(st_k)
+    _compare_runs("ne125_kernel_vs_plain_3_steps", h_k, h_p, (u_k, p_k), plain.fields(st_p),
+                  tols, UNROLL)
+    if not (np.isfinite(u_k).all() and np.isfinite(p_k).all()):
+        raise AssertionError("ne125: non-finite fields")
+    return out
+
+
+def import_phases(args, ne125_setup, cuda_lib, parity_stencil, ExplicitBCHSolver, DTypePolicy,
+                  SolverConfig) -> None:
+    """Phase 12 (a)-(c): mesh import and the NE125000 cavity's flat route
+    (``ne125_setup``: :func:`start_ne125_setup`'s process and cache); (d), the
+    Ghia check of the seeded implicit state, runs after phase 5's seeded
+    steps (``phase_seeded``)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.time()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_import_"))
+    try:
+        phase_import_neu(args, work, cuda_lib, ExplicitBCHSolver, DTypePolicy, SolverConfig)
+        torch.cuda.empty_cache()
+        phase_import_unv_tet(args, work, cuda_lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_e2e_ne125(args, ne125_setup, cuda_lib, parity_stencil, ExplicitBCHSolver)
+    torch.cuda.empty_cache()
+    emit(dict(phase="import_total", seconds=time.time() - t0))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck-n", type=int, default=30, help="cavity elements per edge (30: NE27000)")
@@ -3424,6 +3885,17 @@ def main() -> int:
                     help="segregated outer iterations of phase 11 (card and CPU)")
     ap.add_argument("--legacy-cli-n", type=int, default=LEGACY_CLI_N,
                     help="elements per edge of phase 11's legacy cavity deck file")
+    ap.add_argument("--import-n", type=int, default=IMPORT_N,
+                    help="elements per edge of phase 12's imported .neu cavity (30: NE27000)")
+    ap.add_argument("--import-steps", type=int, default=20,
+                    help="timed steps of the imported cavity after 5 warm-up steps")
+    ap.add_argument("--tet-ns", default=",".join(map(str, TET_NS)),
+                    help="elements per edge of phase 12's tet cubes, coarse then fine")
+    ap.add_argument("--ne125-n", type=int, default=NE125_N,
+                    help="elements per edge of phase 12's flat-route cavity (50: NE125000; a "
+                         "smaller one keeps the planes route and asserts launch counts only)")
+    ap.add_argument("--ne125-steps", type=int, default=25,
+                    help="timed NE125000 steps after 5 warm-up steps")
     args = ap.parse_args()
 
     import torch
@@ -3432,6 +3904,26 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    from cfd_with_cuda_tpu_torch.ops import cuda_lib
+
+    t_start = time.time()
+    phase_toolchain(cuda_lib)
+    ne125_setup = start_ne125_setup(args)
+    try:
+        return _main_phases(args, t_start, ne125_setup)
+    finally:
+        import shutil
+
+        if ne125_setup[0].poll() is None:
+            ne125_setup[0].kill()
+        ne125_setup[0].communicate()
+        shutil.rmtree(ne125_setup[1], ignore_errors=True)
+
+
+def _main_phases(args, t_start, ne125_setup) -> int:
+    """Phases 2-12, the ``kernels`` line and the last lines."""
+    import torch
+
     from cfd_with_cuda_tpu_torch.mesh.generators import (
         bending_duct_deck,
         bfs_deck,
@@ -3449,8 +3941,6 @@ def main() -> int:
     from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
     from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 
-    t_start = time.time()
-    phase_toolchain(cuda_lib)
     rows = cavity_phases(
         args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
         ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
@@ -3492,6 +3982,11 @@ def main() -> int:
 
     # ---- the legacy solvers (Poisson, Stokes, GLS, segregated) and their CLI
     legacy_phases(args, cuda_lib)
+    torch.cuda.empty_cache()
+
+    # ---- mesh import (.neu, the tet .unv Poisson path) and the NE125000 flat route
+    import_phases(args, ne125_setup, cuda_lib, parity_stencil, ExplicitBCHSolver, DTypePolicy,
+                  SolverConfig)
 
     # row 9: the CG kernels on the banded window (launches: the explicit BFS
     # run; cg_iter per launch of UNROLL iterations, which no single PyTorch
