@@ -36,6 +36,15 @@
 // expression, so the result is that of a thread walking its row's slots in
 // turn, bit for bit, while a block keeps its 125 x 32 slot terms' loads in
 // flight together.
+//
+// The sharded divergence (parallel/sharded_stencil.py::sharded_div_compact)
+// runs the interleaved form on a rank's coarse rows: rows q0 + q of the
+// global coarse grid (GT and y indexed by q), reading the rank's
+// halo-extended velocity block, whose entry j holds the global fine node
+// x_org + j (zero outside the block).  Each row sums the same slots in the
+// same order as the full-window DIV mode of window_stencil.cu at its fine
+// row, whose weights at the other 7/8 of the fine rows are structurally 0;
+// the rank computes 1/8 of the rows and all-gathers only those.
 
 #include <cuda_runtime.h>
 
@@ -74,11 +83,12 @@ struct ClassMajor {
 // the same order, so the result equals the split form's without the
 // split's ~24 copies.
 struct Interleaved {
-  int n_u, cx, cy, fx, fy;
+  int n_u, cx, cy, fx, fy, q0, x_org;
   static __device__ int2 slot(const int* tab, int s) { return make_int2(0, tab[s]); }
   __device__ int base(int q) const {
-    const int qx = q % cx, qy = (q / cx) % cy, qz = q / (cx * cy);
-    return (2 * qz * fy + 2 * qy) * fx + 2 * qx;
+    const int qg = q0 + q;
+    const int qx = qg % cx, qy = (qg / cx) % cy, qz = qg / (cx * cy);
+    return (2 * qz * fy + 2 * qy) * fx + 2 * qx - x_org;
   }
   __device__ long long at(int base, int2 slot) const {
     const int j = base + slot.y;
@@ -153,9 +163,21 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) div_compact_kernel(
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) div_compact_interleaved_kernel(
     const float* __restrict__ gt, int nw, const float* __restrict__ u, int n_u,
     const int* __restrict__ foffs, float* __restrict__ y, int sp, int cx, int cy,
-    int nq, int fx, int fy) {
-  div_rows(gt, nw, u, static_cast<size_t>(n_u), foffs, Interleaved{n_u, cx, cy, fx, fy},
-           y, sp, nq);
+    int nq, int fx, int fy, int q0, int x_org) {
+  div_rows(gt, nw, u, static_cast<size_t>(n_u), foffs,
+           Interleaved{n_u, cx, cy, fx, fy, q0, x_org}, y, sp, nq);
+}
+
+int launch_interleaved(const float* gt, int nw, const float* u, int n_u, const int* foffs,
+                       float* y, int sp, int cx, int cy, int nq, int fx, int fy, int q0,
+                       int x_org, void* stream) {
+  if (nw < 1 || nw > kMaxSlots || sp < 1 || nq > sp || n_u < 1 || q0 < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  div_compact_interleaved_kernel<<<(sp + kRows - 1) / kRows, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      gt, nw, u, n_u, foffs, y, sp, cx, cy, nq, fx, fy, q0, x_org);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -168,15 +190,21 @@ extern "C" int div_compact_f32(const float* gt, int nw, const float* u,
   return static_cast<int>(cudaGetLastError());
 }
 
-// coarse dims (cx, cy, nq = cx cy cz), fine dims (fx, fy); u (3, n_u)
+// coarse dims (cx, cy, nq = cx cy cz), fine dims (fx, fy); u (3, n_u).  The
+// wrapper calls the _rows form below at q0 = x_org = 0; this one stays as a
+// forwarder for compare_build.py, which calls a build's C symbols directly.
 extern "C" int div_compact_interleaved_f32(const float* gt, int nw, const float* u, int n_u,
                                            const int* foffs, float* y, int sp, int cx,
                                            int cy, int nq, int fx, int fy, void* stream) {
-  if (nw < 1 || nw > kMaxSlots || sp < 1 || nq > sp) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  div_compact_interleaved_kernel<<<(sp + kRows - 1) / kRows, kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      gt, nw, u, n_u, foffs, y, sp, cx, cy, nq, fx, fy);
-  return static_cast<int>(cudaGetLastError());
+  return launch_interleaved(gt, nw, u, n_u, foffs, y, sp, cx, cy, nq, fx, fy, 0, 0, stream);
+}
+
+// the same on a rank's coarse rows q0 + q (q < nq; GT (3, nw, sp) and y (sp)
+// indexed by q), u (3, n_u) the velocity from global fine position x_org
+extern "C" int div_compact_interleaved_rows_f32(const float* gt, int nw, const float* u,
+                                                int n_u, const int* foffs, float* y, int sp,
+                                                int cx, int cy, int nq, int fx, int fy, int q0,
+                                                int x_org, void* stream) {
+  return launch_interleaved(gt, nw, u, n_u, foffs, y, sp, cx, cy, nq, fx, fy, q0, x_org,
+                            stream);
 }

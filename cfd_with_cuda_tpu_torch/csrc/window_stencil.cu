@@ -13,6 +13,13 @@
 // against the field length and none leaves the tensor.  Two modes of one
 // template, and the gradient on a class-compacted table:
 //
+// Rows and field apart (the sharded path, parallel/sharded_stencil.py):
+// every kernel writes ny rows s = y_org + r (r < ny; the weights and y are
+// indexed by r) and reads the field x as the global positions x_org + j,
+// j in [0, nx), zero outside: a rank's rows read its halo-extended block,
+// whose x_org is its first row less the halo.  The single-device entry
+// points pass x_org = y_org = 0 and nx = ny = n.
+//
 //   SPMV  W (nw, n), shared over the cx = C channels of x (1 or 3):
 //         y[c, s] += W[k, s] * x[c, s + off]           (K, K + A, MK + A, M)
 //   DIV   W (3, nw, n), x (3, n):
@@ -106,33 +113,36 @@ __device__ __forceinline__ double fma_rn(double a, double b, double c) { return 
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads) window_stencil_kernel(
     const T* __restrict__ w, const T* __restrict__ x, int cx,
-    const int* __restrict__ offs, int nw, T* __restrict__ y, int n) {
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= n) return;
-  const size_t plane = static_cast<size_t>(n);
+    const int* __restrict__ offs, int nw, T* __restrict__ y, int ny, int nx, int x_org,
+    int y_org) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= ny) return;
+  const int s = y_org + r - x_org;   // the row in the field's indices
+  const size_t plane = static_cast<size_t>(ny);
+  const size_t xplane = static_cast<size_t>(nx);
   const size_t wdir = static_cast<size_t>(nw) * plane;   // direction stride of W
   T acc[kMaxC];
 #pragma unroll
   for (int c = 0; c < kMaxC; ++c) acc[c] = T(0);
   for (int k = 0; k < nw; ++k) {
     const int j = s + offs[k];
-    if (j < 0 || j >= n) continue;   // zero field outside [0, n)
-    const T* wk = w + static_cast<size_t>(k) * plane + s;
+    if (j < 0 || j >= nx) continue;   // zero field outside [0, nx)
+    const T* wk = w + static_cast<size_t>(k) * plane + r;
     if (kMode == kSpmv) {
       const T wv = wk[0];
 #pragma unroll
       for (int c = 0; c < kMaxC; ++c) {
-        if (c < cx) acc[c] += wv * x[c * plane + j];
+        if (c < cx) acc[c] += wv * x[c * xplane + j];
       }
     } else {
-      const T t = wk[0] * x[j] + wk[wdir] * x[plane + j];
-      acc[0] += t + wk[2 * wdir] * x[2 * plane + j];
+      const T t = wk[0] * x[j] + wk[wdir] * x[xplane + j];
+      acc[0] += t + wk[2 * wdir] * x[2 * xplane + j];
     }
   }
   const int co = kMode == kSpmv ? cx : 1;
 #pragma unroll
   for (int c = 0; c < kMaxC; ++c) {
-    if (c < co) y[c * plane + s] = acc[c];
+    if (c < co) y[c * plane + r] = acc[c];
   }
 }
 
@@ -142,20 +152,22 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) grad_compact_kernel(
     const T* __restrict__ w, int nk, const T* __restrict__ x,
     const int* __restrict__ offs, const int* __restrict__ counts, T* __restrict__ y,
-    int n, int fx, int fy) {
+    int ny, int nx, int x_org, int y_org, int fx, int fy) {
   __shared__ int s_offs[kClasses * kMaxSlots];
   __shared__ int s_count[kClasses];
   for (int i = threadIdx.x; i < kClasses * nk; i += kThreads) s_offs[i] = offs[i];
   if (threadIdx.x < kClasses) s_count[threadIdx.x] = counts[threadIdx.x];
   __syncthreads();
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-  if (s >= n) return;
-  const int cls = (((s / (fx * fy)) & 1) << 2) | ((((s / fx) % fy) & 1) << 1) | ((s % fx) & 1);
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= ny) return;
+  const int sg = y_org + r;          // the global row: its parity class
+  const int cls = (((sg / (fx * fy)) & 1) << 2) | ((((sg / fx) % fy) & 1) << 1) | ((sg % fx) & 1);
+  const int s = sg - x_org;          // the row in the field's indices
   const int cnt = s_count[cls];
   const int* o = s_offs + cls * nk;
-  const size_t plane = static_cast<size_t>(n);
+  const size_t plane = static_cast<size_t>(ny);
   const size_t wdir = static_cast<size_t>(nk) * plane;   // direction stride of W
-  const T* ws = w + s;
+  const T* ws = w + r;
   T acc0 = T(0), acc1 = T(0), acc2 = T(0);
 #pragma unroll
   for (int j0 = 0; j0 < kMaxSlots; j0 += kChunk) {
@@ -164,7 +176,7 @@ __global__ void __launch_bounds__(kThreads) grad_compact_kernel(
     for (int i = 0; i < kChunk; ++i) {
       const int j = j0 + i;
       const int jj = j < cnt ? s + o[j] : -1;
-      const bool live = jj >= 0 && jj < n;   // zero field outside [0, n)
+      const bool live = jj >= 0 && jj < nx;   // zero field outside [0, nx)
       const T* wj = ws + static_cast<size_t>(j) * plane;
       xv[i] = live ? x[jj] : T(0);
       w0[i] = live ? wj[0] : T(0);
@@ -178,13 +190,15 @@ __global__ void __launch_bounds__(kThreads) grad_compact_kernel(
       acc2 = fma_rn(w2[i], xv[i], acc2);
     }
   }
-  y[s] = acc0;
-  y[plane + s] = acc1;
-  y[2 * plane + s] = acc2;
+  y[r] = acc0;
+  y[plane + r] = acc1;
+  y[2 * plane + r] = acc2;
 }
 
 // one block of the compact SPMV table: entry base, rows, slot count, class
 // (-1: the padding rows, s = row0 + r), the class sub-grid's x and y sizes,
+// its first row (a class block: the sub-grid's flat row of its row 0, 0 on
+// one device; a rank's rows of a class are a contiguous run of that order),
 // its first CTA
 struct SpmvBlock {
   long long base;
@@ -208,12 +222,14 @@ __device__ __forceinline__ double ld_stream(const double* a) {
 }
 
 // w the flat table, offs (9, kmax) the slot offsets of each class and of the
-// padding rows (row 8), x (CX, nx),
-// y (CX, nx); (fx, fy) the fine grid's x and y sizes
+// padding rows (row 8), x (CX, nx) the field from global position x_org,
+// y (CX, ny) the rows from global row y_org; (fx, fy) the fine grid's x and
+// y sizes
 template <typename T, int CX>
 __global__ void __launch_bounds__(kSpmvThreads) spmv_compact_kernel(
     const T* __restrict__ w, const T* __restrict__ x, const int* __restrict__ offs, int kmax,
-    const SpmvLayout lay, T* __restrict__ y, int nx, int fx, int fy) {
+    const SpmvLayout lay, T* __restrict__ y, int ny, int nx, int x_org, int y_org, int fx,
+    int fy) {
   __shared__ int s_off[kMaxWindow];
   // this CTA's block: the last whose first CTA is not past it (static
   // indices, so the layout stays in the parameter bank)
@@ -228,18 +244,22 @@ __global__ void __launch_bounds__(kSpmvThreads) spmv_compact_kernel(
   __syncthreads();
   const int r = (static_cast<int>(blockIdx.x) - blk.cta0) * kSpmvThreads + threadIdx.x;
   if (r >= blk.rows) return;
-  int s;
+  int s;   // the global row
   if (blk.cls < 0) {
     s = blk.row0 + r;
   } else {
+    const int rg = blk.row0 + r;
     const int gxy = blk.gx * blk.gy;
-    const int k = r / gxy;
-    const int j = (r - k * gxy) / blk.gx;
-    const int i = r - k * gxy - j * blk.gx;
+    const int k = rg / gxy;
+    const int j = (rg - k * gxy) / blk.gx;
+    const int i = rg - k * gxy - j * blk.gx;
     s = ((2 * k + (blk.cls >> 2 & 1)) * fy + 2 * j + (blk.cls >> 1 & 1)) * fx + 2 * i +
         (blk.cls & 1);
   }
+  const int sy = s - y_org;
+  s -= x_org;             // in the field's indices
   const size_t plane = static_cast<size_t>(nx);
+  const size_t yplane = static_cast<size_t>(ny);
   const size_t rows = static_cast<size_t>(blk.rows);
   const T* wr = w + blk.base + r;
   T acc[CX];
@@ -275,15 +295,15 @@ __global__ void __launch_bounds__(kSpmvThreads) spmv_compact_kernel(
     }
   }
 #pragma unroll
-  for (int c = 0; c < CX; ++c) y[c * plane + s] = acc[c];
+  for (int c = 0; c < CX; ++c) y[c * yplane + sy] = acc[c];
 }
 
 template <typename T>
 int launch_spmv_compact(const T* w, const T* x, int cx, const int* offs, int kmax,
-                        const long long* blocks, int nb, T* y, int nx, int fx, int fy,
-                        void* stream) {
+                        const long long* blocks, int nb, T* y, int ny, int nx, int x_org,
+                        int y_org, int fx, int fy, void* stream) {
   if (cx < 1 || cx > kMaxC || kmax < 1 || kmax > kMaxWindow || nb < 1 || nb > kSpmvBlocks ||
-      nx < 1 || fx < 1 || fy < 1) {
+      ny < 1 || nx < 1 || fx < 1 || fy < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   SpmvLayout lay = {};
@@ -299,54 +319,76 @@ int launch_spmv_compact(const T* w, const T* x, int cx, const int* offs, int kma
   lay.nb = nb;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cx == 1) {
-    spmv_compact_kernel<T, 1><<<ctas, kSpmvThreads, 0, st>>>(w, x, offs, kmax, lay, y, nx, fx, fy);
+    spmv_compact_kernel<T, 1><<<ctas, kSpmvThreads, 0, st>>>(w, x, offs, kmax, lay, y, ny, nx,
+                                                                 x_org, y_org, fx, fy);
   } else if (cx == 2) {
-    spmv_compact_kernel<T, 2><<<ctas, kSpmvThreads, 0, st>>>(w, x, offs, kmax, lay, y, nx, fx, fy);
+    spmv_compact_kernel<T, 2><<<ctas, kSpmvThreads, 0, st>>>(w, x, offs, kmax, lay, y, ny, nx,
+                                                                 x_org, y_org, fx, fy);
   } else {
-    spmv_compact_kernel<T, 3><<<ctas, kSpmvThreads, 0, st>>>(w, x, offs, kmax, lay, y, nx, fx, fy);
+    spmv_compact_kernel<T, 3><<<ctas, kSpmvThreads, 0, st>>>(w, x, offs, kmax, lay, y, ny, nx,
+                                                                 x_org, y_org, fx, fy);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(int mode, const T* w, const T* x, int cx, const int* offs, int nw,
-           T* y, int n, void* stream) {
+           T* y, int ny, int nx, int x_org, int y_org, void* stream) {
   const bool ok = (mode == kSpmv && cx >= 1 && cx <= kMaxC) || (mode == kDiv && cx == 3);
-  if (!ok || nw < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kThreads - 1) / kThreads);
+  if (!ok || nw < 1 || ny < 1 || nx < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((ny + kThreads - 1) / kThreads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == kSpmv) {
-    window_stencil_kernel<T, kSpmv><<<grid, kThreads, 0, st>>>(w, x, cx, offs, nw, y, n);
+    window_stencil_kernel<T, kSpmv><<<grid, kThreads, 0, st>>>(w, x, cx, offs, nw, y, ny, nx,
+                                                               x_org, y_org);
   } else {
-    window_stencil_kernel<T, kDiv><<<grid, kThreads, 0, st>>>(w, x, cx, offs, nw, y, n);
+    window_stencil_kernel<T, kDiv><<<grid, kThreads, 0, st>>>(w, x, cx, offs, nw, y, ny, nx,
+                                                              x_org, y_org);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_grad(const T* w, int nk, const T* x, const int* offs, const int* counts, T* y,
-                int n, int fx, int fy, void* stream) {
-  if (nk < 1 || nk > kMaxSlots || n < 1 || fx < 1 || fy < 1) {
+                int ny, int nx, int x_org, int y_org, int fx, int fy, void* stream) {
+  if (nk < 1 || nk > kMaxSlots || ny < 1 || nx < 1 || fx < 1 || fy < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  grad_compact_kernel<T><<<(n + kThreads - 1) / kThreads, kThreads, 0,
+  grad_compact_kernel<T><<<(ny + kThreads - 1) / kThreads, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(w, nk, x, offs, counts, y,
-                                                                n, fx, fy);
+                                                                ny, nx, x_org, y_org, fx, fy);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // mode: 0 SPMV, 2 DIV.  w, x, y, offs device pointers; y has (cx | 1) x n
-// entries by mode.
+// entries by mode.  The wrappers call the _rows forms below (at x_org =
+// y_org = 0 on one device); this form and the one-device grad_compact_* and
+// spmv_compact_* stay as forwarders for compare_build.py, which calls a
+// build's C symbols directly.
 extern "C" int window_stencil_f32(int mode, const float* w, const float* x, int cx,
                                   const int* offs, int nw, float* y, int n, void* stream) {
-  return launch<float>(mode, w, x, cx, offs, nw, y, n, stream);
+  return launch<float>(mode, w, x, cx, offs, nw, y, n, n, 0, 0, stream);
 }
 
 extern "C" int window_stencil_f64(int mode, const double* w, const double* x, int cx,
                                   const int* offs, int nw, double* y, int n, void* stream) {
-  return launch<double>(mode, w, x, cx, offs, nw, y, n, stream);
+  return launch<double>(mode, w, x, cx, offs, nw, y, n, n, 0, 0, stream);
+}
+
+// the same on a rank's rows: w (., nw, ny), y (., ny) for the global rows
+// y_org + r; x (cx, nx) the field from global position x_org
+extern "C" int window_stencil_rows_f32(int mode, const float* w, const float* x, int cx,
+                                       const int* offs, int nw, float* y, int ny, int nx,
+                                       int x_org, int y_org, void* stream) {
+  return launch<float>(mode, w, x, cx, offs, nw, y, ny, nx, x_org, y_org, stream);
+}
+
+extern "C" int window_stencil_rows_f64(int mode, const double* w, const double* x, int cx,
+                                       const int* offs, int nw, double* y, int ny, int nx,
+                                       int x_org, int y_org, void* stream) {
+  return launch<double>(mode, w, x, cx, offs, nw, y, ny, nx, x_org, y_org, stream);
 }
 
 // G on the class-compacted window: w (3, nk, n), x (n,), offs (8, nk),
@@ -354,27 +396,63 @@ extern "C" int window_stencil_f64(int mode, const double* w, const double* x, in
 extern "C" int grad_compact_f32(const float* w, int nk, const float* x, const int* offs,
                                 const int* counts, float* y, int n, int fx, int fy,
                                 void* stream) {
-  return launch_grad<float>(w, nk, x, offs, counts, y, n, fx, fy, stream);
+  return launch_grad<float>(w, nk, x, offs, counts, y, n, n, 0, 0, fx, fy, stream);
 }
 
 extern "C" int grad_compact_f64(const double* w, int nk, const double* x, const int* offs,
                                 const int* counts, double* y, int n, int fx, int fy,
                                 void* stream) {
-  return launch_grad<double>(w, nk, x, offs, counts, y, n, fx, fy, stream);
+  return launch_grad<double>(w, nk, x, offs, counts, y, n, n, 0, 0, fx, fy, stream);
+}
+
+// the same on a rank's rows: w (3, nk, ny), y (3, ny) for the global rows
+// y_org + r, x (nx,) the field from global position x_org
+extern "C" int grad_compact_rows_f32(const float* w, int nk, const float* x, const int* offs,
+                                     const int* counts, float* y, int ny, int nx, int x_org,
+                                     int y_org, int fx, int fy, void* stream) {
+  return launch_grad<float>(w, nk, x, offs, counts, y, ny, nx, x_org, y_org, fx, fy, stream);
+}
+
+extern "C" int grad_compact_rows_f64(const double* w, int nk, const double* x,
+                                     const int* offs, const int* counts, double* y, int ny,
+                                     int nx, int x_org, int y_org, int fx, int fy,
+                                     void* stream) {
+  return launch_grad<double>(w, nk, x, offs, counts, y, ny, nx, x_org, y_org, fx, fy, stream);
 }
 
 // SPMV on the class-compacted, class-major table: w the flat table, x (cx,
 // nx), offs (9, kmax) device; blocks (nb, 7) int64 on the host (rows, slot
-// count, entry base, class or -1, gx, gy, first row of the padding block);
-// y (cx, nx); (fx, fy) the fine grid's x and y sizes
+// count, entry base, class or -1, gx, gy, first row: of the class sub-grid's
+// flat order, 0 for a whole class, or the padding block's first row s); y
+// (cx, nx); (fx, fy) the fine grid's x and y sizes
 extern "C" int spmv_compact_f32(const float* w, const float* x, int cx, const int* offs,
                                 int kmax, const long long* blocks, int nb, float* y, int nx,
                                 int fx, int fy, void* stream) {
-  return launch_spmv_compact<float>(w, x, cx, offs, kmax, blocks, nb, y, nx, fx, fy, stream);
+  return launch_spmv_compact<float>(w, x, cx, offs, kmax, blocks, nb, y, nx, nx, 0, 0, fx, fy,
+                                    stream);
 }
 
 extern "C" int spmv_compact_f64(const double* w, const double* x, int cx, const int* offs,
                                 int kmax, const long long* blocks, int nb, double* y, int nx,
                                 int fx, int fy, void* stream) {
-  return launch_spmv_compact<double>(w, x, cx, offs, kmax, blocks, nb, y, nx, fx, fy, stream);
+  return launch_spmv_compact<double>(w, x, cx, offs, kmax, blocks, nb, y, nx, nx, 0, 0, fx, fy,
+                                     stream);
+}
+
+// the same on a rank's rows: the blocks of its rows, x (cx, nx) the field
+// from global position x_org, y (cx, ny) for the global rows y_org + r
+extern "C" int spmv_compact_rows_f32(const float* w, const float* x, int cx, const int* offs,
+                                     int kmax, const long long* blocks, int nb, float* y,
+                                     int ny, int nx, int x_org, int y_org, int fx, int fy,
+                                     void* stream) {
+  return launch_spmv_compact<float>(w, x, cx, offs, kmax, blocks, nb, y, ny, nx, x_org, y_org,
+                                    fx, fy, stream);
+}
+
+extern "C" int spmv_compact_rows_f64(const double* w, const double* x, int cx,
+                                     const int* offs, int kmax, const long long* blocks, int nb,
+                                     double* y, int ny, int nx, int x_org, int y_org, int fx,
+                                     int fy, void* stream) {
+  return launch_spmv_compact<double>(w, x, cx, offs, kmax, blocks, nb, y, ny, nx, x_org, y_org,
+                                     fx, fy, stream);
 }

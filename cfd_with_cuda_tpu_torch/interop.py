@@ -24,6 +24,7 @@ __all__ = [
     "interleaved_tables_from_jax", "implicit_interleaved_tables_from_jax",
     "xla_tables_from_jax", "implicit_xla_tables_from_jax",
     "ell_tables_from_jax", "implicit_ell_tables_from_jax", "rev_from_jax",
+    "state_to_rank", "gather_state",
 ]
 
 # tables the parity step reads under the same name in both packages
@@ -250,3 +251,25 @@ def implicit_state_from_jax(state) -> ImplicitState:
     """An ``ImplicitState`` of CPU tensors from a JAX ``ImplicitState``
     (the same three fields, given as arrays)."""
     return ImplicitState(*(torch.from_numpy(np.array(a)) for a in state))
+
+
+def state_to_rank(state, solver):
+    """This rank's state of a sharded solver from a whole one (a JAX state's
+    arrays, or the port's CPU tensors): each node field (last axis
+    ``s_pad``) cut to the rank's block, the coarse-grid fields whole; the
+    state as the solver's own type, on its device.  On one device the
+    fields are only moved."""
+    fields = [torch.as_tensor(np.array(a)) for a in state]
+    s_pad = getattr(solver, "s_pad", None)
+    placed = [(solver._local(f) if f.ndim == 2 and f.shape[-1] == s_pad else f)
+              .to(solver.device) for f in fields]
+    return type(solver.initial_state())(*placed)
+
+
+def gather_state(state, solver):
+    """The whole state from every rank's (every rank calls it): each node
+    field gathered along its last axis, the coarse-grid fields as they are;
+    on one device the state itself."""
+    n = getattr(solver.block, "s_loc", None)
+    return type(state)(*((solver._full(f) if f.ndim == 2 and f.shape[-1] == n else f)
+                         for f in state))

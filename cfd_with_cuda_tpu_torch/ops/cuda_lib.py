@@ -53,6 +53,11 @@ KERNELS = (
     "div_compact", "cg_solve", "cg_init", "cg_iter", "comp_dot", "sym_apply",
     "window_spmv", "window_spmv_k", "window_spmv_k_plus_a", "window_spmv_mk_plus_a",
     "window_spmv_m", "grad_window", "div_window", "div_compact_interleaved",
+    # the sharded path's launches on a rank's rows (parallel/sharded_stencil.py): the
+    # solvers' compact SPMV by operator, G, the compact G^T; the JAX package's
+    # full-window forms
+    "sharded_spmv_k", "sharded_spmv_k_plus_a", "sharded_spmv_mk_plus_a", "sharded_spmv_m",
+    "sharded_grad", "sharded_div_compact", "sharded_window_spmv", "sharded_div_window",
 )
 launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -84,6 +89,17 @@ _SIGNATURES = {
     "grad_compact_f64": ("window_stencil", [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
     "spmv_compact_f32": ("window_stencil", [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P]),
     "spmv_compact_f64": ("window_stencil", [_P, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P]),
+    # the rank-rows forms of the sharded path: rows and field apart
+    "window_stencil_rows_f32": ("window_stencil", [_I, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_P]),
+    "window_stencil_rows_f64": ("window_stencil", [_I, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_P]),
+    "grad_compact_rows_f32": ("window_stencil", [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P]),
+    "grad_compact_rows_f64": ("window_stencil", [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P]),
+    "spmv_compact_rows_f32": ("window_stencil", [_P, _P, _I, _P, _I, _P, _I, _P] + [_I] * 6
+                              + [_P]),
+    "spmv_compact_rows_f64": ("window_stencil", [_P, _P, _I, _P, _I, _P, _I, _P] + [_I] * 6
+                              + [_P]),
+    "div_compact_interleaved_rows_f32": ("div_compact", [_P, _I, _P, _I, _P, _P] + [_I] * 8
+                                         + [_P]),
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

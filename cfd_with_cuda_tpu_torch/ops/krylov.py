@@ -234,6 +234,25 @@ def bicg(
     return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rn)
 
 
+def _dots_of(dot_dtype, reduce):
+    """``dots(*pairs)``: the per-system inner products of the ``(a, b)``
+    pairs, as :func:`_make_dot`'s ``dot`` computes each; with ``reduce`` (a
+    sum over ranks of a ``(..., k)`` tensor, the sharded path's
+    ``all_reduce``) the local products of all pairs go through one call, and
+    the cast back to the state dtype follows the sum."""
+    if reduce is None:
+        dot, _ = _make_dot(dot_dtype)
+        return lambda *pairs: tuple(dot(a, b) for a, b in pairs)
+
+    def dots(*pairs):
+        dd = dot_dtype or pairs[0][0].dtype
+        acc = torch.cat([torch.sum(a.to(dd) * b.to(dd), dim=-1, keepdim=True)
+                         for a, b in pairs], dim=-1)
+        return tuple(t.to(pairs[0][0].dtype) for t in reduce(acc).split(1, dim=-1))
+
+    return dots
+
+
 def bicgstab(
     matvec: Callable,
     b: torch.Tensor,
@@ -245,39 +264,44 @@ def bicgstab(
     precond: Callable | None = None,
     dot_dtype=None,
     miniter: int = 0,
+    reduce: Callable | None = None,
 ) -> KrylovResult:
     """Preconditioned BiCGStab (general systems) — the reference's momentum
     solver (Paralution / cusp::krylov::bicgstab).  ``matvec`` is called
-    once for r0 (also with ``x0=None``), then twice per iteration."""
+    once for r0 (also with ``x0=None``), then twice per iteration.  On the
+    sharded path each rank passes its block of the rows and ``reduce``, the
+    sum over ranks: the dots and norms are local sums plus one ``reduce``
+    for the start and three an iteration (the pairs that the recurrence
+    needs together share one)."""
     M = precond or (lambda r: r)
-    dot, norm = _make_dot(dot_dtype)
+    dots = _dots_of(dot_dtype, reduce)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     rhat = r
-    rho = dot(rhat, r)
+    rho, bb, rr = dots((rhat, r), (b, b), (r, r))
     p = r
-    bound = torch.clamp_min(tol * torch.max(norm(b)), atol)
+    bound = torch.clamp_min(tol * torch.max(torch.sqrt(bb)), atol)
 
     k = 0
-    rn = torch.max(norm(r))
+    rn = torch.max(torch.sqrt(rr))
     # a NaN residual compares False and ends the loop, as lax.while_loop's
     while k < miniter or (k < maxiter and bool(rn > bound)):
         phat = M(p)
         v = matvec(phat)
-        alpha = _safe_div(rho, dot(rhat, v))
+        alpha = _safe_div(rho, dots((rhat, v))[0])
         s = r - alpha * v
         shat = M(s)
         t = matvec(shat)
-        tt = dot(t, t)
-        omega = _safe_div(dot(t, s), tt)
+        tt, ts = dots((t, t), (t, s))
+        omega = _safe_div(ts, tt)
         x = x + alpha * phat + omega * shat
         r = s - omega * t
-        rho_new = dot(rhat, r)
+        rho_new, rr = dots((rhat, r), (r, r))
         beta = _safe_div(rho_new, rho) * _safe_div(alpha, omega)
         p = r + beta * (p - omega * v)
         rho = rho_new
         k += 1
-        rn = torch.max(norm(r))
+        rn = torch.max(torch.sqrt(rr))
     return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rn)
 
 

@@ -21,6 +21,13 @@ win[w, s] * x[s + off(w)]``; field reads outside the field are zero.  The
 window applies also take the pre-padded form of the solvers: fields and
 weight tables whose last axis is a ``BLK`` multiple (the padded fine axis
 s_pad, zero weight columns beyond S).
+
+Rows and field apart (the sharded path, ``parallel/sharded_stencil.py``):
+:func:`window_rows`, :func:`grad_rows`, :func:`spmv_compact_rows` and
+:func:`div_compact_rows` apply a rank's contiguous block of rows to its
+halo-extended field, ``x_org`` the global position of the field's entry 0
+(reads outside the given field are zero, as outside the global one).  Their
+kernels are the single-device ones, given the two origins.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ __all__ = [
     "grad_window_compact", "grad_window_compact_plain",
     "div_window", "div_window_plain", "div_compact", "div_compact_plain",
     "div_compact_interleaved", "div_compact_interleaved_plain",
+    "window_rows", "grad_rows", "spmv_compact_rows", "div_compact_rows", "coarse_rows",
 ]
 
 # Class-size padding of the parity layout (Sp = round_up(cx*cy*cz, BLK)) and
@@ -144,12 +152,13 @@ def _row_classes(fine_dims, n: int, device) -> torch.Tensor:
     return (s // (fx * fy) % 2) * 4 + (s // fx % fy % 2) * 2 + s % fx % 2
 
 
-def compact_g_window(g_win, fine_dims, radius: int):
+def compact_g_window(g_win, fine_dims, radius: int, row0: int = 0):
     """``(G_cwin (3, K, n), offsets (8, K), counts (8,))`` <- the fine G
     window ``g_win (3, W^3, n)`` (setup time, or a CUDA tensor in
     :func:`grad_window`).  ``G_cwin[d, j, s] = g_win[d, slot_{c(s)}[j], s]``
     over the class slots of :func:`compact_g_slots`, zero past the class's
     count; ``offsets`` and ``counts`` are that function's (int32 numpy).
+    ``row0``: the global row of ``g_win``'s column 0 (a rank's block).
     ``G_cwin`` is a numpy array for a numpy ``g_win``, else a tensor on its
     device.  Raises ``ValueError`` if a weight it drops is not exactly 0:
     the compact apply then equals the full window's."""
@@ -158,7 +167,7 @@ def compact_g_window(g_win, fine_dims, radius: int):
     if w.ndim != 3 or w.shape[0] != 3 or w.shape[1] != (2 * radius + 1) ** 3:
         raise ValueError(f"compact_g_window: g_win of shape {tuple(w.shape)}")
     n = w.shape[-1]
-    cls = _row_classes(fine_dims, n, w.device)
+    cls = _row_classes(fine_dims, row0 + n, w.device)[row0:]
     keep = torch.zeros((8, w.shape[1]), dtype=torch.bool)
     for c in range(8):
         keep[c, slots[c, : counts[c]].tolist()] = True
@@ -194,6 +203,8 @@ class SpmvLayout(NamedTuple):
     bases: np.ndarray       # (9,) int64
     size: int               # entries of the whole table
     order: tuple            # per block: the flat rows s of its rows, int64
+    first: np.ndarray       # (9,) int64: a class block's first row in its sub-grid's flat
+    #                         order (0 for the whole grid), the padding block's first row s
 
 
 def _shifts_of(offsets, fine_dims):
@@ -245,35 +256,48 @@ def _compact_spmv_slots(offsets, fine_dims):
     return slots, offs, counts
 
 
-def spmv_layout(offsets, fine_dims, n: int) -> SpmvLayout:
+def spmv_layout(offsets, fine_dims, n: int, rows=None) -> SpmvLayout:
     """The :class:`SpmvLayout` of the operator with flat ``offsets`` on the
-    fine grid ``fine_dims`` over ``n >= S`` rows (``S`` the grid's size)."""
-    return _spmv_layout(tuple(int(o) for o in offsets), tuple(int(v) for v in fine_dims), int(n))
+    fine grid ``fine_dims`` over ``n >= S`` rows (``S`` the grid's size), or
+    over the rows ``[r0, r1)`` of them alone (``rows``, a rank's block): each
+    block then holds the block's rows in that range, a contiguous run of its
+    order."""
+    r0, r1 = (0, n) if rows is None else (int(rows[0]), int(rows[1]))
+    return _spmv_layout(tuple(int(o) for o in offsets), tuple(int(v) for v in fine_dims), int(n),
+                        r0, r1)
 
 
-@functools.lru_cache(maxsize=16)
-def _spmv_layout(offsets, fine_dims, n):
+@functools.lru_cache(maxsize=64)
+def _spmv_layout(offsets, fine_dims, n, r0=0, r1=None):
     fx, fy, fz = fine_dims
     size_s = fx * fy * fz
-    if n < size_s:
-        raise ValueError(f"spmv_layout: {n} rows on a grid of {size_s}")
+    r1 = n if r1 is None else r1
+    if n < size_s or not 0 <= r0 <= r1 <= n:
+        raise ValueError(f"spmv_layout: rows [{r0}, {r1}) of {n} on a grid of {size_s}")
     slots, offs, counts = _compact_spmv_slots(offsets, fine_dims)
-    dims, order = [], []
+    dims, order, first = [], [], []
     for c in range(8):
         px, py, pz = c & 1, c >> 1 & 1, c >> 2 & 1
         g = ((fx - px + 1) // 2, (fy - py + 1) // 2, (fz - pz + 1) // 2)
         k, j, i = np.meshgrid(*(np.arange(v) for v in g[::-1]), indexing="ij")
-        order.append((((2 * k + pz) * fy + 2 * j + py) * fx + 2 * i + px).reshape(-1))
+        o = (((2 * k + pz) * fy + 2 * j + py) * fx + 2 * i + px).reshape(-1)
+        lo, hi = np.searchsorted(o, r0), np.searchsorted(o, r1)
+        order.append(o[lo:hi])
+        first.append(lo)
         dims.append(g)
     dims.append((n - size_s, 1, 1))
-    order.append(np.arange(size_s, n))
+    pad0 = max(size_s, r0)
+    order.append(np.arange(pad0, max(pad0, r1)))
+    first.append(pad0)
     order = tuple(o.astype(np.int64) for o in order)
     rows = np.array([len(o) for o in order], np.int64)
     sizes = rows * counts
     bases = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-    for a in (*order, rows, bases):
+    first = np.array(first, np.int64)
+    for a in (*order, rows, bases, first):
         a.flags.writeable = False
-    return SpmvLayout(slots, offs, counts, tuple(dims), rows, bases, int(sizes.sum()), order)
+    return SpmvLayout(slots, offs, counts, tuple(dims), rows, bases, int(sizes.sum()), order,
+                      first)
 
 
 def _blocks(lay: SpmvLayout):
@@ -282,24 +306,27 @@ def _blocks(lay: SpmvLayout):
             for b in range(SPMV_BLOCKS) if lay.counts[b] and lay.rows[b]]
 
 
-def compact_spmv_window(win, offsets, fine_dims):
+def compact_spmv_window(win, offsets, fine_dims, rows=None):
     """The class-compacted, class-major table ``(size,)`` of the window
     operator ``win (W, n)`` with flat ``offsets`` (W of them, the operator's
     own order; setup time, or per step on a CUDA tensor): block b of
     :func:`spmv_layout` holds ``win[slots_b[j], s]`` at ``bases[b] + j *
-    rows[b] + r`` for the b-th block's r-th row s.  A numpy array for a numpy
-    ``win``, else a tensor on its device.  Raises ``ValueError`` if a weight
-    it drops is not exactly 0: the compact apply then equals the full
+    rows[b] + r`` for the b-th block's r-th row s; with ``rows = (r0, r1)``
+    the table of those rows alone (a rank's block).  A numpy array for a
+    numpy ``win``, else a tensor on its device.  Raises ``ValueError`` if a
+    weight it drops is not exactly 0: the compact apply then equals the full
     window's.  NE27000 (``s_pad`` 227,328): 14.71 M weights of 28.42 M, and
     347 padding rows."""
     w = torch.as_tensor(win)
     if w.ndim != 2 or w.shape[0] != len(offsets):
         raise ValueError(f"compact_spmv_window: win of shape {tuple(w.shape)}, "
                          f"{len(offsets)} offsets")
-    lay = spmv_layout(offsets, fine_dims, w.shape[1])
+    lay = spmv_layout(offsets, fine_dims, w.shape[1], rows)
     parts = [w[torch.tensor(sl, device=w.device)][:, torch.tensor(rw, device=w.device)]
              .reshape(-1) for _, sl, rw in _blocks(lay)]
     out = torch.cat(parts) if parts else w.new_zeros(0)
+    if rows is not None:
+        w = w[:, rows[0]: rows[1]]
     dropped = int(torch.count_nonzero(w)) - int(torch.count_nonzero(out))
     if dropped:
         raise ValueError(f"compact_spmv_window: {dropped} nonzero weights lie outside their "
@@ -323,29 +350,32 @@ def spmv_window_from_compact(cwin, offsets, fine_dims, n: int):
     return out.numpy() if isinstance(cwin, np.ndarray) else out
 
 
-def compact_spmv_rows(v, offsets, fine_dims):
+def compact_spmv_rows(v, offsets, fine_dims, rows=None):
     """A per-row vector ``v (n,)`` on the compact table's entries: entry (b,
-    j, r) gets ``v`` at the block's r-th row (the LHS's row mask).  Numpy for
-    numpy, else a tensor on its device."""
+    j, r) gets ``v`` at the block's r-th row (the LHS's row mask); with
+    ``rows`` on the table of those rows alone.  Numpy for numpy, else a
+    tensor on its device."""
     t = torch.as_tensor(v)
-    lay = spmv_layout(offsets, fine_dims, t.shape[0])
+    lay = spmv_layout(offsets, fine_dims, t.shape[0], rows)
     parts = [t[torch.tensor(rw, device=t.device)][None].expand(len(sl), -1).reshape(-1)
              for _, sl, rw in _blocks(lay)]
     out = torch.cat(parts) if parts else t.new_zeros(0)
     return out.numpy() if isinstance(v, np.ndarray) else out
 
 
-def compact_spmv_diag(offsets, fine_dims, n: int) -> np.ndarray:
+def compact_spmv_diag(offsets, fine_dims, n: int, rows=None) -> np.ndarray:
     """``(n,)`` int64: the entry of each row's offset-0 slot in the compact
     table (rows in flat order), where the LHS adds its unit diagonal and
-    reads the Jacobi diagonal.  Raises ``ValueError`` without offset 0."""
-    lay = spmv_layout(offsets, fine_dims, n)
-    pos = np.full(n, -1, np.int64)
+    reads the Jacobi diagonal; with ``rows = (r0, r1)``, ``(r1 - r0,)`` in the
+    table of those rows alone.  Raises ``ValueError`` without offset 0."""
+    lay = spmv_layout(offsets, fine_dims, n, rows)
+    r0, r1 = (0, n) if rows is None else rows
+    pos = np.full(r1 - r0, -1, np.int64)
     for b, sl, rw in _blocks(lay):
         zero = np.flatnonzero(lay.offsets[b, : len(sl)] == 0)
         if len(zero) == 0:
             raise ValueError("compact_spmv_diag: the operator has no offset 0")
-        pos[rw] = lay.bases[b] + zero[0] * len(rw) + np.arange(len(rw))
+        pos[rw - r0] = lay.bases[b] + zero[0] * len(rw) + np.arange(len(rw))
     if (pos < 0).any():
         raise ValueError("compact_spmv_diag: the operator has no offset 0")
     return pos
@@ -409,12 +439,19 @@ def _operands(win, x, dims):
     return wb[..., :s], xb[:, :s], s, s
 
 
-def _stencil_plain(mode, wb, xb, offsets) -> torch.Tensor:
+def _field_over(xb, x_org: int, lo: int, hi: int) -> torch.Tensor:
+    """The field ``xb (C, nx)``, whose entry 0 is global position ``x_org``,
+    over the global positions ``[lo, hi)``: zero where it holds none."""
+    return F.pad(xb, (x_org - lo, hi - x_org - xb.shape[-1]))
+
+
+def _stencil_plain(mode, wb, xb, offsets, x_org=0, y_org=0, ny=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: a loop over the offsets in window
-    order on a zero-haloed field."""
-    n = xb.shape[-1]
+    order on a zero-haloed field; rows ``y_org + r`` (r < ``ny``, default the
+    field's length) of the field whose entry 0 is global position ``x_org``."""
+    n = xb.shape[-1] if ny is None else ny
     halo = max(abs(int(o)) for o in offsets)
-    x_ext = F.pad(xb, (halo, halo))
+    x_ext = _field_over(xb, x_org, y_org - halo, y_org + n + halo)
     co = (xb.shape[0], 3, 1)[mode]
     acc = xb.new_zeros((co, n))
     for k, off in enumerate(offsets):
@@ -433,18 +470,20 @@ def _offsets_table(offsets, device: torch.device) -> torch.Tensor:
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
-def _stencil(mode, name, wb, xb, offsets, plain) -> torch.Tensor:
-    """The window apply of ``mode`` (SPMV or DIV) on ``wb (cw, W, n)``, ``xb
-    (cx, n)``: the plain version on a CPU tensor (or under ``plain``), the
-    kernel on a CUDA tensor."""
+def _stencil(mode, name, wb, xb, offsets, plain, x_org=0, y_org=0) -> torch.Tensor:
+    """The window apply of ``mode`` (SPMV or DIV) on ``wb (cw, W, ny)``, ``xb
+    (cx, nx)``: the rows ``y_org + r`` of the field whose entry 0 is global
+    position ``x_org`` (one device: both 0, ``nx = ny``).  The plain version
+    on a CPU tensor (or under ``plain``), the kernel on a CUDA tensor."""
     offsets = tuple(int(o) for o in offsets)
+    ny = wb.shape[-1]
     if plain or xb.device.type == "cpu":
-        return _stencil_plain(mode, wb, xb, offsets)
+        return _stencil_plain(mode, wb, xb, offsets, x_org, y_org, ny)
     if xb.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xb.device}")
-    cx, n = xb.shape
+    cx, nx = xb.shape
     cw = {_SPMV: 1, _DIV: 3}[mode]
-    if wb.shape != (cw, len(offsets), n):
+    if wb.shape != (cw, len(offsets), ny):
         raise ValueError(f"{name}: shapes {tuple(wb.shape)}, {tuple(xb.shape)}, "
                          f"{len(offsets)} offsets")
     if xb.dtype not in (torch.float32, torch.float64) or wb.dtype != xb.dtype:
@@ -453,12 +492,12 @@ def _stencil(mode, name, wb, xb, offsets, plain) -> torch.Tensor:
         raise ValueError(f"{name}: operands on different devices")
     wb, xb = wb.contiguous(), xb.contiguous()
     co = cx if mode == _SPMV else 1
-    y = torch.empty((co, n), dtype=xb.dtype, device=xb.device)
-    fn = cuda_lib.function("window_stencil_f32" if xb.dtype == torch.float32
-                           else "window_stencil_f64")
-    err = fn(mode, cuda_lib.ptr(wb), cuda_lib.ptr(xb), cx,
-             cuda_lib.ptr(_offsets_table(offsets, xb.device)), len(offsets),
-             cuda_lib.ptr(y), n, cuda_lib.stream_ptr(xb.device))
+    y = torch.empty((co, ny), dtype=xb.dtype, device=xb.device)
+    tag = "f32" if xb.dtype == torch.float32 else "f64"
+    err = cuda_lib.function(f"window_stencil_rows_{tag}")(
+        mode, cuda_lib.ptr(wb), cuda_lib.ptr(xb), cx,
+        cuda_lib.ptr(_offsets_table(offsets, xb.device)), len(offsets), cuda_lib.ptr(y), ny, nx,
+        int(x_org), int(y_org), cuda_lib.stream_ptr(xb.device))
     cuda_lib.check(err, name)
     cuda_lib.launch_counts[name] += 1
     return y
@@ -510,31 +549,34 @@ def _spmv_offsets_table(offsets, fine_dims, n, device: torch.device) -> torch.Te
 
 
 @functools.lru_cache(maxsize=32)
-def _plain_groups(offsets, fine_dims, n, blocks, device: torch.device):
-    """The plain version's work: the blocks of ``blocks`` grouped by slot
-    count, each group ``(its blocks, count, field index (count, rows) into
-    the field zero-haloed by the layout's largest |offset|, its flat rows)``
-    on ``device``: one gather and ``count`` multiply-adds a group."""
-    lay = _spmv_layout(offsets, fine_dims, n)
+def _plain_groups(offsets, fine_dims, n, blocks, device: torch.device, r0=0, r1=None):
+    """The plain version's work on the rows ``[r0, r1)`` of ``n``: the blocks
+    of ``blocks`` grouped by slot count, each group ``(its blocks, count,
+    field index (count, rows) into the field over [r0 - halo, r1 + halo),
+    halo the layout's largest |offset|, its rows less r0)`` on ``device``:
+    one gather and ``count`` multiply-adds a group."""
+    lay = _spmv_layout(offsets, fine_dims, n, r0, r1)
     halo = max(int(np.abs(lay.offsets).max()), 1)
     groups = []
     for cnt in sorted({int(lay.counts[b]) for b in blocks}, reverse=True):
         bs = tuple(b for b in blocks if lay.counts[b] == cnt)
-        rows = np.concatenate([lay.order[b] for b in bs])
+        rows = np.concatenate([lay.order[b] for b in bs]) - r0
         idx = np.concatenate([lay.order[b][None] + lay.offsets[b, :cnt, None] for b in bs], 1)
-        groups.append((bs, cnt, torch.tensor(idx + halo, device=device),
+        groups.append((bs, cnt, torch.tensor(idx - r0 + halo, device=device),
                        torch.tensor(rows, device=device)))
     return halo, tuple(groups)
 
 
-def _spmv_compact_plain(cw, xb, lay, groups) -> torch.Tensor:
+def _spmv_compact_plain(cw, xb, lay, groups, x_org=0, r0=0, ny=None) -> torch.Tensor:
     """Plain PyTorch version of the compact SPMV kernel: for each row, its
     block's slots in order, ``acc = acc + w[j] * x[s + off_j]`` on a
     zero-haloed field (the full window's plain sum without its zero terms);
-    rows of blocks with equal slot counts are summed side by side."""
+    rows of blocks with equal slot counts are summed side by side.  ``ny``
+    rows from ``r0``, the field from global position ``x_org``."""
     halo, groups = groups
-    x_ext = F.pad(xb, (halo, halo))
-    y = xb.new_zeros(xb.shape)
+    ny = xb.shape[-1] if ny is None else ny
+    x_ext = _field_over(xb, x_org, r0 - halo, r0 + ny + halo)
+    y = xb.new_zeros((xb.shape[0], ny))
     for bs, cnt, idx, rows in groups:
         w = torch.cat([cw[lay.bases[b]: lay.bases[b] + cnt * lay.rows[b]].view(cnt, -1)
                        for b in bs], 1)
@@ -556,6 +598,14 @@ class _SpmvPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
+def _rows_plan(offsets, dims, n: int, r0: int, r1: int) -> _SpmvPlan:
+    """The plan of the table of rows ``[r0, r1)`` of ``n`` (a rank's block)."""
+    lay = _spmv_layout(offsets, dims, n, r0, r1)
+    blocks = tuple(b for b in range(SPMV_BLOCKS) if lay.counts[b] and lay.rows[b])
+    return _SpmvPlan(n, lay, blocks, _plan_table(lay, blocks))
+
+
+@functools.lru_cache(maxsize=64)
 def _spmv_plan(offsets, dims, size: int, nx: int) -> _SpmvPlan:
     """The plan of a compact table of ``size`` entries on a field of ``nx``
     rows (the table's n, or the grid's S: then the class blocks alone)."""
@@ -571,10 +621,16 @@ def _spmv_plan(offsets, dims, size: int, nx: int) -> _SpmvPlan:
     lay = _spmv_layout(offsets, dims, n)
     blocks = tuple(b for b in range(SPMV_BLOCKS) if lay.counts[b] and lay.rows[b]
                    and (b < 8 or nx == n))
+    return _SpmvPlan(n, lay, blocks, _plan_table(lay, blocks))
+
+
+def _plan_table(lay: SpmvLayout, blocks) -> np.ndarray:
+    """The C interface's block table: rows, slot count, entry base, class
+    (-1: the padding rows), gx, gy, first row, a line per block."""
     tab = np.array([[lay.rows[b], lay.counts[b], lay.bases[b], b if b < 8 else -1,
-                     lay.dims[b][0], lay.dims[b][1], s] for b in blocks], np.int64)
+                     lay.dims[b][0], lay.dims[b][1], lay.first[b]] for b in blocks], np.int64)
     tab.flags.writeable = False
-    return _SpmvPlan(n, lay, blocks, tab)
+    return tab
 
 
 def _spmv_compact(cw, xb, dims, offsets, name, plain) -> torch.Tensor:
@@ -600,11 +656,11 @@ def _spmv_compact(cw, xb, dims, offsets, name, plain) -> torch.Tensor:
     cw, xb = cw.contiguous(), xb.contiguous()
     y = torch.empty((cx, nx), dtype=xb.dtype, device=xb.device)
     offs_t = _spmv_offsets_table(offsets, dims, plan.n, xb.device)
-    fn = cuda_lib.function("spmv_compact_f32" if xb.dtype == torch.float32
-                           else "spmv_compact_f64")
-    err = fn(cuda_lib.ptr(cw), cuda_lib.ptr(xb), cx, cuda_lib.ptr(offs_t), offs_t.shape[1],
-             plan.tab.ctypes.data, len(plan.blocks), cuda_lib.ptr(y), nx, dims[0], dims[1],
-             cuda_lib.stream_ptr(xb.device))
+    tag = "f32" if xb.dtype == torch.float32 else "f64"
+    err = cuda_lib.function(f"spmv_compact_rows_{tag}")(
+        cuda_lib.ptr(cw), cuda_lib.ptr(xb), cx, cuda_lib.ptr(offs_t), offs_t.shape[1],
+        plan.tab.ctypes.data, len(plan.blocks), cuda_lib.ptr(y), nx, nx, 0, 0, dims[0], dims[1],
+        cuda_lib.stream_ptr(xb.device))
     cuda_lib.check(err, name)
     cuda_lib.launch_counts[name] += 1
     return y
@@ -640,6 +696,65 @@ def window_spmv_compact_plain(cwin, x, dims, radius=None, *, offsets=None, trim=
     """Plain PyTorch version of :func:`window_spmv_compact` on any device:
     :func:`window_spmv_plain`'s sum without its zero terms, bit for bit."""
     return _window_spmv_compact(cwin, x, dims, radius, offsets, trim, name, True)
+
+
+def spmv_compact_rows(cwin, x_ext, dims, offsets, n: int, rows, x_org: int, *,
+                      name: str, plain: bool = False) -> torch.Tensor:
+    """The compact SPMV on a rank's rows: ``cwin`` the table of rows ``rows =
+    (r0, r1)`` of ``n`` (:func:`compact_spmv_window` with ``rows``), ``x_ext
+    (cx, nx)`` the field from global position ``x_org`` (reads outside it are
+    zero) -> ``(cx, r1 - r0)``.  The plain version on a CPU tensor (or under
+    ``plain``); on a CUDA tensor the compact SPMV kernel
+    (``spmv_compact_rows_*``), adding one to the launch count ``name``."""
+    if name not in cuda_lib.launch_counts:
+        raise ValueError(f"spmv_compact_rows: no launch count named {name!r}")
+    dims = tuple(int(v) for v in dims)
+    offsets = tuple(int(o) for o in offsets)
+    r0, r1 = int(rows[0]), int(rows[1])
+    plan = _rows_plan(offsets, dims, int(n), r0, r1)
+    if cwin.shape != (plan.lay.size,):
+        raise ValueError(f"{name}: a compact table of shape {tuple(cwin.shape)} for "
+                         f"{plan.lay.size} entries")
+    cx, nx = x_ext.shape
+    if plain or x_ext.device.type == "cpu":
+        groups = _plain_groups(offsets, dims, int(n), plan.blocks, x_ext.device, r0, r1)
+        return _spmv_compact_plain(cwin, x_ext, plan.lay, groups, x_org, r0, r1 - r0)
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x_ext.device}")
+    if not 1 <= cx <= 3:
+        raise ValueError(f"{name}: {cx} channels")
+    if x_ext.dtype not in (torch.float32, torch.float64) or cwin.dtype != x_ext.dtype:
+        raise ValueError(f"{name}: dtypes {cwin.dtype}, {x_ext.dtype}")
+    if cwin.device != x_ext.device:
+        raise ValueError(f"{name}: operands on different devices")
+    y = torch.zeros((cx, r1 - r0), dtype=x_ext.dtype, device=x_ext.device)
+    if not plan.blocks:
+        return y
+    cwin, x_ext = cwin.contiguous(), x_ext.contiguous()
+    offs_t = _spmv_offsets_table(offsets, dims, int(n), x_ext.device)
+    tag = "f32" if x_ext.dtype == torch.float32 else "f64"
+    err = cuda_lib.function(f"spmv_compact_rows_{tag}")(
+        cuda_lib.ptr(cwin), cuda_lib.ptr(x_ext), cx, cuda_lib.ptr(offs_t), offs_t.shape[1],
+        plan.tab.ctypes.data, len(plan.blocks), cuda_lib.ptr(y), r1 - r0, nx, int(x_org), r0,
+        dims[0], dims[1], cuda_lib.stream_ptr(x_ext.device))
+    cuda_lib.check(err, name)
+    cuda_lib.launch_counts[name] += 1
+    return y
+
+
+def window_rows(win, x_ext, offsets, rows, x_org: int, *, div: bool = False,
+                name: str, plain: bool = False) -> torch.Tensor:
+    """The full-window apply on a rank's rows ``rows = (r0, r1)``: ``win (W,
+    r1 - r0)`` (SPMV, ``x_ext (cx, nx)``) or ``(3, W, r1 - r0)`` (``div``:
+    the DIV mode, ``x_ext (3, nx)``), the field from global position
+    ``x_org`` -> ``(cx | 1, r1 - r0)``.  The plain version on a CPU tensor
+    (or under ``plain``); the window kernel (``window_stencil_rows_*``) on a
+    CUDA tensor, adding one to the launch count ``name``."""
+    if name not in cuda_lib.launch_counts:
+        raise ValueError(f"window_rows: no launch count named {name!r}")
+    wb = win if win.ndim == 3 else win[None]
+    return _stencil(_DIV if div else _SPMV, name, wb, x_ext, offsets, plain, int(x_org),
+                    int(rows[0]))
 
 
 def spmv_forms(xs, isolver, rng):
@@ -717,14 +832,15 @@ def _g_slot_tables(fine_dims, radius, device: torch.device):
             torch.from_numpy(np.array(counts)).to(device))
 
 
-def _grad_compact_plain(g_cwin, xb, dims, offsets) -> torch.Tensor:
+def _grad_compact_plain(g_cwin, xb, dims, offsets, x_org=0, y_org=0) -> torch.Tensor:
     """Plain PyTorch version of the compact GRAD kernel: for j in order,
     ``acc += g_cwin[:, j] * x[s + offsets[c(s), j]]`` on a zero-haloed field
-    (entries past a class's count are zero weights at offset 0)."""
-    n = xb.shape[-1]
+    (entries past a class's count are zero weights at offset 0); rows
+    ``y_org + r``, the field from global position ``x_org``."""
+    n = g_cwin.shape[-1]
     halo = int(np.abs(offsets).max())
-    x_ext = F.pad(xb[0], (halo, halo))
-    cls = _row_classes(dims, n, xb.device)
+    x_ext = _field_over(xb, x_org, y_org - halo, y_org + n + halo)[0]
+    cls = _row_classes(dims, y_org + n, xb.device)[y_org:]
     cols = (torch.from_numpy(offsets.astype(np.int64)).to(xb.device)[cls].T
             + torch.arange(halo, halo + n, device=xb.device))
     acc = xb.new_zeros((3, n))
@@ -733,18 +849,21 @@ def _grad_compact_plain(g_cwin, xb, dims, offsets) -> torch.Tensor:
     return acc
 
 
-def _grad_compact(g_cwin, xb, dims, radius, plain) -> torch.Tensor:
-    """G on the class-compacted table ``g_cwin (3, K, n)``, ``xb (1, n)``:
-    the plain version on a CPU tensor (or under ``plain``), the kernel on a
-    CUDA tensor (launch count ``grad_window``)."""
+def _grad_compact(g_cwin, xb, dims, radius, plain, x_org=0, y_org=0,
+                  name="grad_window") -> torch.Tensor:
+    """G on the class-compacted table ``g_cwin (3, K, ny)``, ``xb (1, nx)``:
+    the rows ``y_org + r`` of the field whose entry 0 is global position
+    ``x_org`` (one device: both 0, ``nx = ny``).  The plain version on a CPU
+    tensor (or under ``plain``), the kernel on a CUDA tensor (launch count
+    ``name``)."""
     dims = tuple(int(v) for v in dims)
     _, offsets, _ = compact_g_slots(dims, radius)
     if plain or xb.device.type == "cpu":
-        return _grad_compact_plain(g_cwin, xb, dims, offsets)
+        return _grad_compact_plain(g_cwin, xb, dims, offsets, x_org, y_org)
     if xb.device.type != "cuda":
         raise ValueError(f"grad_window_compact: unsupported device {xb.device}")
-    k, n = offsets.shape[1], xb.shape[-1]
-    if g_cwin.shape != (3, k, n) or xb.shape != (1, n):
+    k, ny, nx = offsets.shape[1], g_cwin.shape[-1], xb.shape[-1]
+    if g_cwin.shape != (3, k, ny) or xb.shape != (1, nx):
         raise ValueError(f"grad_window_compact: shapes {tuple(g_cwin.shape)}, "
                          f"{tuple(xb.shape)}, {k} class slots")
     if xb.dtype not in (torch.float32, torch.float64) or g_cwin.dtype != xb.dtype:
@@ -752,16 +871,32 @@ def _grad_compact(g_cwin, xb, dims, radius, plain) -> torch.Tensor:
     if g_cwin.device != xb.device:
         raise ValueError("grad_window_compact: operands on different devices")
     g_cwin, xb = g_cwin.contiguous(), xb.contiguous()
-    y = torch.empty((3, n), dtype=xb.dtype, device=xb.device)
+    y = torch.empty((3, ny), dtype=xb.dtype, device=xb.device)
     offs_t, counts_t = _g_slot_tables(dims, int(radius), xb.device)
-    fn = cuda_lib.function("grad_compact_f32" if xb.dtype == torch.float32
-                           else "grad_compact_f64")
-    err = fn(cuda_lib.ptr(g_cwin), k, cuda_lib.ptr(xb), cuda_lib.ptr(offs_t),
-             cuda_lib.ptr(counts_t), cuda_lib.ptr(y), n, dims[0], dims[1],
-             cuda_lib.stream_ptr(xb.device))
+    tag = "f32" if xb.dtype == torch.float32 else "f64"
+    err = cuda_lib.function(f"grad_compact_rows_{tag}")(
+        cuda_lib.ptr(g_cwin), k, cuda_lib.ptr(xb), cuda_lib.ptr(offs_t), cuda_lib.ptr(counts_t),
+        cuda_lib.ptr(y), ny, nx, int(x_org), int(y_org), dims[0], dims[1],
+        cuda_lib.stream_ptr(xb.device))
     cuda_lib.check(err, "grad_window_compact")
-    cuda_lib.launch_counts["grad_window"] += 1
+    cuda_lib.launch_counts[name] += 1
     return y
+
+
+def grad_rows(g_cwin, x_ext, dims, radius, rows, x_org: int, *, name: str,
+              plain: bool = False) -> torch.Tensor:
+    """G on the class-compacted table of a rank's rows ``rows = (r0, r1)``
+    (``g_cwin (3, K, r1 - r0)``, the columns of :func:`compact_g_window`'s),
+    ``x_ext (nx,)`` the embedded pressure from global position ``x_org`` ->
+    ``(3, r1 - r0)``.  The plain version on a CPU tensor (or under
+    ``plain``); the GRAD kernel (``grad_compact_rows_*``) on a CUDA tensor,
+    adding one to the launch count ``name``."""
+    if name not in cuda_lib.launch_counts:
+        raise ValueError(f"grad_rows: no launch count named {name!r}")
+    if g_cwin.shape[-1] != rows[1] - rows[0]:
+        raise ValueError(f"grad_rows: {g_cwin.shape[-1]} table rows for rows {tuple(rows)}")
+    return _grad_compact(g_cwin, x_ext[None], dims, radius, plain, int(x_org), int(rows[0]),
+                         name)
 
 
 def _grad_window_compact(g_cwin, p_fine, dims, radius, trim, plain):
@@ -864,10 +999,10 @@ def div_compact_interleaved(gt_cwin, u, fine_dims, coarse_dims):
     if not (u.is_contiguous() and gt_cwin.is_contiguous()):
         raise ValueError("div_compact_interleaved: operands must be contiguous")
     y = torch.empty(sp, dtype=u.dtype, device=u.device)
-    err = cuda_lib.function("div_compact_interleaved_f32")(
+    err = cuda_lib.function("div_compact_interleaved_rows_f32")(
         cuda_lib.ptr(gt_cwin), len(foffs), cuda_lib.ptr(u), n_u,
         cuda_lib.ptr(_offsets_table(foffs, u.device)), cuda_lib.ptr(y), sp, cx, cy,
-        cx * cy * cz, fx, fy, cuda_lib.stream_ptr(u.device))
+        cx * cy * cz, fx, fy, 0, 0, cuda_lib.stream_ptr(u.device))
     cuda_lib.check(err, "div_compact_interleaved")
     cuda_lib.launch_counts["div_compact_interleaved"] += 1
     return y
@@ -882,3 +1017,86 @@ def div_compact_interleaved_plain(gt_cwin, u, fine_dims, coarse_dims):
 
     up = parity_split(u, fine_dims, gt_cwin.shape[-1])
     return div_compact_plain(gt_cwin, up, div_class_pairs(coarse_dims))
+
+
+# ------------------------------------------------- the rank-rows G^T
+
+def coarse_rows(fine_dims, coarse_dims, rows) -> tuple[int, int]:
+    """``(q0, q1)``: the coarse rows whose embedded fine row, ``emb(q) = (2 qz
+    fy + 2 qy) fx + 2 qx``, lies in the fine rows ``rows = (r0, r1)``; emb
+    rises with q, so they are a contiguous run."""
+    return _coarse_rows(tuple(int(v) for v in fine_dims), tuple(int(v) for v in coarse_dims),
+                        int(rows[0]), int(rows[1]))
+
+
+@functools.lru_cache(maxsize=64)
+def _coarse_rows(fine_dims, coarse_dims, r0, r1):
+    emb = _embedded_rows(fine_dims, coarse_dims)
+    return int(np.searchsorted(emb, r0)), int(np.searchsorted(emb, r1))
+
+
+@functools.lru_cache(maxsize=8)
+def _embedded_rows(fine_dims, coarse_dims) -> np.ndarray:
+    fx, fy, _ = fine_dims
+    cx, cy, cz = coarse_dims
+    q = np.arange(cx * cy * cz)
+    return ((2 * (q // (cx * cy)) * fy + 2 * (q // cx % cy)) * fx + 2 * (q % cx)).astype(np.int64)
+
+
+def _div_rows_plain(gt, x_ext, fine_dims, coarse_dims, q0, x_org) -> torch.Tensor:
+    """Plain PyTorch version of the interleaved compact G^T on the coarse rows
+    ``q0 + q``: slot by slot in window order, the 3 directions summed per
+    slot first, reading the fine node emb(q) + off of the field from global
+    position ``x_org`` (zero outside it); the split form's sum
+    (:func:`div_compact_interleaved_plain`) up to the sign of an exact zero
+    (a wrapped read meets a zero weight)."""
+    nq = gt.shape[-1]
+    nx = x_ext.shape[-1]
+    emb = _embedded_rows(tuple(fine_dims), tuple(coarse_dims))[q0: q0 + nq] - x_org
+    base = torch.from_numpy(emb).to(x_ext.device)
+    acc = x_ext.new_zeros(nq)
+    for s, off in enumerate(window_offsets(fine_dims, 2)):
+        j = base + off
+        live = (j >= 0) & (j < nx)
+        xs = torch.where(live, x_ext[:, j.clamp(0, nx - 1)], x_ext.new_zeros(()))
+        acc = acc + (gt[:, s] * xs).sum(0)
+    return acc
+
+
+def div_compact_rows(gt_cwin, x_ext, fine_dims, coarse_dims, q0: int, x_org: int, *,
+                     name: str, plain: bool = False) -> torch.Tensor:
+    """The coarse-grid divergence on a rank's coarse rows ``q0 + q``:
+    ``gt_cwin (3, W^3, nq)`` the columns ``[q0, q0 + nq)`` of
+    :func:`compact_gt_window`'s table, ``x_ext (3, nx)`` the velocity from
+    global fine position ``x_org`` -> ``(nq,)``.  The plain version on a CPU
+    tensor (or under ``plain``); on a CUDA tensor the interleaved form of
+    ``csrc/div_compact.cu`` (``div_compact_interleaved_rows_f32``), adding
+    one to the launch count ``name``.  Each row sums the slots of the
+    full-window DIV mode's fine row in its order."""
+    if name not in cuda_lib.launch_counts:
+        raise ValueError(f"div_compact_rows: no launch count named {name!r}")
+    fx, fy, _ = fine_dims
+    cx, cy, _ = coarse_dims
+    foffs = window_offsets(fine_dims, 2)
+    nq = gt_cwin.shape[-1]
+    if gt_cwin.shape != (3, len(foffs), nq) or x_ext.ndim != 2 or x_ext.shape[0] != 3:
+        raise ValueError(f"{name}: shapes {tuple(gt_cwin.shape)}, {tuple(x_ext.shape)}")
+    if plain or x_ext.device.type == "cpu":
+        return _div_rows_plain(gt_cwin, x_ext, fine_dims, coarse_dims, int(q0), int(x_org))
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x_ext.device}")
+    if x_ext.dtype != torch.float32 or gt_cwin.dtype != x_ext.dtype:
+        raise ValueError(f"{name}: dtypes {gt_cwin.dtype}, {x_ext.dtype}")
+    if gt_cwin.device != x_ext.device:
+        raise ValueError(f"{name}: operands on different devices")
+    y = torch.zeros(nq, dtype=x_ext.dtype, device=x_ext.device)
+    if nq == 0:
+        return y
+    gt_cwin, x_ext = gt_cwin.contiguous(), x_ext.contiguous()
+    err = cuda_lib.function("div_compact_interleaved_rows_f32")(
+        cuda_lib.ptr(gt_cwin), len(foffs), cuda_lib.ptr(x_ext), x_ext.shape[-1],
+        cuda_lib.ptr(_offsets_table(foffs, x_ext.device)), cuda_lib.ptr(y), nq, cx, cy, nq,
+        fx, fy, int(q0), int(x_org), cuda_lib.stream_ptr(x_ext.device))
+    cuda_lib.check(err, name)
+    cuda_lib.launch_counts[name] += 1
+    return y

@@ -7,6 +7,7 @@
     python -m cfd_with_cuda_tpu_torch.profile_step --deck bfs [--solver implicit]
     python -m cfd_with_cuda_tpu_torch.profile_step --deck-n 44 [--solver implicit]  # NE85184
     python -m cfd_with_cuda_tpu_torch.profile_step --policy f64 [--solver implicit]  # XLA path
+    python -m cfd_with_cuda_tpu_torch.profile_step --layout interleaved --spmd1 [--solver implicit]
 
 ``--solver explicit`` (the default) runs the explicit BCH solver (F32, CG
 tol 1e-6, warm-started fused CG) on ``cavity_deck(deck_n, cluster=2.0)``
@@ -63,9 +64,21 @@ each op of the step alone (the DIA apply of K or A, M, G, G^T, the coarse
 Z apply, one V-cycle, one pressure solve, the A(u) build).
 
 Every regime also prints the device kernels per step (launches of any
-kernel, the trace's count) and the host reads per step (the trace's
+kernel, the trace's count), the host reads per step (the trace's
 ``aten::_local_scalar_dense`` calls: the CG's and BiCGStab's residual
-tests, the sub-iteration and steady flags).
+tests, the sub-iteration and steady flags), the host ms per step by
+PyTorch op (self time, the 15 largest) and, where the step runs any, the
+collectives (the trace's ``c10d`` / NCCL host ops: calls and host ms per
+step).
+
+``--spmd1`` runs the cavity on the sharded kernel path with one rank
+(``spmd_devices=1``, the JAX package's "spmd1"): the process starts a
+one-rank NCCL group on a file store in a temporary directory, and the
+solver runs the sharded step (its halo exchanges, the all-gathered G^T,
+the norms, max_acc and the monitor over the group).  It first prints each
+of the step's collectives timed alone (host µs a call, device µs a call,
+and whether a call waits for the device).  Run it beside the same command
+without ``--spmd1`` to see what the collectives cost.
 
 ``--deck bfs`` runs the unstructured path instead, on the backward-facing
 step ``bfs_deck(96, 40, 40, lengths=(15, 2, 2), step_frac=(0.2, 0.5),
@@ -121,6 +134,11 @@ PROFILE_STEPS = 5
 # dt of the JAX package's bench-matrix cavities by elements per edge (the
 # "ne85" and "ne125" rows, scripts/bench_matrix.py:144); 1e-3 otherwise
 BENCH_DT = {44: 5e-4, 50: 4e-4}
+# the trace's host ops of the collectives (torch.distributed's c10d ops,
+# ProcessGroupNCCL's spans)
+_COLLECTIVE_WORDS = ("c10d", "nccl", "gloo", "record_param_comms")
+# a device sleep of ~25 ms at the H100's clock (_collectives_alone)
+_SLEEP_CYCLES = 50_000_000
 SEEDED_STATE = (Path(__file__).resolve().parents[1] / "cfd_with_cuda_tpu" / "validation"
                 / "data" / "cavity_re100_implicit_state.npz")
 
@@ -167,8 +185,20 @@ def _trace(solver, state):
             by_op[a.key] = us / 1e3 / PROFILE_STEPS
     by_op = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:15])
     share = busy_share(spans, wall_us)
+    host, coll = {}, {}
+    for a in prof.key_averages():
+        if a.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        host[a.key] = a.self_cpu_time_total / 1e3 / PROFILE_STEPS
+        if any(w in a.key.lower() for w in _COLLECTIVE_WORDS):
+            coll[a.key] = dict(calls=a.count / PROFILE_STEPS,
+                               host_ms=a.cpu_time_total / 1e3 / PROFILE_STEPS,
+                               self_host_ms=a.self_cpu_time_total / 1e3 / PROFILE_STEPS)
     counts = dict(device_kernels_per_step=len(spans) / PROFILE_STEPS,
-                  host_reads_per_step=reads / PROFILE_STEPS)
+                  host_reads_per_step=reads / PROFILE_STEPS,
+                  host_ms_per_step_by_op=dict(sorted(host.items(), key=lambda kv: -kv[1])[:15]))
+    if coll:
+        counts["collectives"] = coll
     return state, top, share, wall_us / 1e3 / PROFILE_STEPS, by_op, counts
 
 
@@ -184,14 +214,53 @@ def _regime(name, solver, state, n_timed, ops=None):
         cg_iters_mean=sum(h["cg_iters"] for h in hist) / len(hist),
         mom_iters_mean=sum(h["mom_iters"] for h in hist) / len(hist),
         launches_per_step=launches, traced_ms_per_step=traced_ms, device_busy_share=busy,
-        device_ms_per_step_by_kernel=top, **counts,
+        device_ms_per_step_by_kernel=top, device_ms_per_step_by_op=by_op,
+        host_gap_ms_per_step=None if busy is None else traced_ms * (1 - busy), **counts,
     )
     if ops is not None:
-        out.update(device_ms_per_step_by_op=by_op,
-                   host_gap_ms_per_step=None if busy is None else traced_ms * (1 - busy),
-                   op_ms_alone=ops(state))
+        out.update(op_ms_alone=ops(state))
     print(json.dumps(out), flush=True)
     return state
+
+
+def _collectives_alone(reps: int = 200) -> dict:
+    """Each collective of the sharded step alone on the one-rank group, at
+    its NE27000 size: host µs a call (the calls' return, no sync), µs a call
+    to the device's end (host clock, then a sync), device µs a call (CUDA
+    events), and host µs of one call issued behind a device sleep of
+    ``sleep_ms`` (a call that waits for the device takes the rest of it)."""
+    from cfd_with_cuda_tpu_torch.parallel import sharding
+
+    mesh = sharding.make_mesh(1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = {
+        "all_gather Gt rows (29,791 f32)": (lambda t: sharding.all_gather(t, mesh, "alone"), 29791),
+        "all_gather norms (2 f32)": (lambda t: sharding.all_gather(t, mesh, "alone"), 2),
+        "all_reduce dot (2 f32)": (lambda t: sharding.all_reduce(t, mesh, "sum", "alone"), 2),
+        "broadcast monitor (3 f32)": (lambda t: sharding.broadcast(t, 0, mesh, "alone"), 3),
+    }
+    out = dict(sleep_ms=_event_ms(lambda: torch.cuda._sleep(_SLEEP_CYCLES), 3))
+    for name, (fn, n) in cases.items():
+        x = torch.ones(n, device=dev)
+        call = lambda: fn(x)
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        torch.cuda._sleep(_SLEEP_CYCLES)
+        t3 = time.perf_counter()
+        call()
+        t4 = time.perf_counter()
+        torch.cuda.synchronize()
+        out[name] = dict(host_us=(t1 - t0) / reps * 1e6, to_device_end_us=(t2 - t0) / reps * 1e6,
+                         device_us=_event_ms(call, reps) * 1e3,
+                         host_us_behind_sleep=(t4 - t3) * 1e6)
+    return out
 
 
 def _xla_ops(solver, implicit):
@@ -408,10 +477,34 @@ def main() -> None:
     ap.add_argument("--bfs-dims", default="96x40x40")
     ap.add_argument("--timed", type=int, default=None,
                     help="timed steps of the BFS regime (default 50 explicit, 15 implicit)")
+    ap.add_argument("--spmd1", action="store_true",
+                    help="the sharded kernel path on a one-rank NCCL group (spmd_devices=1)")
     args = ap.parse_args()
     dt = BENCH_DT.get(args.deck_n, 1e-3)
     choice = dict(dtype_policy=DTypePolicy(args.policy), pressure_precond=args.precond,
                   pressure_backend=args.backend)
+    if args.spmd1:
+        if args.deck != "cavity":
+            raise SystemExit("--spmd1 runs the cavity (the sharded path is the box's)")
+        import atexit
+        import shutil
+        import tempfile
+
+        import torch.distributed as dist
+
+        from cfd_with_cuda_tpu_torch.parallel.sharding import init_ranks
+
+        store = tempfile.mkdtemp()
+        init_ranks("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+
+        def close_group():
+            # an NCCL group left open holds the process for minutes at exit
+            dist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+
+        atexit.register(close_group)
+        choice["spmd_devices"] = 1
+        print(json.dumps(dict(collectives_alone=_collectives_alone())), flush=True)
     # the cavity's layout: "parity" asks for nothing off the kernel path,
     # where the XLA structured path has the interleaved layout
     layout = "auto" if args.layout == "parity" else args.layout
@@ -439,10 +532,12 @@ def main() -> None:
         solver = ExplicitBCHSolver(deck, cfg)
         print(json.dumps(dict(deck=f"cavity_deck({args.deck_n}, cluster=2.0, dt={dt})",
                               layout=solver.layout, xla=solver.xla, nn=solver.nn,
-                              setup_s=time.perf_counter() - t0, **_padded_size(solver))),
+                              spmd_devices=cfg.spmd_devices, setup_s=time.perf_counter() - t0,
+                              **_padded_size(solver))),
               flush=True)
         flat = solver.layout == "parity" and solver.sp_c > _PLANES_MAX_SP
-        ops = (_xla_ops(solver, False) if solver.xla else
+        # the ops alone are the single-device forms: none on the sharded path
+        ops = (None if args.spmd1 else _xla_ops(solver, False) if solver.xla else
                _interleaved_ops(solver, False) if args.layout == "interleaved" else
                _parity_flat_ops(solver) if flat else None)
         state, _ = solver.run(n_steps=5)           # warm-up: kernel build and first launches
@@ -458,11 +553,12 @@ def main() -> None:
         solver = ImplicitGQSolver(deck, cfg)
         print(json.dumps(dict(deck=f"cavity_deck({args.deck_n}, cluster=2.0, dt={dt})",
                               layout=solver.layout, xla=solver.xla, nn=solver.nn,
-                              setup_s=time.perf_counter() - t0, **_padded_size(solver))),
+                              spmd_devices=cfg.spmd_devices, setup_s=time.perf_counter() - t0,
+                              **_padded_size(solver))),
               flush=True)
         interleaved_ops = _xla_ops if solver.xla else _interleaved_ops
         ops = (interleaved_ops(solver, True)
-               if solver.xla or args.layout == "interleaved" else None)
+               if not args.spmd1 and (solver.xla or args.layout == "interleaved") else None)
         state, _ = solver.run(n_steps=5)
         _regime("from_rest", solver, state, 50, ops=ops)
         seed = np.load(args.state)

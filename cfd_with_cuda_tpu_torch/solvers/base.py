@@ -34,9 +34,19 @@ from cfd_with_cuda_tpu_torch.ops.stencil import (
     patches_grad_apply,
 )
 from cfd_with_cuda_tpu_torch.ops.window_stencil import (
+    coarse_rows,
     compact_spmv_diag,
     compact_spmv_rows,
     compact_spmv_window,
+)
+from cfd_with_cuda_tpu_torch.parallel.elem_slab import elem_slab
+from cfd_with_cuda_tpu_torch.parallel.sharded_stencil import block_rows
+from cfd_with_cuda_tpu_torch.parallel.sharding import (
+    all_gather,
+    all_reduce,
+    broadcast,
+    gather,
+    make_mesh,
 )
 from cfd_with_cuda_tpu_torch.utils import setup_cache as sc
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
@@ -145,10 +155,42 @@ def xla_attach_multigrid(solver, d: dict, Z, box, dtype, wanted: bool) -> None:
 
 def unsupported_config(cfg) -> str | None:
     """The ``ROADMAP.md`` item of the first ``SolverConfig`` choice that no
-    solver of the port runs on any mesh yet (None when there is none)."""
-    if int(cfg.spmd_devices or 0) >= 1:
-        return "spmd_devices (multi-device: ROADMAP.md queue 1 item 11)"
+    solver of the port runs on any mesh yet (None when there is none: every
+    choice runs)."""
     return None
+
+
+# fine-grid tables a rank holds as its block of rows; tables it no longer
+# needs once its compact rows are built
+_ROW_TABLES = ("md_inv", "md_orig_inv", "bc_mask", "bc_vel", "diag_add_grid")
+_FULL_ONLY = ("K_vals", "MK_vals", "M_vals", "G_win", "GT_win", "row_mask_grid", "K_cvals",
+              "MK_cvals", "M_cvals", "row_mask_c", "diag_pos")
+
+
+def shard_tables(d: dict, offsets, fine_dims, coarse_dims, s_pad: int, block, slab) -> dict:
+    """A rank's tables from an interleaved solver's full ``d`` (tensors): the
+    compact SPMV tables of its rows (``compact_spmv_window(..., rows=)``,
+    for the implicit LHS its row mask and diagonal entries there), its
+    columns of ``G_cwin`` and of ``GT_cwin`` (at its coarse rows), its block
+    of the per-row vectors, its element slab's columns of the element
+    tables; the coarse-grid tables (Z, its diagonal, the pressure mask) and
+    ``Sv`` whole (replicated)."""
+    rows = (block.r0, block.r1)
+    q0, q1 = coarse_rows(fine_dims, coarse_dims, rows)
+    out = {k: v for k, v in d.items()
+           if k not in _FULL_ONLY + _ROW_TABLES + ("G_cwin", "GT_cwin", "gDSv", "gq")}
+    for f, c in _COMPACT:
+        if f in d:
+            out[c] = compact_spmv_window(d[f], offsets, fine_dims, rows)
+    if "row_mask_grid" in d:
+        out["row_mask_c"] = compact_spmv_rows(d["row_mask_grid"], offsets, fine_dims, rows)
+        out["diag_pos"] = torch.from_numpy(compact_spmv_diag(offsets, fine_dims, s_pad, rows)
+                                           ).to(d["row_mask_grid"].device)
+    out |= {k: d[k][..., block.r0: block.r1] for k in _ROW_TABLES if k in d}
+    out["G_cwin"] = d["G_cwin"][..., block.r0: block.r1]
+    out["GT_cwin"] = d["GT_cwin"][..., q0: q1]
+    out |= {k: d[k][..., slab.e0: slab.e1] for k in ("gDSv", "gq")}
+    return {k: v.contiguous() for k, v in out.items()}
 
 
 def unpack_chunk_stats(packed) -> tuple[StepStats, bool]:
@@ -192,8 +234,8 @@ class ChunkedTimeLoop:
     def __init__(self, deck, config=None, device=None, *, plain: bool = False):
         self._configure(deck, config or SolverConfig(), device, plain)
         self._setup_cached()
-        self.d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                  for k, v in self.d.items()}
+        d = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in self.d.items()}
+        self.d = {k: v.to(self.device) for k, v in self._shard(d).items()}
 
     def _setup_cached(self) -> None:
         """``_setup`` (host tables in ``self.d``) through the setup cache: a
@@ -231,7 +273,9 @@ class ChunkedTimeLoop:
         self._set_layout(attrs.get("layout", "parity"), xla=attrs.get("xla", False))
         for k in self._layout_attrs():
             setattr(self, k, attrs[k])
-        self.d = {k: v.to(self.device) for k, v in tables.items()}
+        # a sharded solver's tables are its rank's already
+        local = attrs.get("block") is not None
+        self.d = {k: v.to(self.device) for k, v in self._shard(dict(tables), local).items()}
         return self
 
     def _layout_attrs(self) -> tuple[str, ...]:
@@ -241,9 +285,75 @@ class ChunkedTimeLoop:
                 "ell": self.ELL_STATIC_ATTRS}[self.layout]
 
     def static_attrs(self) -> dict:
-        """The layout and its static values, for :meth:`from_tables`."""
-        return {"layout": self.layout, "xla": self.xla,
+        """The layout and its static values, for :meth:`from_tables`
+        (``block``: a sharded solver's rank block, its tables its rank's)."""
+        return {"layout": self.layout, "xla": self.xla, "block": self.block,
                 **{k: getattr(self, k) for k in self._layout_attrs()}}
+
+    # ------------------------------------------------------- the sharded path
+    def _shard(self, d: dict, local: bool = False) -> dict:
+        """The tables this rank holds: ``d`` itself on one device; on the
+        sharded path (``spmd_mesh``), :func:`shard_tables` of its block and
+        element slab, which are kept as ``block`` and ``slab`` (``local``:
+        ``d`` holds them already)."""
+        self.block = self.slab = None
+        mesh = self.spmd_mesh
+        if mesh is None:
+            return d
+        if self.layout != "interleaved" or not getattr(self, "elem_structured", True):
+            raise ValueError(
+                "spmd_devices runs the sharded kernel path, the interleaved layout of a box "
+                "mesh whose elements tile it; this mesh took the "
+                f"{'unstructured' if self.layout == 'ell' else 'elemental'} path, whose "
+                "placement across ranks is ROADMAP.md queue 1 item 11(b)")
+        self.block = block_rows(self.s_pad, mesh)
+        self.slab = elem_slab(self.fine_dims, self.elem_dims, self.s_pad, mesh)
+        if local:
+            return d
+        return shard_tables(d, self._spmv_offsets(), self.fine_dims, self.coarse_dims,
+                            self.s_pad, self.block, self.slab)
+
+    def _spmv_offsets(self):
+        raise NotImplementedError
+
+    def _field_norms(self, *vs) -> tuple:
+        """The 2-norms of the node fields ``vs``: on the sharded path each
+        rank's norms all-gathered (one call) and normed over the ranks, so
+        one rank reads its own norm exactly."""
+        if self.spmd_mesh is None:
+            return tuple(torch.linalg.vector_norm(v) for v in vs)
+        loc = torch.stack([torch.linalg.vector_norm(v) for v in vs])
+        parts = all_gather(loc, self.spmd_mesh, "gather_norm")
+        return tuple(torch.linalg.vector_norm(parts[:, i]) for i in range(len(vs)))
+
+    def _field_max(self, v) -> torch.Tensor:
+        """max(v) over the node field, over every rank on the sharded path."""
+        m = torch.max(v)
+        return m if self.spmd_mesh is None else all_reduce(m, self.spmd_mesh, "max",
+                                                           "reduce_max")
+
+    def _momentum_reduce(self):
+        """The momentum BiCGStab's sum over ranks (None on one device)."""
+        mesh = self.spmd_mesh
+        return None if mesh is None else (lambda t: all_reduce(t, mesh, "sum", "reduce_dot"))
+
+    def _probe(self, u, node: int) -> torch.Tensor:
+        """``(3,)``: the node field ``u`` at the flat grid row ``node``; on the
+        sharded path broadcast from the rank that holds it."""
+        if self.spmd_mesh is None:
+            return u[:, node]
+        owner = node // self.block.s_loc
+        mine = owner == self.spmd_mesh.rank
+        vals = u[:, node - self.block.r0] if mine else u.new_zeros(u.shape[0])
+        return broadcast(vals.contiguous(), owner, self.spmd_mesh, "bcast_mon")
+
+    def _local(self, u: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a full node field (itself on one device)."""
+        return u if self.block is None else u[..., self.block.r0: self.block.r1].contiguous()
+
+    def _full(self, u: torch.Tensor) -> torch.Tensor:
+        """The full node field from every rank's block (itself on one device)."""
+        return u if self.block is None else gather(u, self.spmd_mesh, "gather_field")
 
     def _set_layout(self, layout: str, *, xla: bool = False) -> None:
         """Take a box mesh's parity or interleaved layout (``xla``: the XLA
@@ -284,6 +394,16 @@ class ChunkedTimeLoop:
         why = self._unsupported(config)
         if why is not None:
             raise NotImplementedError(f"not ported yet: {why}")
+        # the sharded kernel path (spmd_devices >= 1 on the kernel path), as the
+        # JAX package's spmd_mesh (base.py:50-68): a mesh of that many ranks,
+        # which raises without a process group of that many; off the kernel
+        # path nothing changes
+        self.spmd_mesh = None
+        self.block = self.slab = None
+        if int(config.spmd_devices or 0) >= 1 and kernel_path(config):
+            self.spmd_mesh = make_mesh(int(config.spmd_devices))
+            if self.spmd_mesh.backend == "nccl" and self.device.type != "cuda":
+                raise ValueError(f"spmd_devices: an NCCL group and a solver on {self.device}")
         if self.device.type == "cuda":
             # the einsums and matmuls that build A(u) stay in full f32
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -334,10 +454,11 @@ class ChunkedTimeLoop:
 
     def write_tecplot(self, state, path) -> None:
         """FEBRICK ``.dat`` dump of ``state`` (ref ``createTecplot``
-        :4249-4482)."""
+        :4249-4482); on the sharded path every rank gathers, rank 0 writes."""
         mesh = self._promoted_mesh()
         u, p = self.fields(state)
-        write_tecplot(path, self.deck.title, mesh.coords, mesh.ltog_node, u, p)
+        if self.spmd_mesh is None or self.spmd_mesh.rank == 0:
+            write_tecplot(path, self.deck.title, mesh.coords, mesh.ltog_node, u, p)
 
     def state_from_restart(self, path):
         """The state of a prior ``.dat`` (ref ``readRestartFile``: u, v, w

@@ -27,6 +27,14 @@ sub-iterations per time step (reference ``blascoCodinaHuerta.cpp``
   einsum and the parity-grouped scatter (``ops/stencil.py``); on a box
   whose elements do not tile it, the elemental convection of
   ``ops/spmv.py`` on grid-order node tables.
+  Under ``spmd_devices >= 1`` (the sharded kernel path, as in the JAX
+  package a box takes this layout then) each rank of a ``torch.distributed``
+  group holds its block of the fine axis: K, K + A and G on its rows through
+  ``parallel/sharded_stencil.py`` (a flat halo exchange, the same kernels
+  given a field origin), G^T on its coarse rows then all-gathered, the
+  coarse CG replicated on every rank, the convection on its element slab
+  (``parallel/elem_slab.py``), the norms, max_acc and the monitor over the
+  ranks.
 * ``"ell"``, any other mesh or ``structured="never"`` (the JAX package's
   unstructured branch): fields ``(3, NN)``; K, (K + A(un)), G and G^T
   apply through the elemental matrices (torch gathers and ``bmm``,
@@ -104,6 +112,12 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     grad_window_compact_plain,
     window_spmv_compact,
     window_spmv_compact_plain,
+)
+from cfd_with_cuda_tpu_torch.parallel.elem_slab import slab_field, slab_rows, slab_to_block
+from cfd_with_cuda_tpu_torch.parallel.sharded_stencil import (
+    sharded_div_compact,
+    sharded_grad_compact,
+    sharded_spmv_compact,
 )
 from cfd_with_cuda_tpu_torch.solvers.base import (
     ChunkedTimeLoop,
@@ -232,7 +246,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             d = self._setup_ell
         elif not kernel_path(cfg):
             d = self._setup_xla
-        elif box.elem_perm is not None and cfg.structured_layout != "interleaved":
+        elif (box.elem_perm is not None and cfg.structured_layout != "interleaved"
+              and self.spmd_mesh is None):
             d = self._setup_parity
         else:
             d = self._setup_interleaved
@@ -504,6 +519,9 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             d["Z_bwin"] = dev(z_bwin)
         return d
 
+    def _spmv_offsets(self):
+        return self.k_offsets
+
     # ----------------------------------------------------------- initial state
     def initial_state(self) -> ExplicitState:
         """Zero field with BC velocities imposed (``applyBC_initial``)."""
@@ -526,7 +544,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             u, p = ug, pg
             if self.layout == "parity":
                 u = pstl.parity_split_table(u, self.fine_dims, self.sp_c)
-        un = torch.from_numpy(np.ascontiguousarray(u, dtype=dtype)).to(self.device)
+        un = self._local(torch.from_numpy(np.ascontiguousarray(u, dtype=dtype))).to(self.device)
         pn = torch.from_numpy(np.ascontiguousarray(p, dtype=dtype)).to(self.device)
         return ExplicitState(un, pn, torch.zeros_like(un), torch.zeros_like(pn),
                              torch.zeros_like(pn))
@@ -587,7 +605,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                 r1e = torch.einsum("ije,dje->die", ae, gather(u))
                 return k_mul(u) + pstl.parity_scatter_elem_flat(r1e, self.coarse_dims)
 
-        probe = lambda u, c: u[c, self.mon_cls, self.mon_q]
+        probe = lambda u: u[:, self.mon_cls, self.mon_q]
         masks = tuple(d[k][None] for k in ("bc_mask_p", "md_inv_p", "md_orig_inv_p"))
         return (k_mul, ka_mul, grad, div, self._box_pressure_solve(d), probe, masks,
                 self.pin_grid)
@@ -653,7 +671,62 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                 ka_mul = lambda u: k_mul(u) + pad(convection_apply_elem(
                     ae, u[:, :nn], self.local_off, self.elem_dims, fine))
 
-        probe = lambda u, c: u[c, self.monitor_node]
+        probe = lambda u: u[:, self.monitor_node]
+        masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
+        return (k_mul, ka_mul, grad, div, self._box_pressure_solve(d), probe, masks,
+                self.pin_grid)
+
+    def _sharded_operators(self, d, un):
+        """The same on the sharded kernel path (explicit_bch.py:805-850,
+        947-960, 1042-1060 of the JAX package), on this rank's block ``un (3,
+        s_loc)``: K and K + A through ``sharded_spmv_compact`` on the compact
+        table of the rank's rows (a halo exchange a call), G through
+        ``sharded_grad_compact`` on its columns of ``G_cwin`` (the replicated
+        embedded pressure, no collective), G^T through
+        ``sharded_div_compact`` (the rank's coarse rows, then an all-gather);
+        A_e(un) once a step on the rank's element slab (an element halo
+        exchange), assembled into the rank's compact rows or applied
+        matrix-free (another element halo exchange a sub-iteration); the
+        pressure CG replicated; the monitor broadcast from its rank."""
+        cfg, mesh, slab, plain = self.config, self.spmd_mesh, self.slab, self.plain
+        fine, coarse, s_pad = self.fine_dims, self.coarse_dims, self.s_pad
+
+        def spmv(tab, u, name):
+            return sharded_spmv_compact(tab, u, fine, offsets=self.k_offsets, mesh=mesh,
+                                        s_pad=s_pad, name=name, plain=plain)
+
+        k_mul = lambda u: spmv(d["K_cvals"], u, "sharded_spmv_k")
+
+        def grad(p):
+            pf = torch.nn.functional.pad(coarse_to_fine(p, coarse, fine),
+                                         (0, s_pad - self.nn))
+            return sharded_grad_compact(d["G_cwin"], pf, fine, self.g_radius, mesh=mesh,
+                                        plain=plain)
+
+        div = lambda u: sharded_div_compact(d["GT_cwin"], u, fine, coarse, mesh=mesh,
+                                            s_pad=s_pad, plain=plain)
+        # every rank takes part in the element halo exchanges; a rank without
+        # grid rows has no elements
+        u_slab = slab_field(un, slab, mesh)
+        ae = None if not slab.size else convection_elem_matrices(
+            u_slab, d["Sv"], d["gDSv"], d["gq"], slab.elem_dims, slab.fine_dims,
+            stab_coef=cfg.conv_stab)
+        if cfg.conv_mode == "assemble":
+            coij = compact_spmv_oij(self.conv_oij, self.local_off, self.k_offsets, fine)
+            conv = assemble_compact_values(ae, self.local_off, coij, self.k_offsets,
+                                           slab.elem_dims, slab.fine_dims,
+                                           slab.size) if slab.size else un.new_zeros(0)
+            ka_vals = d["K_cvals"] + slab_to_block(conv, slab, self.k_offsets, fine, s_pad)
+            ka_mul = lambda u: spmv(ka_vals, u, "sharded_spmv_k_plus_a")
+        else:
+            def ka_mul(u):
+                y = k_mul(u)
+                u_s = slab_field(u, slab, mesh)
+                if not slab.size:
+                    return y
+                return y + slab_rows(convection_apply_elem(
+                    ae, u_s, self.local_off, slab.elem_dims, slab.fine_dims), slab)
+        probe = lambda u: self._probe(u, self.monitor_node)
         masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
         return (k_mul, ka_mul, grad, div, self._box_pressure_solve(d), probe, masks,
                 self.pin_grid)
@@ -693,7 +766,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                       maxiter=cfg.pressure_cg_maxiter, precond=precond,
                       dot_dtype=cfg.krylov_dot_dtype())
 
-        probe = lambda u, c: u[c, self.monitor_node]
+        probe = lambda u: u[:, self.monitor_node]
         masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
         return k_mul, ka_mul, grad, div, pressure_solve, probe, masks, self.pin_grid
 
@@ -737,7 +810,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                           maxiter=cfg.pressure_cg_maxiter, precond=lambda r: r / d["Z_diag"],
                           dot_dtype=cfg.krylov_dot_dtype())
 
-        probe = lambda u, c: u[c, self.monitor_node]
+        probe = lambda u: u[:, self.monitor_node]
         masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
         return k_mul, ka_mul, grad, div, pressure_solve, probe, masks, self.pin
 
@@ -749,9 +822,12 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             pdot_init = pdot0 + (pdot0 - pdot_nm1)
         else:
             pdot_init = pdot0
-        operators = self._xla_operators if self.xla else {
-            "parity": self._parity_operators, "interleaved": self._interleaved_operators,
-            "ell": self._ell_operators}[self.layout]
+        if self.spmd_mesh is not None:
+            operators = self._sharded_operators
+        else:
+            operators = self._xla_operators if self.xla else {
+                "parity": self._parity_operators, "interleaved": self._interleaved_operators,
+                "ell": self._ell_operators}[self.layout]
         (k_mul, ka_mul, grad, div, pressure_solve, probe,
          (mask, md_inv_b, md_orig_inv_b), pin) = operators(d, un)
         g_pn = grad(pn)                     # loop-invariant: pn is fixed
@@ -780,7 +856,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             acc = r3 * md_inv_b
             unp1 = unp_half + dt * acc
             # ---- convergence (ref :2936-2961); NaN compares False
-            norm1 = torch.linalg.vector_norm(unp1 - unp1_prev) / torch.linalg.vector_norm(unp1)
+            du, u1 = self._field_norms(unp1 - unp1_prev, unp1)
+            norm1 = du / u1
             norm2 = torch.linalg.vector_norm(pnp1 - pnp1_prev) / torch.linalg.vector_norm(pnp1)
             conv = bool((norm1 < deck.tolerance) & (norm2 < deck.tolerance))
             # K acc feeds only the next sub-iteration: skipped on the
@@ -792,22 +869,22 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             cgit, pdot_prev = sol.iters, pdot
             it += 1
 
-        max_acc = torch.max(torch.abs(unp1 - un)) / dt
+        max_acc = self._field_max(torch.abs(unp1 - un)) / dt
         p_mon = self.monitor_node_p
+        mon = probe(unp1)
         stats = StepStats(
-            u_mon=probe(unp1, 0), v_mon=probe(unp1, 1), w_mon=probe(unp1, 2),
+            u_mon=mon[0], v_mon=mon[1], w_mon=mon[2],
             p_mon=pnp1[p_mon], max_acc=max_acc, iters=it - 1, cg_iters=cgit, mom_iters=0,
         )
         return ExplicitState(unp1, pnp1, unp1_prev, pdot_prev, pdot0), stats
 
     def _monitor_only(self, state: ExplicitState) -> StepStats:
         if self.layout == "parity":
-            probe = lambda c: state.un[c, self.mon_cls, self.mon_q]
+            mon = state.un[:, self.mon_cls, self.mon_q]
         else:
-            probe = lambda c: state.un[c, self.monitor_node]    # grid id on interleaved
+            mon = self._probe(state.un, self.monitor_node)    # grid id on interleaved
         zero = torch.zeros((), dtype=state.un.dtype, device=self.device)
-        return StepStats(probe(0), probe(1), probe(2),
-                         state.pn[self.monitor_node_p], zero, 0, 0, 0)
+        return StepStats(mon[0], mon[1], mon[2], state.pn[self.monitor_node_p], zero, 0, 0, 0)
 
     # ------------------------------------------------------------------- io
     def fields(self, state: ExplicitState) -> tuple[np.ndarray, np.ndarray]:
@@ -817,6 +894,6 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         if self.layout == "parity":
             u = pstl.parity_merge(state.un, self.fine_dims).cpu().numpy()
         else:
-            u = state.un[:, : self.nn].cpu().numpy()
+            u = self._full(state.un)[:, : self.nn].cpu().numpy()
         p = state.pn.cpu().numpy()
         return u[:, self.perm].T, p[self.perm_p]

@@ -30,7 +30,12 @@ opposing walls) fields are ``(3, s_pad)`` in flat grid order and the
 kernels are ``window_stencil`` (M u^k, A x, and G p on the class-compacted
 window) and ``div_compact`` in its
 interleaved form, around the same CG; torch ops assemble A(u^k) into
-the window rows (27 strided index-adds).  On the ELL layout (any
+the window rows (27 strided index-adds).  Under ``spmd_devices >= 1`` (the
+sharded kernel path) each rank of a ``torch.distributed`` group holds its
+block of the fine axis and runs that step on it (``parallel/``): the LHS
+assembled from its element slab into its compact rows, A, M and G on its
+rows, G^T on its coarse rows then all-gathered, the BiCGStab's dots summed
+over the ranks, the pressure CG replicated.  On the ELL layout (any
 other mesh, or ``structured="never"``; the JAX package's
 ``_time_step_ell``) a step is torch ops only, as it is XLA ops only in the
 JAX package: A(u^k) assembled into CSR values through a reverse-incidence
@@ -101,6 +106,12 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     window_spmv_compact,
     window_spmv_compact_plain,
 )
+from cfd_with_cuda_tpu_torch.parallel.elem_slab import slab_field, slab_to_block
+from cfd_with_cuda_tpu_torch.parallel.sharded_stencil import (
+    sharded_div_compact,
+    sharded_grad_compact,
+    sharded_spmv_compact,
+)
 from cfd_with_cuda_tpu_torch.solvers.base import (
     ChunkedTimeLoop,
     StepStats,
@@ -159,6 +170,9 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         super()._configure(deck, config, device, plain)
         if config.momentum_solver.lower() == "gmres":
             raise ValueError(_GMRES_DEFECT)
+        if self.spmd_mesh is not None and config.momentum_solver.lower() != "bicgstab":
+            raise ValueError("spmd_devices: the sharded momentum solve is the BiCGStab "
+                             f"(its dots summed over the ranks), not {config.momentum_solver!r}")
         self._momentum_solver = solver_by_name(config.momentum_solver)
 
     # ------------------------------------------------------------------ setup
@@ -339,7 +353,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         )
 
         d = None
-        if cfg.structured_layout != "interleaved":
+        if cfg.structured_layout != "interleaved" and self.spmd_mesh is None:
             self._set_layout("parity")
             d = self._parity_tables(is_bc, **tabs)
         if d is None:
@@ -586,6 +600,9 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         # pressure monitor: corner node ids < NNp index pk directly
         self.monitor_node_p = self.monitor_node
 
+    def _spmv_offsets(self):
+        return self.a_offsets
+
     # ----------------------------------------------------------------- state
     def initial_state(self) -> ImplicitState:
         """Zero field with BC velocities imposed."""
@@ -607,7 +624,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             u, p = ug, pg
             if self.layout == "parity":
                 u = pstl.parity_split_table(u, self.fine_dims, self.sp_c)
-        uk = torch.from_numpy(np.ascontiguousarray(u, dtype=dtype)).to(self.device)
+        uk = self._local(torch.from_numpy(np.ascontiguousarray(u, dtype=dtype))).to(self.device)
         pk = torch.from_numpy(np.ascontiguousarray(p, dtype=dtype)).to(self.device)
         return ImplicitState(uk=uk, pk=pk, pk_prev=pk.clone())
 
@@ -663,9 +680,10 @@ class ImplicitGQSolver(ChunkedTimeLoop):
 
     def _momentum_solve(self, a_mul, r1, uk_prev, a_diag):
         """The batched 3-direction momentum solve of step1, Jacobi
-        preconditioned."""
+        preconditioned (on the sharded path its dots summed over the ranks)."""
         cfg = self.config
         warm = bool(cfg.implicit_warm_start)
+        reduce = self._momentum_reduce()
         return self._momentum_solver(
             a_mul,
             r1,
@@ -681,6 +699,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             miniter=1 if warm else 0,
             dot_dtype=cfg.krylov_dot_dtype(),
             precond=lambda r: r / a_diag,
+            **({} if reduce is None else {"reduce": reduce}),
         )
 
     def _parity_lhs(self, d, uk_prev):
@@ -770,55 +789,100 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         cfg = self.config
         dt = self.dt
         fine, nn, s_pad = self.fine_dims, self.nn, self.s_pad
-        # the wrappers run the kernels on CUDA tensors and the plain
-        # versions on CPU tensors; `plain` forces the plain versions
-        spmv_w = window_spmv_compact_plain if self.plain else window_spmv_compact
-        grad_w = grad_window_compact_plain if self.plain else grad_window_compact
-        div_c = div_compact_interleaved_plain if self.plain else div_compact_interleaved
-        uk_prev, pk_prev, pk_prevprev = state       # uk (3, s_pad)
+        uk_prev, pk_prev, pk_prevprev = state       # uk (3, s_pad); a rank: (3, s_loc)
 
         # ---- per-step LHS: A = M/dt + K + A(u^k), BC rows zeroed with a
         # unit diagonal (padding rows too), on the class-compacted table; each
         # element's (i, j) entry lands at the fixed slot conv_oij[i][j], the
         # unit diagonal at each row's offset-0 entry diag_pos
-        ae = convection_elem_matrices(uk_prev[:, :nn], d["Sv"], d["gDSv"], d["gq"],
-                                      self.elem_dims, fine, stab_coef=cfg.conv_stab)
         coij = compact_spmv_oij(self.conv_oij, self.local_off, self.a_offsets, fine)
-        conv_vals = assemble_compact_values(ae, self.local_off, coij, self.a_offsets,
-                                            self.elem_dims, fine, s_pad)
+        if self.spmd_mesh is None:
+            ae = convection_elem_matrices(uk_prev[:, :nn], d["Sv"], d["gDSv"], d["gq"],
+                                          self.elem_dims, fine, stab_coef=cfg.conv_stab)
+            conv_vals = assemble_compact_values(ae, self.local_off, coij, self.a_offsets,
+                                                self.elem_dims, fine, s_pad)
+            a_mul, m_mul, grad, div = self._interleaved_applies(d)
+        else:
+            # this rank's element slab, assembled into its compact rows
+            # (every rank takes part in the element halo exchange; a rank
+            # without grid rows has no elements)
+            slab = self.slab
+            u_slab = slab_field(uk_prev, slab, self.spmd_mesh)
+            conv = uk_prev.new_zeros(0)
+            if slab.size:
+                ae = convection_elem_matrices(u_slab, d["Sv"], d["gDSv"], d["gq"],
+                                              slab.elem_dims, slab.fine_dims,
+                                              stab_coef=cfg.conv_stab)
+                conv = assemble_compact_values(ae, self.local_off, coij, self.a_offsets,
+                                               slab.elem_dims, slab.fine_dims, slab.size)
+            conv_vals = slab_to_block(conv, slab, self.a_offsets, fine, s_pad)
+            a_mul, m_mul, grad, div = self._sharded_applies(d)
         a_vals = (d["MK_cvals"] + conv_vals) * d["row_mask_c"]
         a_vals[d["diag_pos"]] += d["diag_add_grid"]
         a_diag = a_vals[d["diag_pos"]]
 
-        a_mul = lambda x: spmv_w(a_vals, x, fine, offsets=self.a_offsets, trim=False,
-                                 name="window_spmv_mk_plus_a")
-        m_mul = lambda x: spmv_w(d["M_cvals"], x, fine, offsets=self.a_offsets, trim=False,
-                                 name="window_spmv_m")
+        # ---- RHS = (M/dt) u^k - G (2 p^k - p^{k-1}); BC rows = BC values
+        pdiff2 = 2.0 * pk_prev - pk_prevprev
+        r1 = m_mul(d["M_cvals"], uk_prev) - grad(pdiff2)
+        r1 = r1 * d["bc_mask"][None, :] + d["bc_vel"]
+        mom = self._momentum_solve(lambda x: a_mul(a_vals, x), r1, uk_prev, a_diag)
+        uk = mom.x
+
+        # ---- step2: pressure CG on the coarse grid
+        pk, sol = self._pressure_update(d, div(uk), pk_prev, pk_prevprev)
+
+        max_acc = self._field_max(torch.abs(uk - uk_prev)) / dt
+        mon = self._probe(uk, self.monitor_node)
+        stats = StepStats(
+            u_mon=mon[0], v_mon=mon[1], w_mon=mon[2],
+            p_mon=pk[self.monitor_node_p], max_acc=max_acc,
+            iters=1, cg_iters=sol.iters, mom_iters=mom.iters,
+        )
+        return ImplicitState(uk=uk, pk=pk, pk_prev=pk_prev), stats
+
+    def _interleaved_applies(self, d):
+        """(A, M, G, G^T) of the interleaved step on one device: the compact
+        SPMV of a table, G on ``G_cwin``, the compact G^T; the kernels on CUDA
+        tensors, the plain versions on CPU tensors or under ``plain``."""
+        fine, nn, s_pad = self.fine_dims, self.nn, self.s_pad
+        spmv_w = window_spmv_compact_plain if self.plain else window_spmv_compact
+        grad_w = grad_window_compact_plain if self.plain else grad_window_compact
+        div_c = div_compact_interleaved_plain if self.plain else div_compact_interleaved
+        a_mul = lambda tab, x: spmv_w(tab, x, fine, offsets=self.a_offsets, trim=False,
+                                      name="window_spmv_mk_plus_a")
+        m_mul = lambda tab, x: spmv_w(tab, x, fine, offsets=self.a_offsets, trim=False,
+                                      name="window_spmv_m")
 
         def grad(p):
             pf = torch.nn.functional.pad(coarse_to_fine(p, self.coarse_dims, fine),
                                          (0, s_pad - nn))
             return grad_w(d["G_cwin"], pf, fine, self.g_radius, trim=False)
 
-        # ---- RHS = (M/dt) u^k - G (2 p^k - p^{k-1}); BC rows = BC values
-        pdiff2 = 2.0 * pk_prev - pk_prevprev
-        r1 = m_mul(uk_prev) - grad(pdiff2)
-        r1 = r1 * d["bc_mask"][None, :] + d["bc_vel"]
-        mom = self._momentum_solve(a_mul, r1, uk_prev, a_diag)
-        uk = mom.x
+        div = lambda u: div_c(d["GT_cwin"], u, fine, self.coarse_dims)[: self.nnp]
+        return a_mul, m_mul, grad, div
 
-        # ---- step2: pressure CG on the coarse grid
-        div_uk = div_c(d["GT_cwin"], uk, fine, self.coarse_dims)[: self.nnp]
-        pk, sol = self._pressure_update(d, div_uk, pk_prev, pk_prevprev)
+    def _sharded_applies(self, d):
+        """The same on the sharded kernel path (implicit_gq.py:889-925 of the
+        JAX package), on this rank's block: A and M through
+        ``sharded_spmv_compact`` on the compact tables of its rows (a halo
+        exchange a call), G through ``sharded_grad_compact`` (no collective),
+        G^T through ``sharded_div_compact`` (its coarse rows, all-gathered)."""
+        fine, mesh, s_pad, plain = self.fine_dims, self.spmd_mesh, self.s_pad, self.plain
 
-        max_acc = torch.max(torch.abs(uk - uk_prev)) / dt
-        mon = self.monitor_node
-        stats = StepStats(
-            u_mon=uk[0, mon], v_mon=uk[1, mon], w_mon=uk[2, mon],
-            p_mon=pk[self.monitor_node_p], max_acc=max_acc,
-            iters=1, cg_iters=sol.iters, mom_iters=mom.iters,
-        )
-        return ImplicitState(uk=uk, pk=pk, pk_prev=pk_prev), stats
+        def spmv(name):
+            return lambda tab, x: sharded_spmv_compact(tab, x, fine, offsets=self.a_offsets,
+                                                       mesh=mesh, s_pad=s_pad, name=name,
+                                                       plain=plain)
+
+        def grad(p):
+            pf = torch.nn.functional.pad(coarse_to_fine(p, self.coarse_dims, fine),
+                                         (0, s_pad - self.nn))
+            return sharded_grad_compact(d["G_cwin"], pf, fine, self.g_radius, mesh=mesh,
+                                        plain=plain)
+
+        div = lambda u: sharded_div_compact(d["GT_cwin"], u, fine, self.coarse_dims, mesh=mesh,
+                                            s_pad=s_pad, plain=plain)
+        return spmv("sharded_spmv_mk_plus_a"), spmv("sharded_spmv_m"), grad, div
 
     def _xla_operators(self, d, uk_prev):
         """(A, M, G, G^T, diag(A)) of the XLA structured step
@@ -943,12 +1007,11 @@ class ImplicitGQSolver(ChunkedTimeLoop):
 
     def _monitor_only(self, state: ImplicitState) -> StepStats:
         if self.layout == "parity":
-            probe = lambda c: state.uk[c, self.mon_cls, self.mon_q]
+            mon = state.uk[:, self.mon_cls, self.mon_q]
         else:
-            probe = lambda c: state.uk[c, self.monitor_node]    # grid id on interleaved
+            mon = self._probe(state.uk, self.monitor_node)    # grid id on interleaved
         zero = torch.zeros((), dtype=state.uk.dtype, device=self.device)
-        return StepStats(probe(0), probe(1), probe(2),
-                         state.pk[self.monitor_node_p], zero, 0, 0, 0)
+        return StepStats(mon[0], mon[1], mon[2], state.pk[self.monitor_node_p], zero, 0, 0, 0)
 
     # ------------------------------------------------------------------- io
     def fields(self, state: ImplicitState) -> tuple[np.ndarray, np.ndarray]:
@@ -958,6 +1021,6 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         if self.layout == "parity":
             u = pstl.parity_merge(state.uk, self.fine_dims).cpu().numpy()
         else:
-            u = state.uk[:, : self.nn].cpu().numpy()
+            u = self._full(state.uk)[:, : self.nn].cpu().numpy()
         p = state.pk.cpu().numpy()
         return u[:, self.perm].T, p[self.perm_p]

@@ -5,8 +5,9 @@ field so one configuration reads the same in both packages.  Where a value
 is invalid for a mesh the solvers raise the JAX package's own
 ``ValueError``; ``momentum_solver="gmres"``, with which the JAX package's
 implicit step fails on every path, raises a ``ValueError`` naming that
-defect; the one choice the port does not run yet, ``spmd_devices``,
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+defect; ``spmd_devices >= 1`` on the kernel path runs the sharded path of
+``parallel/`` over the ranks of a ``torch.distributed`` group (raising
+without a group of that many ranks).
 ``setup_cache`` runs: ``"auto"`` caches the host setup under
 ``$CFD_TORCH_CACHE_DIR`` or ``<repo>/.cache/setup_torch``
 (``utils/setup_cache.py``), a path caches it there, None / ``"off"`` not at

@@ -137,7 +137,22 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    3 against the plain path; its host setup runs in a worker process on the
    CPU beside phases 2-11 and reaches the phase through the setup cache) and
    ``ghia_seeded`` (phase 5's seeded state against Ghia et al. within
-   ``BAND_3D``).
+   ``BAND_3D``);
+13. the sharded kernel path (``parallel/``, ``spmd_devices``): (c)
+   ``spmd_kernels`` inside phase 6, on its NE27000 tables: the sharded K,
+   K + A, MK + A, M, G and G^T applies on 1 and 4 ranks' blocks joined equal
+   to the single-device kernels bit for bit, G^T (the compact kernel on a
+   rank's coarse rows) also against the full-window DIV mode, each against
+   its plain version with device times beside the bound and phase 6's
+   cuSPARSE; (a) ``spmd1_explicit`` / ``spmd1_implicit`` inside phase 6, on
+   its solvers' tables: ``spmd_devices=1`` over a one-rank NCCL group, 5 +
+   20 explicit steps (rung 3's config; 5 more with ``conv_mode="assemble"``)
+   and 5 + 10 implicit (cell 2's), launch counts against the history,
+   ms/step beside phase 6's, the collectives a step and their bytes, 3 steps
+   against the single-device path; (b) ``spmd_ranks`` at the end: 2 and 4
+   ranks spawned on the one card over gloo (CUDA tensors staged through
+   pinned host buffers) at ``cavity_deck(8)``, held against one rank within
+   the JAX package's sharded tolerances, equal explicit CG counts.
 
 Each phase prints one JSON line.  Any failure raises (non-zero exit, no
 result line).  The last lines are the ``kernels`` summary, the card's name
@@ -1146,6 +1161,7 @@ def phase_bfs_setup(dims, bfs_deck, ExplicitBCHSolver, cfg):
                max_halo=max(abs(o) for o in offs),
                window_mb=win.numel() * win.element_size() / 1e6,
                ell_z_width=int(solver.d["Z_cols"].shape[0]), setup_s=setup_s,
+               setup_cache_hit=solver.setup_cache_hit,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
     emit(out)
     return solver, out
@@ -1420,7 +1436,8 @@ def phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, cfg, n_st
     finite = bool(np.isfinite(u).all() and np.isfinite(p).all())
     out = dict(
         phase="e2e_bfs_implicit", steps=n_steps, warmup_steps=len(hist) - len(timed),
-        setup_s=setup_s, ms_per_step=ms, warmup_s=warm_s,
+        setup_s=setup_s, setup_cache_hit=solver.setup_cache_hit, ms_per_step=ms,
+        warmup_s=warm_s,
         cg_iters_mean=sum(h["cg_iters"] for h in timed) / len(timed),
         mom_iters_mean=sum(h["mom_iters"] for h in timed) / len(timed),
         cg_iters_first_last=[int(hist[0]["cg_iters"]), int(hist[-1]["cg_iters"])],
@@ -1968,15 +1985,21 @@ def interleaved_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, wi
         raise AssertionError("structured_layout='interleaved' was not taken")
     kint = phase_kernels_interleaved(xs, isolver, window_stencil, stencil)
     torch.cuda.empty_cache()
+    # phase 13 (c): the sharded applies on these tables
+    skern = phase_spmd_kernels(xs, isolver, window_stencil, stencil, kint)
+    torch.cuda.empty_cache()
     wapp = phase_window_apply(xs, parity_stencil, window_stencil, stencil, cuda_lib)
     torch.cuda.empty_cache()
     xe2e = phase_e2e_interleaved(xs, ExplicitBCHSolver, cuda_lib, fused_cg, args.implicit_steps,
                                  DTypePolicy, strict=full)
+    # phase 13 (a): spmd_devices=1 over NCCL on these tables
+    s1x = phase_spmd1_explicit(xs, ExplicitBCHSolver, cuda_lib, xe2e["ms_per_step"])
     del xs
     torch.cuda.empty_cache()
     ie2e = phase_e2e_implicit(isolver, ImplicitGQSolver, cuda_lib, fused_cg, args.implicit_steps,
                               DTypePolicy, strict=full, tag="interleaved_implicit")
     phase_interleaved_vs_parity_implicit(isolver, ImplicitGQSolver, ie2e.pop("state"), full)
+    s1i = phase_spmd1_implicit(isolver, ImplicitGQSolver, cuda_lib, ie2e["ms_per_step"])
     del isolver
     torch.cuda.empty_cache()
 
@@ -1999,6 +2022,20 @@ def interleaved_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, wi
          wapp["k"]["launches"], wapp["k"]),
         ("parity_window_apply_g", "parity_apply.cu", "cfd_with_cuda_tpu/ops/parity_stencil.py:253",
          wapp["g"]["launches"], wapp["g"]),
+        # phase 13: the sharded path's launches on a rank's rows (one rank, NCCL);
+        # G^T replaces the DIV mode that parallel/sharded_stencil.py:204-235 reaches
+        ("sharded_spmv_k", "window_stencil.cu", pst + ":132", s1x["launches"]["sharded_spmv_k"],
+         skern["sharded_spmv_k"]),
+        ("sharded_spmv_k_plus_a", "window_stencil.cu", pst + ":132",
+         s1x["assemble"]["launches"]["sharded_spmv_k_plus_a"], skern["sharded_spmv_k_plus_a"]),
+        ("sharded_spmv_mk_plus_a", "window_stencil.cu", pst + ":132",
+         s1i["launches"]["sharded_spmv_mk_plus_a"], skern["sharded_spmv_mk_plus_a"]),
+        ("sharded_spmv_m", "window_stencil.cu", pst + ":132", s1i["launches"]["sharded_spmv_m"],
+         skern["sharded_spmv_m"]),
+        ("sharded_grad", "window_stencil.cu", pst + ":132", s1x["launches"]["sharded_grad"],
+         skern["sharded_grad"]),
+        ("sharded_div_compact", "div_compact.cu", pst + ":132",
+         s1x["launches"]["sharded_div_compact"], skern["sharded_div_compact"]),
     ]
 
 
@@ -3682,30 +3719,71 @@ def _ne125_solver_args(n, setup_cache):
     return cavity_deck(n, cluster=2.0, viscosity=0.01, dt=NE125_DT), cfg
 
 
-def ne125_setup_worker(n, cache_dir) -> None:
-    """The NE125000 solver's host setup on the CPU into the setup cache
-    ``cache_dir`` (run in a worker process while the earlier phases use the
-    card); prints its seconds as one JSON line."""
+def _bfs_configs(cache_dir=None):
+    """(explicit, implicit) configs of phase 8's BFS runs: F32, CG tol 1e-6,
+    chunks of 25 (the implicit one warm-started); ``cache_dir`` their setup
+    cache."""
+    from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
+
+    base = dict(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6, steps_per_chunk=25,
+                setup_cache=cache_dir)
+    return SolverConfig(**base), SolverConfig(pressure_warm_start=True, **base)
+
+
+def setup_worker(ne125_n, bfs_dims, cache_dir) -> None:
+    """The host setups of the BFS's two solvers (phase 8) and of the NE125000
+    solver (phase 12) on the CPU, into the setup cache ``cache_dir`` (run in a
+    worker process while the earlier phases use the card); after each, one
+    JSON line of its seconds and a ``<name>.done`` file in ``cache_dir``, the
+    NE125000 line last."""
+    from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck
     from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
+    from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 
+    dims = tuple(int(v) for v in bfs_dims.split("x"))
+    bcfg, icfg = _bfs_configs(cache_dir)
+    for name, make in (
+            ("bfs_explicit", lambda: ExplicitBCHSolver(_bfs_deck(bfs_deck, dims, 0.002), bcfg,
+                                                       device="cpu")),
+            ("bfs_implicit", lambda: ImplicitGQSolver(_bfs_deck(bfs_deck, dims, 0.01), icfg,
+                                                      device="cpu")),
+            ("ne125", lambda: ExplicitBCHSolver(*_ne125_solver_args(ne125_n, cache_dir),
+                                                device="cpu"))):
+        t0 = time.time()
+        solver = make()
+        emit(dict(worker=name, setup_s=time.time() - t0, store_s=solver.setup_cache_store_s,
+                  snapshot_bytes=solver.setup_cache_bytes))
+        del solver
+        (Path(cache_dir) / f"{name}.done").touch()
+
+
+def wait_for_setup(setup, name: str, timeout_s: float = 900.0) -> bool:
+    """Wait until the setup worker has stored ``name``'s tables (True), or has
+    ended without them (False: the phase then sets up itself)."""
+    proc, cache = setup
     t0 = time.time()
-    solver = ExplicitBCHSolver(*_ne125_solver_args(n, cache_dir), device="cpu")
-    emit(dict(setup_s=time.time() - t0, store_s=solver.setup_cache_store_s,
-              snapshot_bytes=solver.setup_cache_bytes))
+    while not (Path(cache) / f"{name}.done").exists():
+        if proc.poll() is not None or time.time() - t0 > timeout_s:
+            return (Path(cache) / f"{name}.done").exists()
+        time.sleep(0.5)
+    return True
 
 
-def start_ne125_setup(args):
-    """Start :func:`ne125_setup_worker` in a process of its own: (process,
-    cache directory).  The NE125000 setup (~70-90 s of host work) then runs
-    beside phases 2-11 on the card, and phase 12 (c) loads its tables from the
-    setup cache; where the worker did not store them, the phase sets up anew."""
+def start_setup_worker(args):
+    """Start :func:`setup_worker` in a process of its own: (process, cache
+    directory).  The BFS and NE125000 setups (~75 s of host work each) then
+    run beside the earlier phases on the card, and phases 8 and 12 (c) load
+    their tables from the setup cache; where the worker did not store them, a
+    phase sets up anew."""
     import os
     import tempfile
 
-    cache = tempfile.mkdtemp(prefix="chip_smoke_ne125_")
+    cache = tempfile.mkdtemp(prefix="chip_smoke_setup_")
     code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
-            f"chip_smoke.ne125_setup_worker({args.ne125_n}, {cache!r})")
-    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="")
+            f"chip_smoke.setup_worker({args.ne125_n}, {args.bfs_dims!r}, {cache!r})")
+    # no eviction in this cache: its three snapshots pass the default 8 GB cap
+    env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="",
+               CFD_TORCH_CACHE_MAX_GB="0")
     with open(Path(cache) / "worker.err", "w") as err:
         proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
                                 stderr=err, text=True, env=env)
@@ -3719,7 +3797,7 @@ def phase_e2e_ne125(args, ne125_setup, cuda_lib, pstl, ExplicitBCHSolver) -> dic
     scatter), every K apply streamed (row 3), G resident (row 1), ``div_compact``
     (row 4), ``cg_init`` / ``cg_iter`` (row 6); then 3 steps against the plain
     path at the explicit bounds and finite fields.  The host setup ran in the
-    worker process of :func:`start_ne125_setup`; its seconds are printed beside
+    worker process of :func:`start_setup_worker`; its seconds are printed beside
     the cache load's."""
     import numpy as np
     import torch
@@ -3730,8 +3808,9 @@ def phase_e2e_ne125(args, ne125_setup, cuda_lib, pstl, ExplicitBCHSolver) -> dic
     strict = n == NE125_N
     proc, cache = ne125_setup
     out_w, _ = proc.communicate(timeout=900)
-    worker = json.loads(out_w.strip().splitlines()[-1]) if proc.returncode == 0 else dict(
-        returncode=proc.returncode, stderr=(Path(cache) / "worker.err").read_text()[-2000:])
+    worker = ([json.loads(line) for line in out_w.strip().splitlines()] if proc.returncode == 0
+              else dict(returncode=proc.returncode,
+                        stderr=(Path(cache) / "worker.err").read_text()[-2000:]))
     t0 = time.time()
     solver = ExplicitBCHSolver(*_ne125_solver_args(n, cache))
     setup_s = time.time() - t0
@@ -3809,7 +3888,7 @@ def phase_e2e_ne125(args, ne125_setup, cuda_lib, pstl, ExplicitBCHSolver) -> dic
 def import_phases(args, ne125_setup, cuda_lib, parity_stencil, ExplicitBCHSolver, DTypePolicy,
                   SolverConfig) -> None:
     """Phase 12 (a)-(c): mesh import and the NE125000 cavity's flat route
-    (``ne125_setup``: :func:`start_ne125_setup`'s process and cache); (d), the
+    (``ne125_setup``: :func:`start_setup_worker`'s process and cache); (d), the
     Ghia check of the seeded implicit state, runs after phase 5's seeded
     steps (``phase_seeded``)."""
     import shutil
@@ -3829,6 +3908,443 @@ def import_phases(args, ne125_setup, cuda_lib, parity_stencil, ExplicitBCHSolver
     phase_e2e_ne125(args, ne125_setup, cuda_lib, parity_stencil, ExplicitBCHSolver)
     torch.cuda.empty_cache()
     emit(dict(phase="import_total", seconds=time.time() - t0))
+
+
+# ---------------------------------------------------------------- phase 13
+# the sharded kernel path (parallel/): (a) one rank over NCCL at NE27000 and
+# (c) the sharded K, G and G^T applies run inside phase 6 on its solvers'
+# tables; (b) 2 and 4 ranks on the one card (gloo, CUDA tensors) at the end
+SPMD_STEPS = (5, 20)                # (a) explicit: warm-up + timed (rung 3's config)
+SPMD_IMPLICIT_STEPS = (5, 10)       # (a) implicit (cell 2's config)
+SPMD_ASSEMBLE_STEPS = 5             # (a) explicit conv_mode="assemble": K + A on the ranks
+# (b): cavity_deck(8): 17^3 fine rows over 2048-row blocks, so 3 of 4 ranks hold
+# grid rows and every halo and element slab crosses a rank boundary; the JAX
+# package's sharded-step deck parameters (tests/test_sharded_stencil.py:98-106)
+SPMD_DECK_N = 8
+SPMD_RANK_STEPS = 5
+SPMD_RANKS = (2, 4)
+# the JAX package's sharded tolerances (tests/test_sharded_stencil.py:124-136,
+# 180-189): (rtol, atol) of u and p, abs of u_mon; explicit CG counts equal
+SPMD_TOLS = dict(explicit=dict(u=(2e-5, 2e-6), p=(2e-5, 2e-5), mon=1e-6),
+                 implicit=dict(u=(1e-4, 1e-5), p=(1e-4, 1e-4), mon=1e-5))
+# phase 13's seconds by part (its parts run inside phase 6 and at the end)
+_SPMD_SECONDS: dict = {}
+# sharded launch count -> the single-device name whose count the history implies
+_SHARDED_NAMES = dict(sharded_spmv_k="window_spmv_k", sharded_spmv_k_plus_a="window_spmv_k_plus_a",
+                      sharded_spmv_mk_plus_a="window_spmv_mk_plus_a",
+                      sharded_spmv_m="window_spmv_m", sharded_grad="grad_window",
+                      sharded_div_compact="div_compact_interleaved")
+
+
+def _as_single(counts: dict, what: str) -> dict:
+    """A sharded run's launch counts under the single-device names (which
+    must be 0 in it), to hold them against what the history implies."""
+    if any(counts[v] for v in _SHARDED_NAMES.values()):
+        raise AssertionError(f"{what}: a single-device window kernel launched: {counts}")
+    return {_SHARDED_NAMES.get(k, k): v for k, v in counts.items()
+            if k not in _SHARDED_NAMES.values()}
+
+
+def _collectives_per_step(n_steps: int) -> dict:
+    """The sharded path's collectives a step (calls, bytes this rank sent)."""
+    from cfd_with_cuda_tpu_torch.parallel import sharding
+
+    return {k: dict(calls=c / n_steps, bytes=b / n_steps)
+            for k, (c, b) in sorted(sharding.collective_counts.items())}
+
+
+class _OneRankGroup:
+    """A one-rank NCCL process group around a block (a file store in a fresh
+    temporary directory), destroyed at its end."""
+
+    def __enter__(self):
+        import tempfile
+
+        from cfd_with_cuda_tpu_torch.parallel.sharding import init_ranks
+
+        self.tmp = tempfile.TemporaryDirectory()
+        self.mesh = init_ranks("nccl", init_method=f"file://{self.tmp.name}/store", rank=0,
+                               world_size=1)
+        return self.mesh
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        self.tmp.cleanup()
+        return False
+
+
+def _spmd_timed(what, solver, cuda_lib, n_warm, n_timed):
+    """``n_warm`` + ``n_timed`` steps from rest with the launch and collective
+    counts set to 0 just before: (state, history, counts, ms/step of the
+    timed steps, collectives a step)."""
+    import torch
+
+    from cfd_with_cuda_tpu_torch.parallel import sharding
+
+    cuda_lib.reset_launch_counts()
+    sharding.reset_collective_counts()
+    torch.cuda.synchronize()
+    state, hist_w = solver.run(solver.initial_state(), n_steps=n_warm)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    state, hist_t = solver.run(state, n_steps=n_timed)
+    torch.cuda.synchronize()
+    ms = (time.time() - t1) / n_timed * 1e3
+    hist = hist_w + hist_t
+    if len(hist) != n_warm + n_timed:
+        raise AssertionError(f"{what}: ran {len(hist)} of {n_warm + n_timed} steps")
+    return state, hist, dict(cuda_lib.launch_counts), ms, _collectives_per_step(len(hist))
+
+
+def _paired_ms(single, sharded, no_group, state, n_steps: int) -> dict:
+    """ms/step of ``n_steps`` from ``state`` on one device, on the sharded path
+    over the one-rank group and on the sharded path with no group (its
+    collectives identities), in turns (one device, group, no group, no group,
+    group, one device): the same steps' work on each, so the machinery's and
+    the collectives' shares of the sharded path's cost come apart."""
+    import torch
+
+    out = dict(single=[], spmd1=[], spmd1_no_collectives=[])
+    for tag, solver in (("single", single), ("spmd1", sharded),
+                        ("spmd1_no_collectives", no_group), ("spmd1_no_collectives", no_group),
+                        ("spmd1", sharded), ("single", single)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        solver.run(state, n_steps=n_steps)
+        torch.cuda.synchronize()
+        out[tag].append((time.time() - t0) / n_steps * 1e3)
+    return out
+
+
+def phase_spmd1_explicit(xs, ExplicitBCHSolver, cuda_lib, ms_single) -> dict:
+    """Phase 13 (a), explicit: ``spmd_devices=1`` (the JAX package's "spmd1")
+    at rung 3's config on phase 6's NE27000 tables, one rank over NCCL: 5 +
+    20 steps from rest, launch counts against the history, ms/step beside
+    phase 6's and the collectives a step; 3 steps against the single-device
+    interleaved path from the same state (STEP_TOLS, equal CG counts); 5
+    steps of ``conv_mode="assemble"`` (K + A on the rank's rows)."""
+    import torch
+
+    t0 = time.time()
+    cfg = dataclasses.replace(xs.config, spmd_devices=1)
+    # the same path with no process group (made before the group starts)
+    no_group = ExplicitBCHSolver.from_tables(xs.deck, cfg, xs.d, xs.static_attrs())
+    with _OneRankGroup() as mesh:
+        sh = ExplicitBCHSolver.from_tables(xs.deck, cfg, xs.d, xs.static_attrs())
+        if sh.spmd_mesh is None or sh.spmd_mesh.backend != "nccl" or sh.block.s_loc != xs.s_pad:
+            raise AssertionError(f"spmd1: mesh {sh.spmd_mesh}, block {sh.block}")
+        state, hist, counts, ms, coll = _spmd_timed("spmd1_explicit", sh, cuda_lib,
+                                                    *SPMD_STEPS)
+        on_path, ok = _explicit_interleaved_expect(hist, _as_single(counts, "spmd1"),
+                                                   cfg.conv_mode)
+        if not ok or not (torch.isfinite(state.un).all() and torch.isfinite(state.pn).all()):
+            raise AssertionError(f"spmd1_explicit: launch counts {counts}, expected {on_path}")
+        subs = [int(h["iters"]) for h in hist]
+        out = dict(phase="spmd1_explicit", backend=mesh.backend, ranks=mesh.size,
+                   steps=len(hist), warmup_steps=SPMD_STEPS[0], ms_per_step=ms,
+                   ms_per_step_single_device_phase6=ms_single,
+                   sub_iters_hist={str(v): subs.count(v) for v in sorted(set(subs))},
+                   u_mon=hist[-1]["u_mon"], launches=counts, collectives_per_step=coll)
+        emit(out)
+        st_s, h_s = sh.run(state, n_steps=3)
+        st_1, h_1 = xs.run(state, n_steps=3)
+        out["vs_single"] = _compare_runs("spmd1_vs_single_device_3_steps", h_s, h_1,
+                                         sh.fields(st_s), xs.fields(st_1), STEP_TOLS, 0)
+        out["same_steps_ms"] = _paired_ms(xs, sh, no_group, state, 10)
+        asm = ExplicitBCHSolver.from_tables(xs.deck, dataclasses.replace(cfg, conv_mode="assemble"),
+                                            sh.d, sh.static_attrs())
+        st_a, h_a, counts_a, ms_a, _ = _spmd_timed("spmd1_assemble", asm, cuda_lib, 1,
+                                                   SPMD_ASSEMBLE_STEPS - 1)
+        on_a, ok_a = _explicit_interleaved_expect(h_a, _as_single(counts_a, "spmd1_assemble"),
+                                                  "assemble")
+        if not ok_a or not torch.isfinite(st_a.un).all():
+            raise AssertionError(f"spmd1_assemble: launch counts {counts_a}, expected {on_a}")
+        out["assemble"] = dict(steps=len(h_a), ms_per_step=ms_a, launches=counts_a)
+    out["seconds"] = _SPMD_SECONDS["spmd1_explicit"] = time.time() - t0
+    emit(dict(phase="spmd1_assemble", **out["assemble"], same_steps_ms=out["same_steps_ms"],
+              seconds=out["seconds"]))
+    return out
+
+
+def phase_spmd1_implicit(isolver, ImplicitGQSolver, cuda_lib, ms_single) -> dict:
+    """Phase 13 (a), implicit: ``spmd_devices=1`` at cell 2's config on phase
+    6's NE27000 tables, one rank over NCCL: 5 + 10 steps from rest, launch
+    counts against the history, ms/step and collectives a step; 3 steps
+    against the single-device interleaved path (IMPLICIT_TOLS)."""
+    import numpy as np
+    import torch
+
+    t0 = time.time()
+    cfg = dataclasses.replace(isolver.config, spmd_devices=1)
+    no_group = ImplicitGQSolver.from_tables(isolver.deck, cfg, isolver.d, isolver.static_attrs())
+    with _OneRankGroup() as mesh:
+        sh = ImplicitGQSolver.from_tables(isolver.deck, cfg, isolver.d, isolver.static_attrs())
+        state, hist, counts, ms, coll = _spmd_timed("spmd1_implicit", sh, cuda_lib,
+                                                    *SPMD_IMPLICIT_STEPS)
+        on_path, expect = _implicit_expect(hist, _as_single(counts, "spmd1_implicit"),
+                                           "interleaved")
+        if (min(on_path.values()) <= 0 or _as_single(counts, "spmd1_implicit") != expect
+                or not torch.isfinite(state.uk).all()):
+            raise AssertionError(f"spmd1_implicit: launch counts {counts}, expected {expect}")
+        out = dict(phase="spmd1_implicit", backend=mesh.backend, ranks=mesh.size,
+                   steps=len(hist), warmup_steps=SPMD_IMPLICIT_STEPS[0], ms_per_step=ms,
+                   ms_per_step_single_device_phase6=ms_single,
+                   cg_iters_mean=float(np.mean([h["cg_iters"] for h in hist])),
+                   mom_iters_mean=float(np.mean([h["mom_iters"] for h in hist])),
+                   u_mon=hist[-1]["u_mon"], launches=counts, collectives_per_step=coll)
+        emit(out)
+        st_s, h_s = sh.run(state, n_steps=3)
+        st_1, h_1 = isolver.run(state, n_steps=3)
+        tols = dict(u=IMPLICIT_TOLS["u"], p=IMPLICIT_TOLS["p"], mon=IMPLICIT_TOLS["u"])
+        out["vs_single"] = _compare_runs("spmd1_implicit_vs_single_device_3_steps", h_s, h_1,
+                                         sh.fields(st_s), isolver.fields(st_1), tols,
+                                         IMPLICIT_TOLS["cg_iters"])
+        out["same_steps_ms"] = _paired_ms(isolver, sh, no_group, state, 10)
+    out["seconds"] = _SPMD_SECONDS["spmd1_implicit"] = time.time() - t0
+    emit(dict(phase="spmd1_implicit_total", same_steps_ms=out["same_steps_ms"],
+              seconds=out["seconds"]))
+    return out
+
+
+def phase_spmd_kernels(xs, isolver, window_stencil, stencil, kint) -> dict:
+    """Phase 13 (c): the sharded K, K + A, MK + A, M, G and G^T applies of
+    ``parallel/sharded_stencil.py`` at the NE27000 interleaved shapes on the
+    solvers' tables.  On 1 and 4 ranks' blocks (the rank-rows kernels of
+    ``ops/window_stencil.py`` given each block's halo-extended field, cut
+    from the whole field as the halo exchange builds it; no process group)
+    the blocks' results joined equal the single-device kernels' bit for
+    bit; G^T (the compact kernel on each block's coarse rows) also against
+    the full-window DIV mode at the coarse rows.  Each sharded wrapper at
+    one rank against its plain version (WINDOW_TOL), timed (device time of
+    back-to-back calls, a cold L2, and the kernel alone by the profiler)
+    beside the bound of its nonzero weights and phase 6's single-device and
+    cuSPARSE times of the same operator."""
+    import numpy as np
+    import torch
+
+    from cfd_with_cuda_tpu_torch.parallel import sharded_stencil as sst
+    from cfd_with_cuda_tpu_torch.parallel.sharding import Mesh
+
+    t0 = time.time()
+    ws = window_stencil
+    rng = np.random.default_rng(20261118)
+    dev, n, fine, coarse, nnp = xs.device, xs.s_pad, xs.fine_dims, xs.coarse_dims, xs.nnp
+    u = torch.from_numpy(rng.standard_normal((3, n)).astype(np.float32)).to(dev)
+    u[:, xs.nn:] = 0
+    pf = torch.nn.functional.pad(stencil.coarse_to_fine(
+        torch.from_numpy(rng.standard_normal(nnp).astype(np.float32)).to(dev), coarse, fine),
+        (0, n - xs.nn))
+    forms = {f: (comp, offs) for f, _, comp, offs, _ in ws.spmv_forms(xs, isolver, rng)}
+    halo = sst.halo_size(ws.window_offsets(fine, 2))
+    one = Mesh(0, 1, dev, None)
+    results = {}
+
+    def blocks(ranks, fn):
+        """``fn(r0, r1, x_ext of u, p_ext of pf)`` on each of ``ranks`` blocks,
+        joined along the last axis."""
+        s_loc, w = n // ranks, n // ranks + 2 * halo + 128
+        u_p = torch.nn.functional.pad(u, (halo, halo + 128))
+        p_p = torch.nn.functional.pad(pf, (halo, halo + 128))
+        return torch.cat([fn(r * s_loc, (r + 1) * s_loc, u_p[:, r * s_loc: r * s_loc + w],
+                             p_p[r * s_loc: r * s_loc + w]) for r in range(ranks)], dim=-1)
+
+    def row(name, sharded, plain, absolute, table, fields, lib_key, joined, single, kernel_name):
+        y, y_plain = sharded(), plain()
+        err, rel = _apply_err(y, y_plain, absolute())
+        if not rel <= WINDOW_TOL:
+            raise AssertionError(f"{name}: kernel vs plain {rel:.3e} > {WINDOW_TOL}")
+        equal = {str(k): torch.equal(v, single) for k, v in joined.items()}
+        equal["sharded_one_rank"] = torch.equal(y, single)
+        if not all(equal.values()):
+            raise AssertionError(f"{name}: the ranks' blocks joined differ from the "
+                                 f"single-device kernel's: {equal}")
+        nz, b = nnz(table), table.element_size()
+        b_ms, b_by = bound(b * (nz + fields), 2 * nz * (y.shape[0] if table.dim() <= 2 else 1))
+        lib = kint[lib_key]
+        results[name] = dict(
+            max_abs_err=err, err_rel=rel, tol=WINDOW_TOL, ms=queued_ms(sharded, 20),
+            event_ms=time_ms(sharded, 20), cold_ms=cold_ms(sharded, 20),
+            kernel_ms=kernel_device_ms(sharded, kernel_name, 20), plain_ms=time_ms(plain, 3),
+            bound_ms=b_ms, bound_by=b_by, table_nnz=nz, library_ms=lib["library_ms"],
+            single_device_ms=lib["ms"], blocks_bit_equal=equal)
+        return results[name]
+
+    # ---- the window SPMV on the compact table of a rank's rows
+    for form, name in (("k", "sharded_spmv_k"), ("k_plus_a", "sharded_spmv_k_plus_a"),
+                       ("mk_plus_a", "sharded_spmv_mk_plus_a"), ("m", "sharded_spmv_m")):
+        comp, offs = forms[form]
+        full = ws.spmv_window_from_compact(comp, offs, fine, n)
+        joined = {ranks: blocks(ranks, lambda r0, r1, ue, pe: ws.spmv_compact_rows(
+            ws.compact_spmv_window(full, offs, fine, rows=(r0, r1)), ue, fine, offs, n,
+            (r0, r1), r0 - halo, name=name)) for ranks in (1, 4)}
+        sharded = lambda comp=comp, offs=offs, name=name, plain=False: sst.sharded_spmv_compact(
+            comp, u, fine, offsets=offs, mesh=one, s_pad=n, name=name, plain=plain)
+        row(name, sharded, lambda s=sharded: s(plain=True),
+            lambda: ws.window_spmv_plain(full.abs(), u.abs(), fine, offsets=offs, trim=False),
+            comp, 2 * 3 * n, f"window_spmv_{form}", joined,
+            ws.window_spmv_compact(comp, u, fine, offsets=offs, trim=False, name="window_spmv"),
+            "spmv_compact_kernel")
+        del full, joined
+    # ---- G on the rank's columns of G_cwin, the replicated embedded pressure
+    d = xs.d
+    gc = d["G_cwin"]
+    joined = {ranks: blocks(ranks, lambda r0, r1, ue, pe: ws.grad_rows(
+        gc[..., r0:r1], pe, fine, xs.g_radius, (r0, r1), r0 - halo, name="sharded_grad"))
+        for ranks in (1, 4)}
+    gcall = lambda plain=False: sst.sharded_grad_compact(gc, pf, fine, xs.g_radius, mesh=one,
+                                                         plain=plain)
+    row("sharded_grad", gcall, lambda: gcall(True),
+        lambda: ws.grad_window_plain(d["G_win"].abs(), pf.abs(), fine, xs.g_radius, trim=False),
+        gc, 4 * n, "grad_window", joined,
+        ws.grad_window_compact(gc, pf, fine, xs.g_radius, trim=False), "grad_compact_kernel")
+    # ---- G^T on each block's coarse rows (the blocks joined here, no gather)
+    gt = d["GT_cwin"]
+
+    def div_block(r0, r1, ue, pe):
+        q0, q1 = ws.coarse_rows(fine, coarse, (r0, r1))
+        return ws.div_compact_rows(gt[..., q0:q1], ue, fine, coarse, q0, r0 - halo,
+                                   name="sharded_div_compact")
+
+    joined = {ranks: blocks(ranks, div_block) for ranks in (1, 4)}
+    gt1 = gt[..., :nnp].contiguous()      # one rank's columns, as the solvers hold them
+    dcall = lambda plain=False: sst.sharded_div_compact(gt1, u, fine, coarse, mesh=one,
+                                                        s_pad=n, plain=plain)
+    single = ws.div_compact_interleaved(gt, u, fine, coarse)[:nnp]
+    out = row("sharded_div_compact", dcall, lambda: dcall(True),
+              lambda: ws.div_compact_interleaved_plain(gt.abs(), u.abs(), fine, coarse)[:nnp],
+              gt1, 3 * n + nnp, "div_compact_interleaved", joined, single,
+              "div_compact_interleaved_kernel")
+    # against the full-window DIV mode at the coarse rows: the JAX package's
+    # sharded divergence computes every fine row so, then keeps these
+    div_mode = stencil.fine_to_coarse(ws.div_window(d["GT_win"], u, fine, xs.g_radius),
+                                      coarse, fine)
+    dm_abs = stencil.fine_to_coarse(ws.div_window_plain(d["GT_win"].abs(), u.abs(), fine,
+                                                        xs.g_radius), coarse, fine)
+    diff = float((single - div_mode).abs().max())
+    out.update(div_mode_bit_equal=torch.equal(single, div_mode), div_mode_abs_err=diff,
+               div_mode_err_rel=diff / float(dm_abs.max()), div_mode_ms=kint["div_window"]["ms"],
+               div_mode_library_ms=kint["div_window"]["library_ms"],
+               div_mode_bound_ms=kint["div_window"]["bound_ms"],
+               gathered_rows=nnp, div_mode_gathered_rows=n)
+    if not out["div_mode_err_rel"] <= WINDOW_TOL:
+        raise AssertionError(f"sharded_div_compact: against the DIV mode {out['div_mode_err_rel']}")
+    # the JAX package's full-window forms on a rank's rows (sharded_window_spmv,
+    # sharded_div_window: the window kernel's rows entry), joined against one
+    # device's window kernel bit for bit
+    k_full = ws.spmv_window_from_compact(forms["k"][0], forms["k"][1], fine, n)
+    full_rows = dict(
+        spmv=torch.equal(
+            blocks(4, lambda r0, r1, ue, pe: ws.window_rows(
+                k_full[:, r0:r1], ue, forms["k"][1], (r0, r1), r0 - halo,
+                name="sharded_window_spmv")),
+            ws.window_spmv(k_full, u, fine, offsets=forms["k"][1], trim=False)),
+        div=torch.equal(
+            blocks(4, lambda r0, r1, ue, pe: ws.window_rows(
+                d["GT_win"][..., r0:r1], ue, ws.window_offsets(fine, 2), (r0, r1), r0 - halo,
+                div=True, name="sharded_div_window"))[0, : xs.nn],
+            ws.div_window(d["GT_win"], u, fine, xs.g_radius)))
+    del k_full
+    if not all(full_rows.values()):
+        raise AssertionError(f"the full-window rows forms differ from one device's: {full_rows}")
+    _SPMD_SECONDS["spmd_kernels"] = time.time() - t0
+    emit(dict(phase="spmd_kernels", ranks=[1, 4], tols=dict(vs_plain=WINDOW_TOL),
+              checks=results, full_window_rows_bit_equal=full_rows,
+              seconds=_SPMD_SECONDS["spmd_kernels"]))
+    return results
+
+
+def _spmd_rank_run(deck_n: int, n_steps: int, device) -> dict:
+    """One rank of phase 13 (b): ``n_steps`` explicit and implicit sharded
+    steps from rest on ``cavity_deck(deck_n, viscosity=0.1, dt=0.005)``
+    (the JAX package's sharded-step deck), the fields gathered, this rank's
+    launch and collective counts and ms/step (module-level: the spawned ranks
+    import it)."""
+    import torch
+
+    from cfd_with_cuda_tpu_torch.mesh.generators import cavity_deck
+    from cfd_with_cuda_tpu_torch.ops import cuda_lib
+    from cfd_with_cuda_tpu_torch.parallel import sharding
+    from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
+    from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
+    from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
+
+    n = sharding.make_mesh().size
+    out = {}
+    for kind, cls, extra in (("explicit", ExplicitBCHSolver, dict(pressure_warm_start=True)),
+                             ("implicit", ImplicitGQSolver, {})):
+        cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                           structured_layout="interleaved", spmd_devices=n,
+                           steps_per_chunk=n_steps, **extra)
+        solver = cls(cavity_deck(deck_n, viscosity=0.1, dt=0.005), cfg, device)
+        cuda_lib.reset_launch_counts()
+        sharding.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, hist = solver.run(n_steps=n_steps)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) / n_steps * 1e3
+        u, p = solver.fields(state)
+        out[kind] = dict(u=u, p=p, hist=hist, ms_per_step=ms, layout=solver.layout,
+                         block=tuple(solver.block), launches=dict(cuda_lib.launch_counts),
+                         collectives_per_step=_collectives_per_step(n_steps))
+    return out
+
+
+def phase_spmd_ranks(args, cuda_lib) -> dict:
+    """Phase 13 (b): 2 and 4 ranks on the one card (gloo, CUDA tensors staged
+    through pinned host buffers; every rank's kernels on the card), spawned,
+    at ``cavity_deck(SPMD_DECK_N)``: held against one rank (this process, no
+    group) within the JAX package's sharded tolerances, explicit CG counts
+    equal; rank 0's launch counts against its history."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch.parallel.spawn import run_ranks
+
+    t0 = time.time()
+    ref = _spmd_rank_run(args.spmd_deck_n, args.spmd_rank_steps, None)
+    out = dict(phase="spmd_ranks", deck=f"cavity_deck({args.spmd_deck_n}, viscosity=0.1, "
+               f"dt=0.005)", steps=args.spmd_rank_steps, backend="gloo", device="cuda:0",
+               one_rank=dict(ms_per_step={k: v["ms_per_step"] for k, v in ref.items()}),
+               runs={})
+    for n in SPMD_RANKS:
+        t1 = time.time()
+        ranks = run_ranks(_spmd_rank_run, n, (args.spmd_deck_n, args.spmd_rank_steps, "cuda:0"),
+                          backend="gloo", device="cuda:0", threads=None)
+        run = dict(seconds=time.time() - t1, blocks={}, launches={}, collectives_per_step={},
+                   ms_per_step={})
+        for kind in ("explicit", "implicit"):
+            r0, one = ranks[0][kind], ref[kind]
+            t = SPMD_TOLS[kind]
+            du = float(np.abs(r0["u"] - one["u"]).max())
+            dp = float(np.abs(r0["p"] - one["p"]).max())
+            dmon = max(abs(a["u_mon"] - b["u_mon"]) for a, b in zip(r0["hist"], one["hist"]))
+            cg = [[int(h["cg_iters"]) for h in x["hist"]] for x in (r0, one)]
+            ok_u = np.allclose(r0["u"], one["u"], rtol=t["u"][0], atol=t["u"][1])
+            ok_p = np.allclose(r0["p"], one["p"], rtol=t["p"][0], atol=t["p"][1])
+            same = all(np.array_equal(x[kind]["u"], r0["u"]) for x in ranks)
+            counts = r0["launches"]
+            if kind == "explicit":
+                on_path, ok_l = _explicit_interleaved_expect(
+                    r0["hist"], _as_single(counts, "spmd_ranks"), "auto")
+            else:
+                on_path, expect = _implicit_expect(r0["hist"], _as_single(counts, "spmd_ranks"),
+                                                   "interleaved")
+                ok_l = min(on_path.values()) > 0 and _as_single(counts, "spmd_ranks") == expect
+            run[kind] = dict(du=du, dp=dp, dmon=dmon, cg_iters=cg, tols=t, ranks_agree=same)
+            run["blocks"][kind] = [x[kind]["block"] for x in ranks]
+            run["launches"][kind] = counts
+            run["collectives_per_step"][kind] = r0["collectives_per_step"]
+            run["ms_per_step"][kind] = r0["ms_per_step"]
+            if not (ok_u and ok_p and dmon <= t["mon"] and same and ok_l
+                    and np.isfinite(r0["u"]).all() and (kind == "implicit" or cg[0] == cg[1])):
+                raise AssertionError(f"spmd_ranks {n} {kind}: {run[kind]}, launches {counts}, "
+                                     f"expected {on_path}")
+        out["runs"][str(n)] = run
+    out["seconds"] = _SPMD_SECONDS["spmd_ranks"] = time.time() - t0
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -3896,6 +4412,10 @@ def main() -> int:
                          "smaller one keeps the planes route and asserts launch counts only)")
     ap.add_argument("--ne125-steps", type=int, default=25,
                     help="timed NE125000 steps after 5 warm-up steps")
+    ap.add_argument("--spmd-deck-n", type=int, default=SPMD_DECK_N,
+                    help="cavity elements per edge of phase 13's 2- and 4-rank runs")
+    ap.add_argument("--spmd-rank-steps", type=int, default=SPMD_RANK_STEPS,
+                    help="steps of each solver in phase 13's 2- and 4-rank runs")
     args = ap.parse_args()
 
     import torch
@@ -3908,7 +4428,7 @@ def main() -> int:
 
     t_start = time.time()
     phase_toolchain(cuda_lib)
-    ne125_setup = start_ne125_setup(args)
+    ne125_setup = start_setup_worker(args)
     try:
         return _main_phases(args, t_start, ne125_setup)
     finally:
@@ -3921,7 +4441,7 @@ def main() -> int:
 
 
 def _main_phases(args, t_start, ne125_setup) -> int:
-    """Phases 2-12, the ``kernels`` line and the last lines."""
+    """Phases 2-13, the ``kernels`` line and the last lines."""
     import torch
 
     from cfd_with_cuda_tpu_torch.mesh.generators import (
@@ -3958,14 +4478,15 @@ def _main_phases(args, t_start, ne125_setup) -> int:
     # ---- the unstructured path of both solvers on the backward-facing step
     dims = tuple(int(v) for v in args.bfs_dims.split("x"))
     strict = dims == BFS_DIMS
-    bcfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6, steps_per_chunk=25)
+    # both setups ran in the setup worker beside the earlier phases
+    bcfg, icfg = _bfs_configs(ne125_setup[1])
+    emit(dict(phase="bfs_setup_worker", explicit=wait_for_setup(ne125_setup, "bfs_explicit"),
+              implicit=wait_for_setup(ne125_setup, "bfs_implicit")))
     bsolver, _ = phase_bfs_setup(dims, bfs_deck, ExplicitBCHSolver, bcfg)
     banded = phase_banded_cg(bsolver, fused_cg, cuda_lib)
     be2e = phase_e2e_bfs(bsolver, ExplicitBCHSolver, cuda_lib, args.bfs_steps, strict)
     del bsolver
     torch.cuda.empty_cache()
-    icfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
-                        pressure_warm_start=True, steps_per_chunk=25)
     phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, icfg,
                            args.bfs_implicit_steps, strict)
     torch.cuda.empty_cache()
@@ -3987,6 +4508,11 @@ def _main_phases(args, t_start, ne125_setup) -> int:
     # ---- mesh import (.neu, the tet .unv Poisson path) and the NE125000 flat route
     import_phases(args, ne125_setup, cuda_lib, parity_stencil, ExplicitBCHSolver, DTypePolicy,
                   SolverConfig)
+    torch.cuda.empty_cache()
+
+    # ---- phase 13 (b): 2 and 4 ranks on the one card ((a) and (c) ran in phase 6)
+    phase_spmd_ranks(args, cuda_lib)
+    emit(dict(phase="spmd_total", seconds=sum(_SPMD_SECONDS.values()), parts=_SPMD_SECONDS))
 
     # row 9: the CG kernels on the banded window (launches: the explicit BFS
     # run; cg_iter per launch of UNROLL iterations, which no single PyTorch

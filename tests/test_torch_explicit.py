@@ -206,13 +206,16 @@ def test_xla_path_choices_match_jax(override):
         np.testing.assert_allclose(p_t, p_j, rtol=0, atol=5e-5)
 
 
-# structured="never" runs (the unstructured path: tests/test_torch_unstructured_*.py)
+# structured="never" runs (the unstructured path: tests/test_torch_unstructured_*.py);
+# spmd_devices runs (ROADMAP.md queue 1 item 11, ported: tests/test_torch_sharding.py)
+# and, without a process group of that many ranks, raises the JAX package's
+# make_mesh error rather than running on one device
 @pytest.mark.parametrize("override,msg", [
-    pytest.param(dict(spmd_devices=2), "multi-device", id="override6"),
+    pytest.param(dict(spmd_devices=2), "devices are", id="override6"),
 ])
 def test_other_branches_raise_with_roadmap_item(override, msg):
     cfg = dict(dtype_policy=DTypePolicy.F32, **RUNG1) | override
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
+    with pytest.raises(ValueError, match="2-device mesh") as err:
         ExplicitBCHSolver(_deck(), SolverConfig(**cfg), device="cpu")
     assert err.match(msg)
 

@@ -302,14 +302,17 @@ def test_xla_path_choices_match_jax(override):
         np.testing.assert_allclose(p_t, p_j, rtol=0, atol=P_TOL)
 
 
-# structured="never" runs (the ELL step: tests/test_torch_unstructured_implicit.py)
+# structured="never" runs (the ELL step: tests/test_torch_unstructured_implicit.py);
+# spmd_devices runs (ROADMAP.md queue 1 item 11, ported: tests/test_torch_sharding.py)
+# and, without a process group of that many ranks, raises the JAX package's
+# make_mesh error rather than running on one device
 @pytest.mark.parametrize("override,item,msg", [
-    pytest.param(dict(spmd_devices=2), "queue 1 item 11", "multi-device",
+    pytest.param(dict(spmd_devices=2), "2-device mesh", "devices are",
                  id="override6-queue 1 item 11"),
 ])
 def test_other_branches_raise_with_roadmap_item(override, item, msg):
     cfg = dict(dtype_policy=DTypePolicy.F32, **BASE) | override
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}") as err:
+    with pytest.raises(ValueError, match=item) as err:
         ImplicitGQSolver(_deck(), SolverConfig(**cfg), device="cpu")
     assert err.match(msg)
 
