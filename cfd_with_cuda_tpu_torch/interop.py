@@ -193,14 +193,15 @@ def _tensors(out: dict) -> dict[str, torch.Tensor]:
 
 def ell_tables_from_jax(d: dict[str, np.ndarray], attrs: dict) -> dict[str, torch.Tensor]:
     """The port's table dict from a JAX explicit solver's unstructured ``d``
-    (``attrs``: ``ExplicitBCHSolver.ELL_STATIC_ATTRS``, with ``nn``, ``nnp``
-    and ``z_offs``).  Element tables are transposed to element-major, the
+    (``attrs``: ``ExplicitBCHSolver.ELL_STATIC_ATTRS``, with ``nnp`` and
+    ``z_offs``).  Element tables are transposed to element-major, the
     reverse tables re-indexed (:func:`rev_from_jax`), and the banded window
     comes across as the plain ``(D, NNp)`` table: from ``Z_bwin_cg (nb, KP,
     s_pad)`` cut as :func:`tables_from_jax` cuts ``Z_win_cg``, else
     ``Z_bwin``.  ``Z_dinv`` is the f32 reciprocal of ``Z_diag``, as the JAX
-    step divides per solve."""
-    nn, nnp = int(attrs["nn"]), int(attrs["nnp"])
+    step divides per solve.  The per-node vectors keep their shard padding
+    (``s_pad``)."""
+    nnp = int(attrs["nnp"])
     out = _element_tables(d)
     ne = out["ltog"].shape[0]
     out["ltog_p"] = np.asarray(d["ltog_p"]).T
@@ -208,10 +209,8 @@ def ell_tables_from_jax(d: dict[str, np.ndarray], attrs: dict) -> dict[str, torc
     out["rev_p"] = rev_from_jax(d["rev_p"], ne, out["ltog_p"].shape[1])
     out["Ke"] = np.transpose(np.asarray(d["Ke"]), (2, 0, 1))
     out["Ge"] = np.transpose(np.asarray(d["Ge"]), (3, 0, 1, 2))
-    for k in ("Z_vals", "Z_cols", "Z_diag"):
+    for k in ("Z_vals", "Z_cols", "Z_diag", "md_inv", "md_orig_inv", "bc_mask", "bc_vel"):
         out[k] = np.asarray(d[k])
-    for k in ("md_inv", "md_orig_inv", "bc_mask", "bc_vel"):
-        out[k] = np.asarray(d[k])[..., :nn]          # less any shard padding
     out["Z_dinv"] = np.ones((), out["Z_diag"].dtype) / out["Z_diag"]
     if attrs["z_offs"] is not None:
         if "Z_bwin_cg" in d:
@@ -225,19 +224,23 @@ def ell_tables_from_jax(d: dict[str, np.ndarray], attrs: dict) -> dict[str, torc
 
 def implicit_ell_tables_from_jax(d: dict[str, np.ndarray], attrs: dict) -> dict[str, torch.Tensor]:
     """The port's table dict from a JAX implicit solver's ELL ``d``
-    (``attrs``: ``ImplicitGQSolver.ELL_STATIC_ATTRS``).  The elemental ->
-    CSR map ``scatter_m (NENv, NENv, NE)`` becomes its reverse table
-    ``rev_m`` over the element-major ``(NE, NENv * NENv)`` values."""
-    nn = int(attrs["nn"])
+    (``attrs``: ``ImplicitGQSolver.ELL_STATIC_ATTRS``, with ``nn`` and
+    ``s_pad``).  The elemental -> CSR map ``scatter_m (NENv, NENv, NE)``
+    becomes its reverse table ``rev_m`` over the element-major ``(NE, NENv *
+    NENv)`` values.  The node-rowed tables keep their shard padding, and
+    ``csr_to_ell`` addresses the padded ``(L, s_pad)`` table, which the JAX
+    step pads in-graph."""
+    nn, s_pad = int(attrs["nn"]), int(attrs["s_pad"])
     out = _element_tables(d)
     scatter = np.transpose(np.asarray(d["scatter_m"]), (2, 0, 1))
     out["rev_m"] = build_reverse_incidence(scatter.reshape(scatter.shape[0], -1),
                                            np.asarray(d["mk_vals_csr"]).shape[0])
-    for k in ("mk_vals_csr", "row_mask", "diag_add", "csr_to_ell", "GT_vals", "GT_cols",
-              "Z_vals", "Z_cols", "Z_diag", "p_mask", "diag_slots"):
+    for k in ("mk_vals_csr", "row_mask", "diag_add", "GT_vals", "GT_cols", "Z_vals", "Z_cols",
+              "Z_diag", "p_mask", "diag_slots", "m_vals", "A_cols", "G_vals", "G_cols",
+              "bc_mask", "bc_vel"):
         out[k] = np.asarray(d[k])
-    for k in ("m_vals", "A_cols", "G_vals", "G_cols", "bc_mask", "bc_vel"):
-        out[k] = np.asarray(d[k])[..., :nn]          # less any shard padding
+    c2e = np.asarray(d["csr_to_ell"])
+    out["csr_to_ell"] = (c2e // nn) * s_pad + c2e % nn
     return _tensors(out)
 
 
@@ -255,11 +258,12 @@ def implicit_state_from_jax(state) -> ImplicitState:
 
 def state_to_rank(state, solver):
     """This rank's state of a sharded solver from a whole one (a JAX state's
-    arrays, or the port's CPU tensors): each node field (last axis
-    ``s_pad``) cut to the rank's block, the coarse-grid fields whole; the
-    state as the solver's own type, on its device.  On one device the
+    arrays, or the port's tensors on any device): each node field (last
+    axis ``s_pad``) cut to the rank's block, the coarse-grid fields whole;
+    the state as the solver's own type, on its device.  On one device the
     fields are only moved."""
-    fields = [torch.as_tensor(np.array(a)) for a in state]
+    fields = [a if isinstance(a, torch.Tensor) else torch.as_tensor(np.array(a))
+              for a in state]
     s_pad = getattr(solver, "s_pad", None)
     placed = [(solver._local(f) if f.ndim == 2 and f.shape[-1] == s_pad else f)
               .to(solver.device) for f in fields]

@@ -56,7 +56,7 @@ from cfd_with_cuda_tpu_torch.parallel.sharding import Mesh, all_gather, halo_exc
 __all__ = [
     "halo_size", "shard_blk", "Block", "block_rows", "sharded_window_spmv",
     "sharded_spmv_compact", "sharded_grad_window", "sharded_grad_compact",
-    "sharded_div_window", "sharded_div_compact",
+    "sharded_div_window", "sharded_div_compact", "gather_coarse_rows",
 ]
 
 
@@ -211,13 +211,21 @@ def sharded_div_compact(gt_cwin, u, fine_dims, coarse_dims, *, mesh: Mesh, s_pad
     u_ext, x_org = _halo_exchange(u, halo, mesh, "halo_" + name)
     y = div_compact_rows(gt_cwin, u_ext, fine_dims, coarse_dims, q0, x_org, name=name,
                          plain=plain)
+    return gather_coarse_rows(y, fine_dims, coarse_dims, s_loc, mesh, "gather_" + name)
+
+
+def gather_coarse_rows(y: torch.Tensor, fine_dims, coarse_dims, s_loc: int, mesh: Mesh,
+                       what: str) -> torch.Tensor:
+    """``(NNp,)`` on every rank from each rank's values ``y`` at its coarse
+    rows (:func:`coarse_rows` of its fine block): one all-gather, each rank's
+    rows padded to the largest rank's count, then cut."""
     if not mesh.group:
         return y
     counts = _coarse_counts(tuple(fine_dims), tuple(coarse_dims), s_loc, mesh.size)
     qmax = max(max(counts), 1)
     if y.shape[0] < qmax:
         y = torch.nn.functional.pad(y, (0, qmax - y.shape[0]))
-    parts = all_gather(y, mesh, "gather_" + name)
+    parts = all_gather(y, mesh, what)
     return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
 

@@ -227,48 +227,72 @@ def _staged(mesh: Mesh, t: torch.Tensor) -> bool:
     return mesh.backend == "gloo" and t.device.type == "cuda"
 
 
+def _halo_plan(rank: int, size: int, n: int, left: int, right: int) -> list:
+    """``[(peer, (a, b) of this rank's block to send, (a, b) to receive), ...]``
+    in peer order, global rows: every rank's window is its block widened by
+    ``left`` / ``right`` and cut to the axis ``[0, size * n)``; what it lacks
+    comes from whichever ranks hold it (the neighbours alone when the halos
+    fit in a block)."""
+    total = size * n
+    win = lambda q: (max(0, q * n - left), min(total, (q + 1) * n + right))
+    cut = lambda a, b: (a, b) if a < b else None
+    m0, m1 = rank * n, (rank + 1) * n
+    w0, w1 = win(rank)
+    plan = []
+    for q in range(size):
+        if q == rank:
+            continue
+        q0, q1 = q * n, (q + 1) * n
+        v0, v1 = win(q)
+        if q < rank:
+            send, recv = cut(max(m0, q1), min(m1, v1)), cut(max(q0, w0), min(q1, m0))
+        else:
+            send, recv = cut(max(m0, v0), min(m1, q0)), cut(max(q0, m1), min(q1, w1))
+        if send or recv:
+            plan.append((q, send, recv))
+    return plan
+
+
 def halo_exchange(x_loc: torch.Tensor, left: int, right: int, mesh: Mesh,
                   what: str = "halo") -> tuple[torch.Tensor, int]:
-    """``([left halo | x_loc | right halo], lo)`` along the last axis: the left
-    neighbour's last ``left`` entries and the right neighbour's first
-    ``right``, ``lo`` the entries before ``x_loc`` (``left``, or 0).  At a
-    grid edge there is no neighbour and the block is not extended on that
-    side: the kernels read zero outside the field they are given, which is
-    the JAX package's zero fill (one rank: ``x_loc`` itself, no copy).
-    Every rank calls it; its sends and receives are one
-    ``dist.batch_isend_irecv`` call."""
+    """``([left halo | x_loc | right halo], lo)`` along the last axis: the
+    ``left`` entries before the block and the ``right`` after it, from the
+    ranks that hold them (the neighbours' when the halos fit in a block),
+    ``lo`` the entries before ``x_loc`` (``left``, or fewer at the start of
+    the axis).  Past a grid edge the block is not extended: the kernels read
+    zero outside the field they are given, which is the JAX package's zero
+    fill (one rank: ``x_loc`` itself, no copy).  Every rank calls it with the
+    same halos; its sends and receives are one ``dist.batch_isend_irecv``
+    call."""
     c, n = x_loc.shape
-    if left > n or right > n:
-        raise ValueError(f"halo_exchange: halos {left}, {right} over a block of {n}: too many "
-                         "ranks for this grid")
-    r, size = mesh.rank, mesh.size
-    lo = left if r > 0 else 0
-    hi = right if r < size - 1 else 0
-    lbuf, rbuf = x_loc.new_empty((c, lo)), x_loc.new_empty((c, hi))
-    # (peer, what to send, buffer to receive into): a rank at an edge still
-    # sends to its one neighbour
-    pairs = ([(r - 1, x_loc[:, :right], lbuf)] if r > 0 else []) + (
-        [(r + 1, x_loc[:, n - left:], rbuf)] if r < size - 1 else [])
+    r = mesh.rank
+    plan = _halo_plan(r, mesh.size, n, left, right)
+    lo = min(left, r * n)
+    hi = min(right, (mesh.size - 1 - r) * n)
     staged = _staged(mesh, x_loc)
-    ops, recvs = [], []
-    for i, (peer, send, recv) in enumerate(pairs):
-        snd = _host(send, (what, "s", i)) if staged else send.contiguous()
-        rcv = _host(recv, (what, "r", i)) if staged else recv
-        if snd.numel():
+    ops, parts = [], []
+    for i, (peer, send, recv) in enumerate(plan):
+        if send:
+            snd = x_loc[:, send[0] - r * n: send[1] - r * n]
+            snd = _host(snd, (what, "s", i)) if staged else snd.contiguous()
             ops.append(dist.P2POp(dist.isend, snd, peer))
             _count(what, snd.numel() * snd.element_size())
-        if rcv.numel():
+        if recv:
+            buf = x_loc.new_empty((c, recv[1] - recv[0]))
+            rcv = _host(buf, (what, "r", i)) if staged else buf
             ops.append(dist.P2POp(dist.irecv, rcv, peer))
-        recvs.append((rcv, recv))
+            parts.append((peer, rcv, buf))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     if not (lo or hi):
         return x_loc, 0
     if staged:
-        for rcv, recv in recvs:
-            recv.copy_(rcv)
-    return torch.cat([lbuf, x_loc, rbuf], dim=-1), lo
+        for _, rcv, buf in parts:
+            buf.copy_(rcv)
+    before = [buf for peer, _, buf in parts if peer < r]
+    after = [buf for peer, _, buf in parts if peer > r]
+    return torch.cat([*before, x_loc, *after], dim=-1), lo
 
 
 # the all-gather into one flat tensor (newer releases rename it)

@@ -40,6 +40,13 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     compact_spmv_window,
 )
 from cfd_with_cuda_tpu_torch.parallel.elem_slab import elem_slab
+from cfd_with_cuda_tpu_torch.parallel.placed_ops import (
+    dia_div_placed,
+    dia_grad_placed,
+    patches_div_placed,
+    patches_grad_placed,
+)
+from cfd_with_cuda_tpu_torch.parallel.placement import ell_tables, owner_tables
 from cfd_with_cuda_tpu_torch.parallel.sharded_stencil import block_rows
 from cfd_with_cuda_tpu_torch.parallel.sharding import (
     all_gather,
@@ -47,6 +54,7 @@ from cfd_with_cuda_tpu_torch.parallel.sharding import (
     broadcast,
     gather,
     make_mesh,
+    shard_params,
 )
 from cfd_with_cuda_tpu_torch.utils import setup_cache as sc
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
@@ -127,10 +135,24 @@ def xla_grad_div(solver, d: dict, size: int):
     """(G, G^T) applies of the XLA structured path on the tables of
     :func:`xla_g_tables`: ``grad(p) (3, s_pad)`` from the coarse pressure,
     ``div(u) (NNp,)`` from ``u (3, s_pad)``; ``size`` is the real fine-grid
-    size (<= s_pad)."""
+    size (<= s_pad).  On a solver placed across ranks, the rank's rows of
+    ``grad`` and the replicated ``div`` from its rows (``placed_ops``)."""
     fine, coarse, s_pad = solver.fine_dims, solver.coarse_dims, solver.s_pad
     pad = lambda y: torch.nn.functional.pad(y, (0, s_pad - y.shape[-1]))
-    if solver.f64_dia:
+    if solver.block is not None:
+        # placed across ranks: the rank's fine rows, G^T's coarse rows gathered
+        mesh, block = solver.ranks, solver.block
+        if solver.f64_dia:
+            g = [d[f"G_dia{i}"] for i in range(3)]
+            gt = [d[f"GT_dia{i}"] for i in range(3)]
+            grad = lambda p: dia_grad_placed(g, p, solver.g_dia_off, coarse, fine, block)
+            div = lambda u: dia_div_placed(gt, u, solver.gt_dia_off, coarse, fine, mesh)
+        else:
+            grad = lambda p: patches_grad_placed(d["G_win"], p, coarse, fine, solver.g_radius,
+                                                 block)
+            div = lambda u: patches_div_placed(d["GT_win"], u, coarse, fine, solver.gt_radius,
+                                               mesh)
+    elif solver.f64_dia:
         g = [d[f"G_dia{i}"] for i in range(3)]
         gt = [d[f"GT_dia{i}"] for i in range(3)]
         grad = lambda p: dia_grad_apply(g, p, solver.g_dia_off, coarse, fine, s_pad)
@@ -165,20 +187,22 @@ def unsupported_config(cfg) -> str | None:
 _ROW_TABLES = ("md_inv", "md_orig_inv", "bc_mask", "bc_vel", "diag_add_grid")
 _FULL_ONLY = ("K_vals", "MK_vals", "M_vals", "G_win", "GT_win", "row_mask_grid", "K_cvals",
               "MK_cvals", "M_cvals", "row_mask_c", "diag_pos")
+# the element tables of a box, which a rank holds for its slab or owned elements
+_ELEM_TABLES = ("ltog", "rev", "gDSv", "gq")
 
 
-def shard_tables(d: dict, offsets, fine_dims, coarse_dims, s_pad: int, block, slab) -> dict:
-    """A rank's tables from an interleaved solver's full ``d`` (tensors): the
+def shard_tables(d: dict, offsets, fine_dims, coarse_dims, s_pad: int, block) -> dict:
+    """A rank's tables from an interleaved solver's full ``d`` (tensors),
+    but for the element tables (``ChunkedTimeLoop._elem_tables``): the
     compact SPMV tables of its rows (``compact_spmv_window(..., rows=)``,
     for the implicit LHS its row mask and diagonal entries there), its
     columns of ``G_cwin`` and of ``GT_cwin`` (at its coarse rows), its block
-    of the per-row vectors, its element slab's columns of the element
-    tables; the coarse-grid tables (Z, its diagonal, the pressure mask) and
-    ``Sv`` whole (replicated)."""
+    of the per-row vectors; the coarse-grid tables (Z, its diagonal, the
+    pressure mask) and ``Sv`` whole (replicated)."""
     rows = (block.r0, block.r1)
     q0, q1 = coarse_rows(fine_dims, coarse_dims, rows)
     out = {k: v for k, v in d.items()
-           if k not in _FULL_ONLY + _ROW_TABLES + ("G_cwin", "GT_cwin", "gDSv", "gq")}
+           if k not in _FULL_ONLY + _ROW_TABLES + ("G_cwin", "GT_cwin") + _ELEM_TABLES}
     for f, c in _COMPACT:
         if f in d:
             out[c] = compact_spmv_window(d[f], offsets, fine_dims, rows)
@@ -189,7 +213,6 @@ def shard_tables(d: dict, offsets, fine_dims, coarse_dims, s_pad: int, block, sl
     out |= {k: d[k][..., block.r0: block.r1] for k in _ROW_TABLES if k in d}
     out["G_cwin"] = d["G_cwin"][..., block.r0: block.r1]
     out["GT_cwin"] = d["GT_cwin"][..., q0: q1]
-    out |= {k: d[k][..., slab.e0: slab.e1] for k in ("gDSv", "gq")}
     return {k: v.contiguous() for k, v in out.items()}
 
 
@@ -293,59 +316,103 @@ class ChunkedTimeLoop:
     # ------------------------------------------------------- the sharded path
     def _shard(self, d: dict, local: bool = False) -> dict:
         """The tables this rank holds: ``d`` itself on one device; on the
-        sharded path (``spmd_mesh``), :func:`shard_tables` of its block and
-        element slab, which are kept as ``block`` and ``slab`` (``local``:
-        ``d`` holds them already)."""
-        self.block = self.slab = None
+        sharded kernel path (``spmd_mesh`` on the interleaved layout), its
+        rank's (:meth:`_place`; ``local``: ``d`` holds them already).  The
+        ELL step under ``spmd_devices`` runs whole on every rank, as the JAX
+        package's does until its caller places the arrays
+        (``parallel/placement.py``)."""
+        self.block = self.slab = self.ranks = None
         mesh = self.spmd_mesh
-        if mesh is None:
+        if mesh is None or self.layout == "ell":
             return d
-        if self.layout != "interleaved" or not getattr(self, "elem_structured", True):
-            raise ValueError(
-                "spmd_devices runs the sharded kernel path, the interleaved layout of a box "
-                "mesh whose elements tile it; this mesh took the "
-                f"{'unstructured' if self.layout == 'ell' else 'elemental'} path, whose "
-                "placement across ranks is ROADMAP.md queue 1 item 11(b)")
+        return self._place(mesh, d, kernel=True, local=local)
+
+    def _place(self, mesh, d: dict, *, kernel: bool, local: bool = False) -> dict:
+        """Split the fields over the ranks of ``mesh``: keep ``ranks``, this
+        rank's ``block`` of the padded node axis and, on a box whose elements
+        tile it, its element ``slab``; return this rank's tables of ``d``
+        (``local``: ``d`` holds them already).  ``kernel``: the sharded kernel
+        path's (:func:`shard_tables`), else the annotation-placed paths'
+        (``parallel/placement.py::place``): every table whose last axis is
+        ``s_pad`` cut to the block (``shard_params``), the rest whole.  The
+        element tables are :meth:`_elem_tables` either way."""
+        self._split()
+        self.ranks = mesh
         self.block = block_rows(self.s_pad, mesh)
-        self.slab = elem_slab(self.fine_dims, self.elem_dims, self.s_pad, mesh)
+        self.slab = None
+        if self.layout != "ell" and getattr(self, "elem_structured", True):
+            self.slab = elem_slab(self.fine_dims, self.elem_dims, self.s_pad, mesh)
         if local:
             return d
-        return shard_tables(d, self._spmv_offsets(), self.fine_dims, self.coarse_dims,
-                            self.s_pad, self.block, self.slab)
+        own = self._elem_tables(d)
+        if kernel:
+            rest = shard_tables(d, self._spmv_offsets(), self.fine_dims, self.coarse_dims,
+                                self.s_pad, self.block)
+        else:
+            rest = shard_params({k: v for k, v in d.items() if k not in own}, mesh,
+                                (self.s_pad,))
+        return rest | own
+
+    def _elem_tables(self, d: dict) -> dict:
+        """This rank's element tables: on the ELL layout the elements that
+        touch its node rows (``placement.ell_tables``); on a box whose
+        elements tile it the slab's columns of ``gDSv`` and ``gq``; on any
+        other box the elements that touch its grid rows
+        (``placement.owner_tables``)."""
+        block = self.block
+        if self.layout == "ell":
+            return ell_tables(d, self.nn, self.s_pad, block)
+        if self.slab is not None:
+            return {k: d[k][..., self.slab.e0: self.slab.e1].contiguous() for k in ("gDSv", "gq")}
+        size = int(np.prod(self.fine_dims))
+        return owner_tables(d, "rev", ("ltog", "gDSv", "gq"),
+                            (block.r0, max(block.r0, min(block.r1, size))), 27)
 
     def _spmv_offsets(self):
         raise NotImplementedError
 
+    def _split(self) -> None:
+        """Check that the config runs on fields split over ranks (called by
+        :meth:`_place` before it splits them)."""
+
     def _field_norms(self, *vs) -> tuple:
-        """The 2-norms of the node fields ``vs``: on the sharded path each
-        rank's norms all-gathered (one call) and normed over the ranks, so
-        one rank reads its own norm exactly."""
-        if self.spmd_mesh is None:
+        """The 2-norms of the node fields ``vs``: with the fields split over
+        ranks (``ranks``) each rank's norms all-gathered (one call) and normed
+        over the ranks, so one rank reads its own norm exactly."""
+        if self.ranks is None:
             return tuple(torch.linalg.vector_norm(v) for v in vs)
         loc = torch.stack([torch.linalg.vector_norm(v) for v in vs])
-        parts = all_gather(loc, self.spmd_mesh, "gather_norm")
+        parts = all_gather(loc, self.ranks, "gather_norm")
         return tuple(torch.linalg.vector_norm(parts[:, i]) for i in range(len(vs)))
 
     def _field_max(self, v) -> torch.Tensor:
-        """max(v) over the node field, over every rank on the sharded path."""
+        """max(v) over the node field, over every rank when it is split."""
         m = torch.max(v)
-        return m if self.spmd_mesh is None else all_reduce(m, self.spmd_mesh, "max",
-                                                           "reduce_max")
+        return m if self.ranks is None else all_reduce(m, self.ranks, "max", "reduce_max")
 
     def _momentum_reduce(self):
         """The momentum BiCGStab's sum over ranks (None on one device)."""
-        mesh = self.spmd_mesh
+        mesh = self.ranks
         return None if mesh is None else (lambda t: all_reduce(t, mesh, "sum", "reduce_dot"))
 
     def _probe(self, u, node: int) -> torch.Tensor:
-        """``(3,)``: the node field ``u`` at the flat grid row ``node``; on the
-        sharded path broadcast from the rank that holds it."""
-        if self.spmd_mesh is None:
+        """``(3,)``: the node field ``u`` at the row ``node``; with the field
+        split over ranks broadcast from the rank that holds it."""
+        if self.ranks is None:
             return u[:, node]
         owner = node // self.block.s_loc
-        mine = owner == self.spmd_mesh.rank
+        mine = owner == self.ranks.rank
         vals = u[:, node - self.block.r0] if mine else u.new_zeros(u.shape[0])
-        return broadcast(vals.contiguous(), owner, self.spmd_mesh, "bcast_mon")
+        return broadcast(vals.contiguous(), owner, self.ranks, "bcast_mon")
+
+    def _rows(self) -> int:
+        """The node rows this process holds: its block, or the padded axis."""
+        return self.s_pad if self.block is None else self.block.s_loc
+
+    def _pad_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """``y`` on the real rows it covers, zero-padded to :meth:`_rows`."""
+        rows = self._rows()
+        return y if y.shape[-1] == rows else torch.nn.functional.pad(y, (0, rows - y.shape[-1]))
 
     def _local(self, u: torch.Tensor) -> torch.Tensor:
         """This rank's block of a full node field (itself on one device)."""
@@ -353,7 +420,7 @@ class ChunkedTimeLoop:
 
     def _full(self, u: torch.Tensor) -> torch.Tensor:
         """The full node field from every rank's block (itself on one device)."""
-        return u if self.block is None else gather(u, self.spmd_mesh, "gather_field")
+        return u if self.block is None else gather(u, self.ranks, "gather_field")
 
     def _set_layout(self, layout: str, *, xla: bool = False) -> None:
         """Take a box mesh's parity or interleaved layout (``xla``: the XLA
@@ -399,7 +466,7 @@ class ChunkedTimeLoop:
         # which raises without a process group of that many; off the kernel
         # path nothing changes
         self.spmd_mesh = None
-        self.block = self.slab = None
+        self.block = self.slab = self.ranks = None
         if int(config.spmd_devices or 0) >= 1 and kernel_path(config):
             self.spmd_mesh = make_mesh(int(config.spmd_devices))
             if self.spmd_mesh.backend == "nccl" and self.device.type != "cuda":
@@ -457,7 +524,7 @@ class ChunkedTimeLoop:
         :4249-4482); on the sharded path every rank gathers, rank 0 writes."""
         mesh = self._promoted_mesh()
         u, p = self.fields(state)
-        if self.spmd_mesh is None or self.spmd_mesh.rank == 0:
+        if self.ranks is None or self.ranks.rank == 0:
             write_tecplot(path, self.deck.title, mesh.coords, mesh.ltog_node, u, p)
 
     def state_from_restart(self, path):

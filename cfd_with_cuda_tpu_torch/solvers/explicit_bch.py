@@ -114,6 +114,7 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     window_spmv_compact_plain,
 )
 from cfd_with_cuda_tpu_torch.parallel.elem_slab import slab_field, slab_rows, slab_to_block
+from cfd_with_cuda_tpu_torch.parallel.placed_ops import dia_spmv_placed
 from cfd_with_cuda_tpu_torch.parallel.sharded_stencil import (
     sharded_div_compact,
     sharded_grad_compact,
@@ -181,7 +182,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         "gt_radius", "s_pad", "monitor_node", "monitor_node_p", "f64_dia", "g_dia_off",
         "gt_dia_off", "use_mg", "mg_dims", "mg_radii", "mg_omegas",
     )
-    ELL_STATIC_ATTRS = ("nn", "nnp", "dt", "pin", "monitor_node", "monitor_node_p", "z_offs")
+    ELL_STATIC_ATTRS = ("nn", "nnp", "dt", "pin", "monitor_node", "monitor_node_p", "z_offs",
+                        "s_pad")
 
     # ------------------------------------------------------------------ setup
     def _setup(self) -> None:
@@ -476,7 +478,10 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         """Tables of the unstructured path (explicit_bch.py:209-310):
         element-major elemental K and G with their reverse-incidence
         scatter tables, the ELL Z, and the banded window of Z when the
-        numbering bounds its offsets."""
+        numbering bounds its offsets.  The node axis of the per-node vectors
+        is padded to ``s_pad``, a ``shard_pad`` multiple (explicit_bch.py:
+        293-311): padded rows carry ``md_inv`` 1 and ``bc_mask`` 0, so the
+        fields stay zero there."""
         self._set_layout("ell")
         deck, cfg, mesh = self.deck, self.config, self.mesh
         dtype = cfg.np_dtype()
@@ -517,6 +522,11 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         if banded is not None:
             self.z_offs, z_bwin = banded
             d["Z_bwin"] = dev(z_bwin)
+        self.s_pad = shard_pad_size(mesh.nn, cfg, False)
+        e = self.s_pad - mesh.nn
+        for k in ("md_inv", "md_orig_inv", "bc_mask", "bc_vel"):
+            fill = 1.0 if k.startswith("md") else 0.0
+            d[k] = np.pad(d[k], [(0, 0)] * (d[k].ndim - 1) + [(0, e)], constant_values=fill)
         return d
 
     def _spmv_offsets(self):
@@ -544,6 +554,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             u, p = ug, pg
             if self.layout == "parity":
                 u = pstl.parity_split_table(u, self.fine_dims, self.sp_c)
+        else:
+            u = np.pad(u, ((0, 0), (0, self.s_pad - self.nn)))      # the shard padding
         un = self._local(torch.from_numpy(np.ascontiguousarray(u, dtype=dtype))).to(self.device)
         pn = torch.from_numpy(np.ascontiguousarray(p, dtype=dtype)).to(self.device)
         return ExplicitState(un, pn, torch.zeros_like(un), torch.zeros_like(pn),
@@ -651,10 +663,8 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
 
         if not self.elem_structured:
             # no element tiling: the elemental convection on grid-order ids
-            def ka_mul(u):
-                conv = spmv.convection_apply(un, u, d["ltog"], d["Sv"], d["gDSv"], d["gq"],
-                                             d["rev"], stab_coef=cfg.conv_stab)
-                return k_mul(u) + pad(conv)
+            conv = self._elemental_convection(d, un)
+            ka_mul = lambda u: k_mul(u) + conv(u)
         else:
             # A_e(un) once per step (elements in element-grid order)
             ae = convection_elem_matrices(un[:, :nn], d["Sv"], d["gDSv"], d["gq"],
@@ -688,7 +698,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
         exchange), assembled into the rank's compact rows or applied
         matrix-free (another element halo exchange a sub-iteration); the
         pressure CG replicated; the monitor broadcast from its rank."""
-        cfg, mesh, slab, plain = self.config, self.spmd_mesh, self.slab, self.plain
+        cfg, mesh, slab, plain = self.config, self.ranks, self.slab, self.plain
         fine, coarse, s_pad = self.fine_dims, self.coarse_dims, self.s_pad
 
         def spmv(tab, u, name):
@@ -705,13 +715,12 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
 
         div = lambda u: sharded_div_compact(d["GT_cwin"], u, fine, coarse, mesh=mesh,
                                             s_pad=s_pad, plain=plain)
-        # every rank takes part in the element halo exchanges; a rank without
-        # grid rows has no elements
-        u_slab = slab_field(un, slab, mesh)
-        ae = None if not slab.size else convection_elem_matrices(
-            u_slab, d["Sv"], d["gDSv"], d["gq"], slab.elem_dims, slab.fine_dims,
-            stab_coef=cfg.conv_stab)
-        if cfg.conv_mode == "assemble":
+        if not self.elem_structured:
+            # no element tiling: the elements that touch the rank's rows
+            conv = self._elemental_convection(d, un)
+            ka_mul = lambda u: k_mul(u) + conv(u)
+        elif cfg.conv_mode == "assemble":
+            ae, _ = self._slab_convection(d, un)
             coij = compact_spmv_oij(self.conv_oij, self.local_off, self.k_offsets, fine)
             conv = assemble_compact_values(ae, self.local_off, coij, self.k_offsets,
                                            slab.elem_dims, slab.fine_dims,
@@ -719,42 +728,72 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             ka_vals = d["K_cvals"] + slab_to_block(conv, slab, self.k_offsets, fine, s_pad)
             ka_mul = lambda u: spmv(ka_vals, u, "sharded_spmv_k_plus_a")
         else:
-            def ka_mul(u):
-                y = k_mul(u)
-                u_s = slab_field(u, slab, mesh)
-                if not slab.size:
-                    return y
-                return y + slab_rows(convection_apply_elem(
-                    ae, u_s, self.local_off, slab.elem_dims, slab.fine_dims), slab)
+            _, conv = self._slab_convection(d, un)
+            ka_mul = lambda u: k_mul(u) + conv(u)
         probe = lambda u: self._probe(u, self.monitor_node)
         masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
         return (k_mul, ka_mul, grad, div, self._box_pressure_solve(d), probe, masks,
                 self.pin_grid)
+
+    def _slab_convection(self, d, un):
+        """``(ae, apply)``: A_e(un) on this rank's element slab and the
+        matrix-free A(un) u of the rank's rows from its block ``u``, each an
+        element halo exchange that every rank takes part in (a rank without
+        grid rows has no elements)."""
+        slab, mesh = self.slab, self.ranks
+        u_slab = slab_field(un, slab, mesh)
+        ae = None if not slab.size else convection_elem_matrices(
+            u_slab, d["Sv"], d["gDSv"], d["gq"], slab.elem_dims, slab.fine_dims,
+            stab_coef=self.config.conv_stab)
+
+        def apply(u):
+            u_s = slab_field(u, slab, mesh)
+            if not slab.size:
+                return torch.zeros_like(u)
+            return slab_rows(convection_apply_elem(ae, u_s, self.local_off, slab.elem_dims,
+                                                   slab.fine_dims), slab)
+        return ae, apply
+
+    def _elemental_convection(self, d, un):
+        """A(un) u of the rows this process holds, matrix-free through the
+        element tables of ``ops/spmv.py`` on grid-order node ids (a box whose
+        elements do not tile it): on split fields the elements that touch
+        the rank's rows, applied to the all-gathered fields (owner computes)."""
+        un_f = self._full(un)
+        return lambda u: self._pad_rows(spmv.convection_apply(
+            un_f, self._full(u), d["ltog"], d["Sv"], d["gDSv"], d["gq"], d["rev"],
+            stab_coef=self.config.conv_stab))
 
     def _xla_operators(self, d, un):
         """The same on the XLA structured path (explicit_bch.py:655-743,
         1086-1110): K by ``dia_spmv``, Z by ``patches_spmv``, G and G^T in
         roll form under F64 and in window-patches form otherwise, A(un) u*
         matrix-free per sub-iteration, and the torch CG with the V-cycle
-        (or Jacobi) preconditioner."""
+        (or Jacobi) preconditioner.  Placed across ranks
+        (``parallel/placement.py``): K, G and G^T on the rank's rows
+        (``parallel/placed_ops.py``), the convection on its element slab,
+        the pressure solve replicated."""
         cfg = self.config
         fine, coarse, nn, s_pad = self.fine_dims, self.coarse_dims, self.nn, self.s_pad
         pad = lambda y: torch.nn.functional.pad(y, (0, s_pad - y.shape[-1]))
-        k_mul = lambda u: dia_spmv(d["K_vals"], u, self.k_offsets)
+        if self.block is None:
+            k_mul = lambda u: dia_spmv(d["K_vals"], u, self.k_offsets)
+        else:
+            k_mul = lambda u: dia_spmv_placed(d["K_vals"], u, self.k_offsets, self.ranks)
         z_mul = lambda p: patches_spmv(d["Z_win"], p, coarse, self.z_radius)
         grad, div = xla_grad_div(self, d, nn)
-        if self.elem_structured:
+        if not self.elem_structured:
+            conv = self._elemental_convection(d, un)
+        elif self.block is not None:
+            _, conv = self._slab_convection(d, un)
+        else:
             # A_e(un) once per step; A(un) u* matrix-free per sub-iteration
             # (the JAX package's convection_apply_stencil)
             ae = convection_elem_matrices(un[:, :nn], d["Sv"], d["gDSv"], d["gq"],
                                           self.elem_dims, fine, stab_coef=cfg.conv_stab)
-            ka_mul = lambda u: k_mul(u) + pad(convection_apply_elem(
-                ae, u[:, :nn], self.local_off, self.elem_dims, fine))
-        else:
-            def ka_mul(u):
-                conv = spmv.convection_apply(un, u, d["ltog"], d["Sv"], d["gDSv"], d["gq"],
-                                             d["rev"], stab_coef=cfg.conv_stab)
-                return k_mul(u) + pad(conv)
+            conv = lambda u: pad(convection_apply_elem(ae, u[:, :nn], self.local_off,
+                                                       self.elem_dims, fine))
+        ka_mul = lambda u: k_mul(u) + conv(u)
         if self.use_mg:
             precond = make_vcycle(d, self.mg_dims, self.mg_radii, self.mg_omegas)
         else:
@@ -766,27 +805,35 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                       maxiter=cfg.pressure_cg_maxiter, precond=precond,
                       dot_dtype=cfg.krylov_dot_dtype())
 
-        probe = lambda u: u[:, self.monitor_node]
+        probe = lambda u: self._probe(u, self.monitor_node)
         masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
         return k_mul, ka_mul, grad, div, pressure_solve, probe, masks, self.pin_grid
 
     def _ell_operators(self, d, un):
         """The same on the unstructured path (explicit_bch.py:707-743,
         978-1068): elemental applies, Ke + Ae(un) built once per step, and
-        the banded-window CG kernels or the torch CG."""
-        cfg = self.config
+        the banded-window CG kernels or the torch CG (under ``spmd_devices``
+        the torch CG on the banded window, explicit_bch.py:996-1005).  Fields
+        are ``(3, s_pad)``, their padding rows zero.  Placed across ranks
+        (``parallel/placement.py``, owner computes): K, K + A and G apply the
+        elements that touch the rank's rows to the all-gathered field, G^T
+        onto the replicated pressure runs whole on every rank."""
+        cfg, nn = self.config, self.nn
+        full = lambda u: self._full(u)[:, :nn]
+        pad = self._pad_rows
         ltog, rev = d["ltog"], d["rev"]
-        k_mul = lambda u: spmv.elem_matvec_apply(d["Ke"], u, ltog, rev)
-        grad = lambda p: spmv.elem_grad_apply(d["Ge"], p, d["ltog_p"], rev)
-        div = lambda u: spmv.elem_div_apply(d["Ge"], u, ltog, d["rev_p"])
+        k_mul = lambda u: pad(spmv.elem_matvec_apply(d["Ke"], full(u), ltog, rev))
+        grad = lambda p: pad(spmv.elem_grad_apply(d["Ge"], p, d["ltog_p"], rev))
+        ge_div, ltog_div = (d["Ge_div"], d["ltog_div"]) if "Ge_div" in d else (d["Ge"], ltog)
+        div = lambda u: spmv.elem_div_apply(ge_div, full(u), ltog_div, d["rev_p"])
         # (K + A(un)) u* is ONE elemental apply per sub-iteration (conv_mode
         # is ignored here, as in the JAX package)
-        ka = d["Ke"] + spmv.convection_elemental(un, ltog, d["Sv"], d["gDSv"], d["gq"],
+        ka = d["Ke"] + spmv.convection_elemental(full(un), ltog, d["Sv"], d["gDSv"], d["gq"],
                                                  stab_coef=cfg.conv_stab)
-        ka_mul = lambda u: spmv.elem_matvec_apply(ka, u, ltog, rev)
+        ka_mul = lambda u: pad(spmv.elem_matvec_apply(ka, full(u), ltog, rev))
         warm = cfg.pressure_warm_start
 
-        if self.z_offs is not None and kernel_path(cfg):
+        if self.z_offs is not None and kernel_path(cfg) and self.spmd_mesh is None:
             cg_solve = fused_cg_plain if self.plain else fused_cg
 
             def pressure_solve(r2, x0):
@@ -810,7 +857,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
                           maxiter=cfg.pressure_cg_maxiter, precond=lambda r: r / d["Z_diag"],
                           dot_dtype=cfg.krylov_dot_dtype())
 
-        probe = lambda u: u[:, self.monitor_node]
+        probe = lambda u: self._probe(u, self.monitor_node)
         masks = tuple(d[k][None] for k in ("bc_mask", "md_inv", "md_orig_inv"))
         return k_mul, ka_mul, grad, div, pressure_solve, probe, masks, self.pin
 
@@ -822,7 +869,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
             pdot_init = pdot0 + (pdot0 - pdot_nm1)
         else:
             pdot_init = pdot0
-        if self.spmd_mesh is not None:
+        if self.spmd_mesh is not None and self.layout == "interleaved":
             operators = self._sharded_operators
         else:
             operators = self._xla_operators if self.xla else {
@@ -890,7 +937,7 @@ class ExplicitBCHSolver(ChunkedTimeLoop):
     def fields(self, state: ExplicitState) -> tuple[np.ndarray, np.ndarray]:
         """(u (NN,3), p (NNp,)) as numpy, deck node order."""
         if self.layout == "ell":
-            return state.un.cpu().numpy().T, state.pn.cpu().numpy()
+            return self._full(state.un)[:, : self.nn].cpu().numpy().T, state.pn.cpu().numpy()
         if self.layout == "parity":
             u = pstl.parity_merge(state.un, self.fine_dims).cpu().numpy()
         else:

@@ -106,7 +106,8 @@ from cfd_with_cuda_tpu_torch.ops.window_stencil import (
     window_spmv_compact,
     window_spmv_compact_plain,
 )
-from cfd_with_cuda_tpu_torch.parallel.elem_slab import slab_field, slab_to_block
+from cfd_with_cuda_tpu_torch.parallel.elem_slab import slab_field, slab_rows, slab_to_block
+from cfd_with_cuda_tpu_torch.parallel.placed_ops import dia_spmv_placed
 from cfd_with_cuda_tpu_torch.parallel.sharded_stencil import (
     sharded_div_compact,
     sharded_grad_compact,
@@ -164,16 +165,21 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         "f64_dia", "g_dia_off", "gt_dia_off", "use_mg", "mg_dims", "mg_radii", "mg_omegas",
     )
     ELL_STATIC_ATTRS = ("nn", "nnp", "dt", "pin", "monitor_node", "monitor_node_p",
-                        "ppe_project")
+                        "ppe_project", "s_pad")
 
     def _configure(self, deck, config, device, plain) -> None:
         super()._configure(deck, config, device, plain)
         if config.momentum_solver.lower() == "gmres":
             raise ValueError(_GMRES_DEFECT)
-        if self.spmd_mesh is not None and config.momentum_solver.lower() != "bicgstab":
-            raise ValueError("spmd_devices: the sharded momentum solve is the BiCGStab "
-                             f"(its dots summed over the ranks), not {config.momentum_solver!r}")
         self._momentum_solver = solver_by_name(config.momentum_solver)
+
+    def _split(self) -> None:
+        """The fields are split over ranks from here on: the momentum solve
+        must sum its dots over them, which the BiCGStab does."""
+        if self.config.momentum_solver.lower() != "bicgstab":
+            raise ValueError("fields split over ranks: the momentum solve is the BiCGStab "
+                             "(its dots summed over the ranks), not "
+                             f"{self.config.momentum_solver!r}")
 
     # ------------------------------------------------------------------ setup
     def _setup(self) -> None:
@@ -544,7 +550,11 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         ELL step (implicit_gq.py:224-337): Dirichlet row masks on the CSR
         values, the CSR -> ELL slot map, and the reverse-incidence table of
         the elemental -> CSR map (``rev_m``, where the JAX package keeps the
-        map itself, ``scatter_m``, for a ``segment_sum``)."""
+        map itself, ``scatter_m``, for a ``segment_sum``).  The node axis of
+        the node-rowed tables is padded to ``s_pad``, a ``shard_pad``
+        multiple (implicit_gq.py:311-322): zero values, column 0, ``bc_mask``
+        0; the CSR -> ELL map addresses the padded ``(L, s_pad)`` table, which
+        the JAX package pads in its step."""
         self._set_layout("ell")
         deck = self.deck
         dev = lambda x: np.asarray(x, dtype=self.config.np_dtype())
@@ -593,6 +603,12 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             "bc_vel": dev(bc_vel.T),
             "diag_slots": np.asarray(diag_all_slots),
         }
+        self.s_pad = shard_pad_size(mesh.nn, self.config, False)
+        e = self.s_pad - mesh.nn
+        for k in ("m_vals", "A_cols", "G_vals", "G_cols", "bc_mask", "bc_vel"):
+            self.d[k] = np.pad(self.d[k], [(0, 0)] * (self.d[k].ndim - 1) + [(0, e)])
+        c2e = self.d["csr_to_ell"]
+        self.d["csr_to_ell"] = (c2e // mesh.nn) * self.s_pad + c2e % mesh.nn
         self.pin = pin
         self.monitor_node = find_monitor_node(
             deck.coords, deck.monitor_xyz if deck.monitor_xyz is not None else (0.5,) * 3
@@ -624,6 +640,8 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             u, p = ug, pg
             if self.layout == "parity":
                 u = pstl.parity_split_table(u, self.fine_dims, self.sp_c)
+        else:
+            u = np.pad(u, ((0, 0), (0, self.s_pad - self.nn)))      # the shard padding
         uk = self._local(torch.from_numpy(np.ascontiguousarray(u, dtype=dtype))).to(self.device)
         pk = torch.from_numpy(np.ascontiguousarray(p, dtype=dtype)).to(self.device)
         return ImplicitState(uk=uk, pk=pk, pk_prev=pk.clone())
@@ -796,7 +814,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         # element's (i, j) entry lands at the fixed slot conv_oij[i][j], the
         # unit diagonal at each row's offset-0 entry diag_pos
         coij = compact_spmv_oij(self.conv_oij, self.local_off, self.a_offsets, fine)
-        if self.spmd_mesh is None:
+        if self.ranks is None:
             ae = convection_elem_matrices(uk_prev[:, :nn], d["Sv"], d["gDSv"], d["gq"],
                                           self.elem_dims, fine, stab_coef=cfg.conv_stab)
             conv_vals = assemble_compact_values(ae, self.local_off, coij, self.a_offsets,
@@ -807,7 +825,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             # (every rank takes part in the element halo exchange; a rank
             # without grid rows has no elements)
             slab = self.slab
-            u_slab = slab_field(uk_prev, slab, self.spmd_mesh)
+            u_slab = slab_field(uk_prev, slab, self.ranks)
             conv = uk_prev.new_zeros(0)
             if slab.size:
                 ae = convection_elem_matrices(u_slab, d["Sv"], d["gDSv"], d["gq"],
@@ -867,7 +885,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         ``sharded_spmv_compact`` on the compact tables of its rows (a halo
         exchange a call), G through ``sharded_grad_compact`` (no collective),
         G^T through ``sharded_div_compact`` (its coarse rows, all-gathered)."""
-        fine, mesh, s_pad, plain = self.fine_dims, self.spmd_mesh, self.s_pad, self.plain
+        fine, mesh, s_pad, plain = self.fine_dims, self.ranks, self.s_pad, self.plain
 
         def spmv(name):
             return lambda tab, x: sharded_spmv_compact(tab, x, fine, offsets=self.a_offsets,
@@ -889,21 +907,40 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         (implicit_gq.py:836-870, 955-990): the per-step LHS assembled into
         the full A DIA table (``assemble_window_values``), A and M by
         ``dia_spmv``, G and G^T in roll form under F64 and in window-patches
-        form otherwise."""
+        form otherwise.  Placed across ranks (``parallel/placement.py``): the
+        LHS assembled on the rank's element slab and cut to its rows (every
+        row gets every element's terms, in the single-device order), A, M, G
+        and G^T on its rows (``parallel/placed_ops.py``)."""
         cfg = self.config
         fine, s_pad = self.fine_dims, self.s_pad
         size = int(np.prod(fine))               # real fine-grid size (<= s_pad)
+        n_off = len(self.a_offsets)
         # A = M/dt + K + A(u^k), BC rows zeroed with a unit diagonal (padding
         # rows too); each element's (i, j) entry lands at the fixed offset
         # conv_oij[i][j]
-        ae = convection_elem_matrices(uk_prev[:, :size], d["Sv"], d["gDSv"], d["gq"],
-                                      self.elem_dims, fine, stab_coef=cfg.conv_stab)
-        conv_vals = assemble_window_values(ae, self.local_off, self.conv_oij,
-                                           len(self.a_offsets), self.elem_dims, fine, s_pad)
+        if self.block is None:
+            ae = convection_elem_matrices(uk_prev[:, :size], d["Sv"], d["gDSv"], d["gq"],
+                                          self.elem_dims, fine, stab_coef=cfg.conv_stab)
+            conv_vals = assemble_window_values(ae, self.local_off, self.conv_oij, n_off,
+                                               self.elem_dims, fine, s_pad)
+            a_mul = lambda x: dia_spmv(a_vals, x, self.a_offsets)
+            m_mul = lambda x: dia_spmv(d["M_vals"], x, self.a_offsets)
+        else:
+            # every rank takes part in the element halo exchange
+            slab, mesh = self.slab, self.ranks
+            u_slab = slab_field(uk_prev, slab, mesh)
+            conv_vals = uk_prev.new_zeros((n_off, self.block.s_loc))
+            if slab.size:
+                ae = convection_elem_matrices(u_slab, d["Sv"], d["gDSv"], d["gq"],
+                                              slab.elem_dims, slab.fine_dims,
+                                              stab_coef=cfg.conv_stab)
+                conv_vals = slab_rows(assemble_window_values(
+                    ae, self.local_off, self.conv_oij, n_off, slab.elem_dims, slab.fine_dims,
+                    slab.size), slab)
+            a_mul = lambda x: dia_spmv_placed(a_vals, x, self.a_offsets, mesh)
+            m_mul = lambda x: dia_spmv_placed(d["M_vals"], x, self.a_offsets, mesh)
         a_vals = (d["MK_vals"] + conv_vals) * d["row_mask_grid"][None, :]
         a_vals[self.a_zero_off] += d["diag_add_grid"]
-        a_mul = lambda x: dia_spmv(a_vals, x, self.a_offsets)
-        m_mul = lambda x: dia_spmv(d["M_vals"], x, self.a_offsets)
         grad, div = xla_grad_div(self, d, size)
         return a_mul, m_mul, grad, div, a_vals[self.a_zero_off]
 
@@ -925,58 +962,62 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         # ---- step2: pressure CG on the coarse grid
         pk, sol = self._pressure_update(d, div(uk), pk_prev, pk_prevprev)
 
-        max_acc = torch.max(torch.abs(uk - uk_prev)) / dt
-        mon = self.monitor_node
+        max_acc = self._field_max(torch.abs(uk - uk_prev)) / dt
+        mon = self._probe(uk, self.monitor_node)
         stats = StepStats(
-            u_mon=uk[0, mon], v_mon=uk[1, mon], w_mon=uk[2, mon],
+            u_mon=mon[0], v_mon=mon[1], w_mon=mon[2],
             p_mon=pk[self.monitor_node_p], max_acc=max_acc,
             iters=1, cg_iters=sol.iters, mom_iters=mom.iters,
         )
         return ImplicitState(uk=uk, pk=pk, pk_prev=pk_prev), stats
 
-    def _time_step_ell(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
-        """The ELL step (implicit_gq.py:1109-1203): torch ops only."""
-        cfg = self.config
-        dt = self.dt
-        uk_prev, pk_prev, pk_prevprev = state           # uk (3, NN)
-
-        # ---- step1 LHS: A = M/dt + K + A(u^k), BC rows zeroed (:3916-3929)
+    def _ell_lhs(self, d, uk_prev):
+        """``(a_ell (L, rows), a_diag (rows,))``: step1's LHS A = M/dt + K +
+        A(u^k) with its BC rows zeroed (:3916-3929), assembled into CSR values
+        and scattered into slot-major ELL, and its Jacobi diagonal (1 on the
+        padding rows), on the rows this process holds."""
+        rows = self._rows()
         conv_vals = spmv.convection_assemble_csr(
-            uk_prev, d["ltog"], d["Sv"], d["gDSv"], d["gq"], d["rev_m"],
-            stab_coef=cfg.conv_stab,
+            self._full(uk_prev), d["ltog"], d["Sv"], d["gDSv"], d["gq"], d["rev_m"],
+            stab_coef=self.config.conv_stab,
         )
         a_csr = (d["mk_vals_csr"] + conv_vals) * d["row_mask"] + d["diag_add"]
-        ell_shape = d["A_cols"].shape
-        a_ell = a_csr.new_zeros(ell_shape[0] * ell_shape[1])
+        n_slots = d["A_cols"].shape[0]
+        a_ell = a_csr.new_zeros(n_slots * rows)
         a_ell[d["csr_to_ell"]] = a_csr          # distinct slots: no accumulation
-        a_ell = a_ell.reshape(ell_shape)
+        a_diag = a_csr[d["diag_slots"]]
+        if a_diag.shape[0] < rows:          # the padding rows' unit diagonal
+            a_diag = torch.nn.functional.pad(a_diag, (0, rows - a_diag.shape[0]), value=1.0)
+        return a_ell.reshape(n_slots, rows), a_diag
+
+    def _time_step_ell(self, d, state: ImplicitState) -> tuple[ImplicitState, StepStats]:
+        """The ELL step (implicit_gq.py:1109-1203): torch ops only, on fields
+        ``(3, s_pad)`` whose padding rows stay zero (zero LHS rows there, unit
+        Jacobi diagonal).  Placed across ranks (``parallel/placement.py``,
+        owner computes): the CSR values of the rank's rows assembled from the
+        elements that touch them and scattered into its ``(L, s_loc)`` ELL
+        table, its ELL rows applied to the all-gathered field, the
+        BiCGStab's dots summed over the ranks, G^T onto the replicated
+        pressure whole on every rank."""
+        cfg = self.config
+        dt = self.dt
+        uk_prev, pk_prev, pk_prevprev = state           # uk (3, s_pad); a rank: (3, s_loc)
+        full = self._full
+        a_ell, a_diag = self._ell_lhs(d, uk_prev)
 
         # ---- step1 RHS: (M/dt) u^k - G (2 p^k - p^{k-1})  (:3937-4005)
         pdiff2 = 2.0 * pk_prev - pk_prevprev
-        r1 = spmv.ell_spmv(d["m_vals"], d["A_cols"], uk_prev)
+        r1 = spmv.ell_spmv(d["m_vals"], d["A_cols"], full(uk_prev))
         r1 = r1 - grad_apply(d["G_vals"], d["G_cols"], pdiff2)
         r1 = r1 * d["bc_mask"][None, :] + d["bc_vel"]        # RHS = BC value
 
         # ---- momentum solve, 3 directions batched (:3972-4033); Jacobi
-        a_diag = a_csr[d["diag_slots"]]
-        warm = bool(cfg.implicit_warm_start)
-        mom = self._momentum_solver(
-            lambda x: spmv.ell_spmv(a_ell, d["A_cols"], x),
-            r1,
-            x0=uk_prev if warm else None,
-            tol=cfg.momentum_tol,
-            atol=cfg.momentum_abs_tol,
-            maxiter=cfg.momentum_maxiter,
-            # warm-started solves take at least one Krylov step (see the
-            # parity step)
-            miniter=1 if warm else 0,
-            dot_dtype=cfg.krylov_dot_dtype(),
-            precond=lambda r: r / a_diag,
-        )
+        mom = self._momentum_solve(lambda x: spmv.ell_spmv(a_ell, d["A_cols"], full(x)), r1,
+                                   uk_prev, a_diag)
         uk = mom.x
 
         # ---- step2: R2 = -(1/dt) G^T u^k  (:4096-4127)
-        r2 = (-1.0 / dt) * div_apply(d["GT_vals"], d["GT_cols"], uk) * d["p_mask"]
+        r2 = (-1.0 / dt) * div_apply(d["GT_vals"], d["GT_cols"], full(uk)) * d["p_mask"]
         if self.ppe_project:
             r2 = r2 - torch.mean(r2)
         if self.pin >= 0:
@@ -985,7 +1026,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         sol = cg(
             lambda p: spmv.ell_spmv(d["Z_vals"], d["Z_cols"], p),
             r2,
-            x0=(pk_prev - pk_prevprev) if warm else None,
+            x0=(pk_prev - pk_prevprev) if cfg.implicit_warm_start else None,
             tol=cfg.pressure_cg_tol,
             maxiter=cfg.pressure_cg_maxiter,
             dot_dtype=cfg.krylov_dot_dtype(),
@@ -996,10 +1037,10 @@ class ImplicitGQSolver(ChunkedTimeLoop):
             pdiff = pdiff - torch.mean(pdiff)
         pk = pk_prev + pdiff                                 # (:4162-4165)
 
-        max_acc = torch.max(torch.abs(uk - uk_prev)) / dt
-        mon = self.monitor_node
+        max_acc = self._field_max(torch.abs(uk - uk_prev)) / dt
+        mon = self._probe(uk, self.monitor_node)
         stats = StepStats(
-            u_mon=uk[0, mon], v_mon=uk[1, mon], w_mon=uk[2, mon],
+            u_mon=mon[0], v_mon=mon[1], w_mon=mon[2],
             p_mon=pk[self.monitor_node_p], max_acc=max_acc,
             iters=1, cg_iters=sol.iters, mom_iters=mom.iters,
         )
@@ -1017,7 +1058,7 @@ class ImplicitGQSolver(ChunkedTimeLoop):
     def fields(self, state: ImplicitState) -> tuple[np.ndarray, np.ndarray]:
         """(u (NN,3), p (NNp,)) as numpy, deck node order."""
         if self.layout == "ell":
-            return state.uk.cpu().numpy().T, state.pk.cpu().numpy()
+            return self._full(state.uk)[:, : self.nn].cpu().numpy().T, state.pk.cpu().numpy()
         if self.layout == "parity":
             u = pstl.parity_merge(state.uk, self.fine_dims).cpu().numpy()
         else:

@@ -99,7 +99,7 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    ``e2e_xla_f64`` (100 explicit steps from rest in the stored f64 run's
    config, held against ``precision_ne27000.npz``'s f64 rows: the final
    field and the CG count of every step, the monitor trace printed; ms/step,
-   peak memory; its first 6 steps against the port's CPU path on the same
+   peak memory; its first 3 steps against the port's CPU path on the same
    tables), ``e2e_xla_f64_implicit`` (20 implicit steps from rest in the
    default F64 config with ``"mg"`` and with ``"jacobi"``: counts and the
    fields held together), ``e2e_xla_f32_mg`` (F32 through the V-cycle
@@ -152,7 +152,19 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    against the single-device path; (b) ``spmd_ranks`` at the end: 2 and 4
    ranks spawned on the one card over gloo (CUDA tensors staged through
    pinned host buffers) at ``cavity_deck(8)``, held against one rank within
-   the JAX package's sharded tolerances, equal explicit CG counts.
+   the JAX package's sharded tolerances, equal explicit CG counts;
+14. the annotation-placed paths (``parallel/placement.py::place``, the JAX
+   caller's ``shard_params`` + ``shard_state`` before GSPMD): (a)
+   ``placed_xla_f64`` / ``placed_xla_f64_implicit`` inside phase 9 (the JAX
+   package's default ``SolverConfig()`` on its NE27000 tables) and
+   ``placed_bfs`` / ``placed_bfs_implicit`` inside phase 8 (on its tables),
+   each placed over a one-rank NCCL group against one device, 3 steps from
+   rest in turns: bit for bit expected (the gap printed otherwise, beside
+   the single-device path's own run-to-run gap), equal counts and launches,
+   ms/step of both, the collectives a step; (b) ``placed_ranks`` at the end:
+   2 and 4 ranks spawned on the one card over gloo on the five decks of
+   ``tests/test_sharding.py`` (F64, ``shard_pad=8``), against one device at
+   that file's tolerances.
 
 Each phase prints one JSON line.  Any failure raises (non-zero exit, no
 result line).  The last lines are the ``kernels`` summary, the card's name
@@ -1450,6 +1462,7 @@ def phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, cfg, n_st
         raise AssertionError(f"bfs implicit e2e: {out}")
     out["vs_plain"] = _bfs_vs_plain("bfs_implicit_vs_plain_3_steps", solver, ImplicitGQSolver,
                                     cuda_lib, state, 3, strict)
+    out["solver"] = solver
     return out
 
 
@@ -2087,6 +2100,17 @@ def _streamed_check(pstl, wc, x, pairs, wc2=None, pairs2=None) -> dict:
     return out
 
 
+def _ne85_configs(cache_dir=None):
+    """(explicit, implicit) configs of phase 7's NE85184 runs: F32, CG tol 1e-6,
+    warm start, chunks of 25 (the explicit one with the fused CG loop);
+    ``cache_dir`` their setup cache."""
+    from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
+
+    base = dict(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6, pressure_warm_start=True,
+                steps_per_chunk=25, setup_cache=cache_dir)
+    return SolverConfig(pressure_cg_fuse_loop=True, **base), SolverConfig(**base)
+
+
 def _ne85_deck(cavity_deck, n):
     return cavity_deck(n, cluster=2.0, viscosity=0.01, dt=NE85_DT)
 
@@ -2168,29 +2192,30 @@ def phase_e2e_ne85(solver, ExplicitBCHSolver, pstl, cuda_lib, n_steps, finite_st
     return out
 
 
-def ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
-                ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig) -> list:
+def ne85_phases(args, setup, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
+                ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy) -> list:
     """Phase 7, the parity layout of both solvers on the NE85184 cavity, where
     the JAX package's rule streams every velocity field: ``kernels_streamed``
     (TPU kernel row 3 in its K, K + A and MK + A forms on the solvers' own
     tables, against the resident form and the plain version; and the compact
     G^T, row 4, at these shapes), ``e2e_ne85``, ``cg_modes`` on the explicit
     solver's 125-slot Z (91,125 rows) and ``e2e_ne85_implicit``.  The rows of
-    the ``kernels`` line it measures."""
+    the ``kernels`` line it measures.  Both host setups ran in the setup
+    worker (``setup``: :func:`start_setup_worker`'s process and cache)."""
     import numpy as np
     import torch
 
     pstl = parity_stencil
     strict = args.ne85_n == NE85_N
     rng = np.random.default_rng(20261019)
+    cfg, icfg = _ne85_configs(setup[1])
+    worker = wait_for_setup(setup, "ne85_explicit")
     t0 = time.time()
-    cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
-                       pressure_warm_start=True, pressure_cg_fuse_loop=True,
-                       steps_per_chunk=25)
     solver = ExplicitBCHSolver(_ne85_deck(cavity_deck, args.ne85_n), cfg)
     sp = solver.sp_c
     emit(dict(phase="setup_ne85", layout=solver.layout, nn=solver.nn, nnp=solver.nnp, sp=sp,
-              k_planes=int(solver.d["Kp"].shape[1]), setup_s=time.time() - t0))
+              k_planes=int(solver.d["Kp"].shape[1]), setup_worker=worker,
+              setup_cache_hit=solver.setup_cache_hit, setup_s=time.time() - t0))
     if solver.layout != "parity":
         raise AssertionError(f"ne85: the explicit solver took {solver.layout}")
     e2e = phase_e2e_ne85(solver, ExplicitBCHSolver, pstl, cuda_lib, args.ne85_steps,
@@ -2225,11 +2250,11 @@ def ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_st
     del solver, d, b, cold, x0
     torch.cuda.empty_cache()
 
+    worker = wait_for_setup(setup, "ne85_implicit")
     t0 = time.time()
-    icfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
-                        pressure_warm_start=True, steps_per_chunk=25)
     isolver = ImplicitGQSolver(_ne85_deck(cavity_deck, args.ne85_n), icfg)
-    emit(dict(phase="setup_ne85_implicit", layout=isolver.layout, setup_s=time.time() - t0,
+    emit(dict(phase="setup_ne85_implicit", layout=isolver.layout, setup_worker=worker,
+              setup_cache_hit=isolver.setup_cache_hit, setup_s=time.time() - t0,
               a_planes=int(isolver.d["MKp"].shape[1])))
     if isolver.layout != "parity":
         raise AssertionError(f"ne85: the implicit solver took {isolver.layout}")
@@ -2333,8 +2358,9 @@ XLA_F32_U_MON_TOL, XLA_F32_FIELD_TOL = 1e-5, 1e-2
 # in different orders, of max|u| and max|p|
 XLA_CARD_CPU_TOL = 1e-11
 # depth cut to keep the whole script under 1,100 s (H100 80GB HBM3, 700 W: the
-# CPU run took 77.9 s for 20 steps on a slower host): 6 steps, not 20
-XLA_F64_CPU_STEPS = 6
+# CPU run took 77.9 s for 20 steps on a slower host, 42.9 s for 6 beside phase
+# 14's additions): 3 steps, not 20
+XLA_F64_CPU_STEPS = 3
 XLA_DECK_N = 8
 
 
@@ -2475,6 +2501,7 @@ def phase_e2e_xla_explicit(deck, ExplicitBCHSolver, cuda_lib, cfg, n_steps, tag,
     if "vs_f64_cpu" in out and _within_card_cpu_tol(out["vs_f64_cpu"]):
         raise AssertionError(f"{tag}: the card-against-CPU bound does not tell this run from "
                              f"F64: {out['vs_f64_cpu']}")
+    out["solver"] = solver
     return out
 
 
@@ -2491,7 +2518,7 @@ def phase_e2e_xla_explicit(deck, ExplicitBCHSolver, cuda_lib, cfg, n_steps, tag,
 XLA_MG_JACOBI_TOLS = dict(p_step1=1e-9, u=1e-9, p=1e-9)
 
 
-def phase_e2e_xla_implicit(deck, ImplicitGQSolver, cuda_lib, SolverConfig, n_steps,
+def phase_e2e_xla_implicit(deck, ImplicitGQSolver, cuda_lib, SolverConfig, cfg, n_steps,
                            strict) -> dict:
     """(b): ``n_steps`` implicit steps from rest in the JAX package's default
     F64 config, with ``"mg"`` and with ``"jacobi"`` (the latter on the former's
@@ -2500,7 +2527,7 @@ def phase_e2e_xla_implicit(deck, ImplicitGQSolver, cuda_lib, SolverConfig, n_ste
     import numpy as np
 
     t0 = time.time()
-    solver = ImplicitGQSolver(deck, SolverConfig(steps_per_chunk=5, pressure_precond="mg"))
+    solver = ImplicitGQSolver(deck, cfg)
     setup_s = time.time() - t0
     if not (solver.xla and solver.use_mg and solver.f64_dia):
         raise AssertionError("e2e_xla_f64_implicit: the XLA path with multigrid was not taken")
@@ -2532,6 +2559,7 @@ def phase_e2e_xla_implicit(deck, ImplicitGQSolver, cuda_lib, SolverConfig, n_ste
                        and max(runs["jacobi"]["cg_iters"]) < maxiter
                        and sum(runs["mg"]["cg_iters"]) < sum(runs["jacobi"]["cg_iters"])):
         raise AssertionError(f"implicit mg against jacobi: {out}")
+    out["solver"] = solver
     return out
 
 
@@ -2571,32 +2599,66 @@ def phase_xla_card_vs_cpu(cavity_deck, ExplicitBCHSolver, ImplicitGQSolver, Solv
     return out
 
 
-def xla_phases(args, cavity_deck, cuda_lib, ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy,
+def _xla_configs(cache_dir=None):
+    """(explicit F64, implicit F64, explicit F32) configs of phase 9's runs on
+    the cavity: the stored f64 run's (CG tol 1e-6, warm start, chunks of 5,
+    the V-cycle under "auto"), the JAX package's default with "mg", F32
+    through the V-cycle; ``cache_dir`` their setup cache."""
+    from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
+
+    return (SolverConfig(dtype_policy=DTypePolicy.F64, pressure_cg_tol=1e-6,
+                         pressure_warm_start=True, steps_per_chunk=5, pressure_precond="auto",
+                         setup_cache=cache_dir),
+            SolverConfig(steps_per_chunk=5, pressure_precond="mg", setup_cache=cache_dir),
+            SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
+                         pressure_warm_start=True, steps_per_chunk=25, pressure_precond="mg",
+                         setup_cache=cache_dir))
+
+
+def _xla_deck(cavity_deck, n):
+    return cavity_deck(n, cluster=2.0, viscosity=0.01, dt=0.001)
+
+
+def xla_phases(args, setup, cavity_deck, cuda_lib, ExplicitBCHSolver, ImplicitGQSolver,
                SolverConfig) -> None:
-    """Phase 9: the XLA structured path of both solvers on the cavity."""
+    """Phase 9: the XLA structured path of both solvers on the cavity (the
+    three host setups ran in the setup worker, ``setup``)."""
     import torch
 
     t0 = time.time()
     full = args.deck_n == 30
-    deck = lambda: cavity_deck(args.deck_n, cluster=2.0, viscosity=0.01, dt=0.001)
-    # (a) the stored f64 run's config, no setup cache
-    f64 = SolverConfig(dtype_policy=DTypePolicy.F64, pressure_cg_tol=1e-6,
-                       pressure_warm_start=True, steps_per_chunk=5, pressure_precond="auto")
-    cpu_ref = phase_e2e_xla_explicit(deck(), ExplicitBCHSolver, cuda_lib, f64, args.xla_steps,
-                                     "e2e_xla_f64", dict(field=XLA_F64_FIELD_TOL), full,
-                                     args.xla_cpu_steps)["cpu_ref"]
+    deck = lambda: _xla_deck(cavity_deck, args.deck_n)
+    f64, icfg, f32 = _xla_configs(setup[1])
+    # (a) the stored f64 run's config
+    emit(dict(phase="xla_setup_worker", explicit=wait_for_setup(setup, "xla_f64"),
+              implicit=wait_for_setup(setup, "xla_f64_implicit"),
+              f32=wait_for_setup(setup, "xla_f32")))
+    ex = phase_e2e_xla_explicit(deck(), ExplicitBCHSolver, cuda_lib, f64, args.xla_steps,
+                                "e2e_xla_f64", dict(field=XLA_F64_FIELD_TOL), full,
+                                args.xla_cpu_steps)
+    cpu_ref = ex["cpu_ref"]
+    # phase 14 (a): the JAX package's default SolverConfig() placed over one NCCL
+    # rank against one device, on these tables (the config shapes none of them)
+    default = SolverConfig(steps_per_chunk=args.placed_steps)
+    s = ex.pop("solver")
+    phase_placed_one_rank("placed_xla_f64", ExplicitBCHSolver.from_tables(
+        s.deck, default, s.d, s.static_attrs()), ExplicitBCHSolver, cuda_lib,
+        args.placed_steps, "explicit")
+    del s, ex
     torch.cuda.empty_cache()
     # (b) the implicit solver in the default F64 config, "mg" and "jacobi"
-    phase_e2e_xla_implicit(deck(), ImplicitGQSolver, cuda_lib, SolverConfig,
-                           args.xla_implicit_steps, full)
+    s = phase_e2e_xla_implicit(deck(), ImplicitGQSolver, cuda_lib, SolverConfig, icfg,
+                               args.xla_implicit_steps, full).pop("solver")
+    phase_placed_one_rank("placed_xla_f64_implicit", ImplicitGQSolver.from_tables(
+        s.deck, default, s.d, s.static_attrs()), ImplicitGQSolver, cuda_lib,
+        args.placed_steps, "implicit")
+    del s
     torch.cuda.empty_cache()
     # (c) F32 through the multigrid V-cycle
-    f32 = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
-                       pressure_warm_start=True, steps_per_chunk=25, pressure_precond="mg")
     phase_e2e_xla_explicit(deck(), ExplicitBCHSolver, cuda_lib, f32, args.xla_steps,
                            "e2e_xla_f32_mg", dict(u_mon=XLA_F32_U_MON_TOL,
                                                   field=XLA_F32_FIELD_TOL), full,
-                           cpu_ref=cpu_ref)
+                           cpu_ref=cpu_ref).pop("solver")
     torch.cuda.empty_cache()
     # (d) the card against the CPU
     phase_xla_card_vs_cpu(cavity_deck, ExplicitBCHSolver, ImplicitGQSolver, SolverConfig,
@@ -3730,23 +3792,34 @@ def _bfs_configs(cache_dir=None):
     return SolverConfig(**base), SolverConfig(pressure_warm_start=True, **base)
 
 
-def setup_worker(ne125_n, bfs_dims, cache_dir) -> None:
-    """The host setups of the BFS's two solvers (phase 8) and of the NE125000
-    solver (phase 12) on the CPU, into the setup cache ``cache_dir`` (run in a
-    worker process while the earlier phases use the card); after each, one
-    JSON line of its seconds and a ``<name>.done`` file in ``cache_dir``, the
-    NE125000 line last."""
-    from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck
+def setup_worker(deck_n, ne85_n, ne125_n, bfs_dims, cache_dir) -> None:
+    """The host setups of the NE85184 cavity's two solvers (phase 7), the BFS's
+    two (phase 8), the XLA path's three on the cavity (phase 9) and the
+    NE125000 solver (phase 12) on the CPU, in the order the phases need them,
+    into the setup cache ``cache_dir`` (run in a worker process while the
+    earlier phases use the card); after each, one JSON line of its seconds and
+    a ``<name>.done`` file in ``cache_dir``, the NE125000 line last."""
+    from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck
     from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
     from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
 
     dims = tuple(int(v) for v in bfs_dims.split("x"))
     bcfg, icfg = _bfs_configs(cache_dir)
+    ncfg, nicfg = _ne85_configs(cache_dir)
+    xcfg, xicfg, xfcfg = _xla_configs(cache_dir)
+    xdeck = lambda: _xla_deck(cavity_deck, deck_n)
     for name, make in (
+            ("ne85_explicit", lambda: ExplicitBCHSolver(_ne85_deck(cavity_deck, ne85_n), ncfg,
+                                                        device="cpu")),
+            ("ne85_implicit", lambda: ImplicitGQSolver(_ne85_deck(cavity_deck, ne85_n), nicfg,
+                                                       device="cpu")),
             ("bfs_explicit", lambda: ExplicitBCHSolver(_bfs_deck(bfs_deck, dims, 0.002), bcfg,
                                                        device="cpu")),
             ("bfs_implicit", lambda: ImplicitGQSolver(_bfs_deck(bfs_deck, dims, 0.01), icfg,
                                                       device="cpu")),
+            ("xla_f64", lambda: ExplicitBCHSolver(xdeck(), xcfg, device="cpu")),
+            ("xla_f64_implicit", lambda: ImplicitGQSolver(xdeck(), xicfg, device="cpu")),
+            ("xla_f32", lambda: ExplicitBCHSolver(xdeck(), xfcfg, device="cpu")),
             ("ne125", lambda: ExplicitBCHSolver(*_ne125_solver_args(ne125_n, cache_dir),
                                                 device="cpu"))):
         t0 = time.time()
@@ -3771,17 +3844,18 @@ def wait_for_setup(setup, name: str, timeout_s: float = 900.0) -> bool:
 
 def start_setup_worker(args):
     """Start :func:`setup_worker` in a process of its own: (process, cache
-    directory).  The BFS and NE125000 setups (~75 s of host work each) then
-    run beside the earlier phases on the card, and phases 8 and 12 (c) load
-    their tables from the setup cache; where the worker did not store them, a
-    phase sets up anew."""
+    directory).  The NE85184, BFS, XLA-path and NE125000 setups (~20-90 s of
+    host work each) then run beside the earlier phases on the card, and
+    phases 7, 8, 9 and 12 (c) load their tables from the setup cache; where
+    the worker did not store them, a phase sets up anew."""
     import os
     import tempfile
 
     cache = tempfile.mkdtemp(prefix="chip_smoke_setup_")
     code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import chip_smoke; "
-            f"chip_smoke.setup_worker({args.ne125_n}, {args.bfs_dims!r}, {cache!r})")
-    # no eviction in this cache: its three snapshots pass the default 8 GB cap
+            f"chip_smoke.setup_worker({args.deck_n}, {args.ne85_n}, {args.ne125_n}, "
+            f"{args.bfs_dims!r}, {cache!r})")
+    # no eviction in this cache: its eight snapshots pass the default 8 GB cap
     env = dict(os.environ, OMP_NUM_THREADS="2", CUDA_VISIBLE_DEVICES="",
                CFD_TORCH_CACHE_MAX_GB="0")
     with open(Path(cache) / "worker.err", "w") as err:
@@ -4347,6 +4421,204 @@ def phase_spmd_ranks(args, cuda_lib) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+
+# The annotation-placed paths (parallel/placement.py::place: the JAX package's
+# shard_params + shard_state, after which GSPMD partitions the XLA structured and
+# ELL steps).  (a) one NCCL rank at full size, placed, against the single-device
+# path from the same state: the JAX package's default SolverConfig() (F64, the XLA
+# path, the V-cycle) at NE27000 on phase 9's tables and the BFS ELL steps on phase
+# 8's; (b) 2 and 4 ranks on the one card over gloo on the five decks of
+# tests/test_sharding.py against one device there.
+PLACED_STEPS = 3
+# (b)'s steps: 1 (on the CPU tests/test_torch_placement.py runs 2); at 2 the ELL
+# implicit case alone took 4-5 s a step over gloo (its BiCGStab at momentum_tol
+# 1e-12 runs ~160 iterations, 329 field all-gathers and 489 all-reduces a step)
+PLACED_RANK_STEPS = 1
+PLACED_RANKS = (2, 4)
+# (a) the placed step against the single-device one: each placed apply sums a row
+# as one device does and the pressure solve is replicated, so bit for bit is
+# expected; the run fails past the tolerances of tests/test_sharding.py (F64
+# explicit u 1e-11 / p 1e-10, implicit 1e-10 / 1e-9) and, on the F32 BFS, past
+# BFS_TOLS (of max|u|, max|p|)
+PLACED_TOLS = dict(explicit=(1e-11, 1e-10), implicit=(1e-10, 1e-9))
+# (b) tests/test_sharding.py's cases and tolerances (u, p, u_mon), absolute
+PLACED_CASES = {
+    "box_explicit": ("explicit", (3,), dict(viscosity=0.1, dt=0.005),
+                     dict(pressure_cg_tol=1e-12), (1e-11, 1e-10, 1e-12)),
+    "box_implicit": ("implicit", (4,), dict(viscosity=0.1, dt=0.005),
+                     dict(pressure_cg_tol=1e-12), (1e-10, 1e-9, 1e-11)),
+    "ell_explicit": ("explicit", (12, 4, 4), dict(dt=0.002),
+                     dict(pressure_cg_tol=1e-12), (1e-11, 1e-10, 1e-12)),
+    "ell_implicit": ("implicit", (12, 4, 4), dict(dt=0.01),
+                     dict(pressure_cg_tol=1e-12, momentum_tol=1e-12), (1e-7, 1e-7, 1e-7)),
+    "kovasznay": ("implicit", (4, 4, 2), dict(re=40.0, dt=0.02),
+                  dict(pressure_cg_tol=1e-10), (1e-10, 1e-8, 1e-11)),
+}
+_PLACED_BFS = dict(lengths=(6.0, 2.0, 2.0), step_frac=(0.25, 0.5), viscosity=0.05)
+_PLACED_SECONDS: dict = {}
+
+
+def phase_placed_one_rank(what, solver, cls, cuda_lib, n_steps, kind, tols=None) -> dict:
+    """Phase 14 (a): ``solver`` (set up whole) and its twin on the same tables
+    placed over a one-rank NCCL group, ``n_steps`` from rest each, in turns
+    (one device, placed, placed, one device): the placed fields against one
+    device's (bit for bit expected; the gap and the single-device path's own
+    run-to-run gap printed), equal counts, launch counts, ms/step of each and
+    the collectives a step (calls, bytes)."""
+    import numpy as np
+    import torch
+
+    from cfd_with_cuda_tpu_torch.interop import state_to_rank
+    from cfd_with_cuda_tpu_torch.parallel import sharding
+    from cfd_with_cuda_tpu_torch.parallel.placement import place
+
+    t0 = time.time()
+    state = solver.initial_state()
+    counts = lambda h: [[int(r[f]) for f in ("iters", "cg_iters", "mom_iters")] for r in h]
+    with _OneRankGroup() as mesh:
+        twin = place(cls.from_tables(solver.deck, solver.config, solver.d,
+                                     solver.static_attrs(), device=solver.device), mesh)
+        if twin.block is None or twin.block.s_loc != twin.s_pad or twin.ranks != mesh:
+            raise AssertionError(f"{what}: block {twin.block}, mesh {twin.ranks}")
+        runs, ms, launches, coll = [], [], [], None
+        for tag, s in (("single", solver), ("placed", twin), ("placed", twin),
+                       ("single", solver)):
+            st0 = state_to_rank(state, s) if tag == "placed" else state
+            cuda_lib.reset_launch_counts()
+            sharding.reset_collective_counts()
+            torch.cuda.synchronize()
+            t1 = time.time()
+            st, hist = s.run(st0, n_steps=n_steps)
+            torch.cuda.synchronize()
+            ms.append((tag, (time.time() - t1) / n_steps * 1e3))
+            launches.append((tag, dict(cuda_lib.launch_counts)))
+            if tag == "placed" and coll is None:
+                coll = _collectives_per_step(n_steps)
+            runs.append((tag, s.fields(st), hist))
+    (_, (u_1, p_1), h_1), (_, (u_p, p_p), h_p) = runs[0], runs[1]
+    (_, (u_q, _), _), (_, (u_2, p_2), _) = runs[2], runs[3]
+    u_max, p_max = float(np.abs(u_1).max()), float(np.abs(p_1).max())
+    du, dp = float(np.abs(u_p - u_1).max()), float(np.abs(p_p - p_1).max())
+    tu, tp = tols if tols is not None else (PLACED_TOLS[kind][0], PLACED_TOLS[kind][1])
+    if tols is not None:                       # relative to max|u|, max|p|
+        tu, tp = tu * u_max, tp * p_max
+    bit = bool(np.array_equal(u_p, u_1) and np.array_equal(p_p, p_1))
+    out = dict(phase=what, backend=mesh.backend, ranks=mesh.size, steps=n_steps, kind=kind,
+               bit_equal=bit, du=du, dp=dp, tols=dict(u=tu, p=tp),
+               du_mon=max(abs(a["u_mon"] - b["u_mon"]) for a, b in zip(h_p, h_1)),
+               single_repeat_bit_equal=bool(np.array_equal(u_1, u_2) and np.array_equal(p_1, p_2)),
+               placed_repeat_bit_equal=bool(np.array_equal(u_p, u_q)),
+               counts=[counts(h_1), counts(h_p)],
+               ms_per_step=dict(single=[m for t, m in ms if t == "single"],
+                                placed=[m for t, m in ms if t == "placed"]),
+               launches={t: {k: v for k, v in c.items() if v} for t, c in launches[:2]},
+               collectives_per_step=coll, u_mon=h_p[-1]["u_mon"])
+    if not bit:
+        out["cause"] = ("the single-device path's own run-to-run difference"
+                        if not out["single_repeat_bit_equal"] else
+                        "a placed apply's sums in another order than one device's")
+    out["seconds"] = _PLACED_SECONDS[what] = time.time() - t0
+    emit(out)
+    if not (du <= tu and dp <= tp and out["counts"][0] == out["counts"][1]
+            and launches[0][1] == launches[1][1] and np.isfinite(u_p).all()):
+        raise AssertionError(f"{what}: placed against one device: {out}")
+    return out
+
+
+def _placed_case_solver(case: str, device):
+    """The port's solver of a ``tests/test_sharding.py`` case (F64,
+    ``shard_pad=8``) on ``device``."""
+    from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck, cavity_deck, kovasznay_deck
+    from cfd_with_cuda_tpu_torch.solvers.explicit_bch import ExplicitBCHSolver
+    from cfd_with_cuda_tpu_torch.solvers.implicit_gq import ImplicitGQSolver
+    from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
+
+    kind, dims, deck_kw, cfg_kw, _ = PLACED_CASES[case]
+    make = dict(box_explicit=cavity_deck, box_implicit=cavity_deck, kovasznay=kovasznay_deck)
+    deck = (bfs_deck(*dims, **deck_kw, **_PLACED_BFS) if case.startswith("ell")
+            else make[case](*dims, **deck_kw))
+    cls = ExplicitBCHSolver if kind == "explicit" else ImplicitGQSolver
+    return cls(deck, SolverConfig(dtype_policy=DTypePolicy.F64, steps_per_chunk=1, shard_pad=8,
+                                  **cfg_kw), device)
+
+
+def _placed_rank_run(n_steps: int, device) -> dict:
+    """One rank of phase 14 (b) (module-level: the spawned ranks import it):
+    each case's solver placed over the group, ``n_steps`` from rest, the
+    fields gathered, ms/step and this rank's collectives a step; without a
+    group, the single-device run."""
+    import torch
+
+    from cfd_with_cuda_tpu_torch.ops import cuda_lib
+    from cfd_with_cuda_tpu_torch.parallel import sharding
+    from cfd_with_cuda_tpu_torch.parallel.placement import place
+
+    mesh = sharding.make_mesh()
+    out = {}
+    for case in PLACED_CASES:
+        solver = _placed_case_solver(case, device)
+        if mesh.group:
+            place(solver, mesh)
+        cuda_lib.reset_launch_counts()
+        sharding.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, hist = solver.run(n_steps=n_steps)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) / n_steps * 1e3
+        coll = _collectives_per_step(n_steps)
+        u, p = solver.fields(state)
+        out[case] = dict(u=u, p=p, mon=[h["u_mon"] for h in hist], ms_per_step=ms,
+                         layout=solver.layout, xla=solver.xla,
+                         block=None if solver.block is None else tuple(solver.block),
+                         launches={k: v for k, v in cuda_lib.launch_counts.items() if v},
+                         collectives_per_step=coll)
+    return out
+
+
+def phase_placed_ranks(args) -> dict:
+    """Phase 14 (b): 2 and 4 ranks spawned on the one card (gloo, CUDA tensors
+    staged through pinned host buffers), each case of ``tests/test_sharding.py``
+    placed, against one device (this process, no group) at that file's
+    tolerances; every rank's gathered fields equal rank 0's; no hand-written
+    kernel launched (these paths have none)."""
+    import numpy as np
+
+    from cfd_with_cuda_tpu_torch.parallel.spawn import run_ranks
+
+    t0 = time.time()
+    ref = _placed_rank_run(args.placed_rank_steps, None)
+    out = dict(phase="placed_ranks", steps=args.placed_rank_steps, backend="gloo",
+               device="cuda:0", cases={c: dict(layout=r["layout"], xla=r["xla"],
+                                                ms_per_step_one_device=r["ms_per_step"])
+                                       for c, r in ref.items()}, runs={})
+    for n in PLACED_RANKS:
+        t1 = time.time()
+        ranks = run_ranks(_placed_rank_run, n, (args.placed_rank_steps, "cuda:0"),
+                          backend="gloo", device="cuda:0", threads=None)
+        run = dict(seconds=time.time() - t1)
+        for case, (_, _, _, _, (tu, tp, tmon)) in PLACED_CASES.items():
+            r0, one = ranks[0][case], ref[case]
+            du = float(np.abs(r0["u"] - one["u"]).max())
+            dp = float(np.abs(r0["p"] - one["p"]).max())
+            dmon = abs(r0["mon"][-1] - one["mon"][-1])
+            same = all(np.array_equal(x[case]["u"], r0["u"]) for x in ranks)
+            run[case] = dict(du=du, dp=dp, dmon=dmon, tols=(tu, tp, tmon),
+                             bit_equal=bool(np.array_equal(r0["u"], one["u"])
+                                            and np.array_equal(r0["p"], one["p"])),
+                             ranks_agree=same, blocks=[x[case]["block"] for x in ranks],
+                             ms_per_step=r0["ms_per_step"], launches=r0["launches"],
+                             collectives_per_step=r0["collectives_per_step"])
+            if not (du <= tu and dp <= tp and dmon <= tmon and same and not r0["launches"]
+                    and np.isfinite(r0["u"]).all()):
+                raise AssertionError(f"placed_ranks {n} {case}: {run[case]}")
+        out["runs"][str(n)] = run
+    out["seconds"] = _PLACED_SECONDS["placed_ranks"] = time.time() - t0
+    emit(out)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck-n", type=int, default=30, help="cavity elements per edge (30: NE27000)")
@@ -4416,6 +4688,11 @@ def main() -> int:
                     help="cavity elements per edge of phase 13's 2- and 4-rank runs")
     ap.add_argument("--spmd-rank-steps", type=int, default=SPMD_RANK_STEPS,
                     help="steps of each solver in phase 13's 2- and 4-rank runs")
+    ap.add_argument("--placed-steps", type=int, default=PLACED_STEPS,
+                    help="steps of each placed one-rank run of phase 14 (a) and of its "
+                         "single-device twin")
+    ap.add_argument("--placed-rank-steps", type=int, default=PLACED_RANK_STEPS,
+                    help="steps of each case in phase 14's 2- and 4-rank runs")
     args = ap.parse_args()
 
     import torch
@@ -4469,8 +4746,8 @@ def _main_phases(args, t_start, ne125_setup) -> int:
         args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil, stencil,
         ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
     torch.cuda.empty_cache()
-    rows += ne85_phases(args, cavity_deck, cuda_lib, fused_cg, parity_stencil, window_stencil,
-                        ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy, SolverConfig)
+    rows += ne85_phases(args, ne125_setup, cavity_deck, cuda_lib, fused_cg, parity_stencil,
+                        window_stencil, ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy)
     torch.cuda.empty_cache()
     phase_parity_box(parity_stencil, box_cavity_deck, ExplicitBCHSolver, ImplicitGQSolver,
                      DTypePolicy, SolverConfig)
@@ -4485,14 +4762,21 @@ def _main_phases(args, t_start, ne125_setup) -> int:
     bsolver, _ = phase_bfs_setup(dims, bfs_deck, ExplicitBCHSolver, bcfg)
     banded = phase_banded_cg(bsolver, fused_cg, cuda_lib)
     be2e = phase_e2e_bfs(bsolver, ExplicitBCHSolver, cuda_lib, args.bfs_steps, strict)
+    # phase 14 (a): the BFS step placed over one NCCL rank, on phase 8's tables
+    bfs_tols = (BFS_TOLS["u"], BFS_TOLS["p"])
+    phase_placed_one_rank("placed_bfs", bsolver, ExplicitBCHSolver, cuda_lib,
+                          args.placed_steps, "explicit", bfs_tols)
     del bsolver
     torch.cuda.empty_cache()
-    phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, icfg,
-                           args.bfs_implicit_steps, strict)
+    bi = phase_e2e_bfs_implicit(dims, bfs_deck, ImplicitGQSolver, cuda_lib, icfg,
+                                args.bfs_implicit_steps, strict)
+    phase_placed_one_rank("placed_bfs_implicit", bi.pop("solver"), ImplicitGQSolver, cuda_lib,
+                          args.placed_steps, "implicit", bfs_tols)
+    del bi
     torch.cuda.empty_cache()
 
     # ---- the XLA structured path of both solvers (no hand-written kernel)
-    xla_phases(args, cavity_deck, cuda_lib, ExplicitBCHSolver, ImplicitGQSolver, DTypePolicy,
+    xla_phases(args, ne125_setup, cavity_deck, cuda_lib, ExplicitBCHSolver, ImplicitGQSolver,
                SolverConfig)
     torch.cuda.empty_cache()
 
@@ -4513,6 +4797,11 @@ def _main_phases(args, t_start, ne125_setup) -> int:
     # ---- phase 13 (b): 2 and 4 ranks on the one card ((a) and (c) ran in phase 6)
     phase_spmd_ranks(args, cuda_lib)
     emit(dict(phase="spmd_total", seconds=sum(_SPMD_SECONDS.values()), parts=_SPMD_SECONDS))
+
+    # ---- phase 14 (b): the placed paths on 2 and 4 ranks ((a) ran in phases 8 and 9)
+    phase_placed_ranks(args)
+    emit(dict(phase="placed_total", seconds=sum(_PLACED_SECONDS.values()),
+              parts=_PLACED_SECONDS))
 
     # row 9: the CG kernels on the banded window (launches: the explicit BFS
     # run; cg_iter per launch of UNROLL iterations, which no single PyTorch

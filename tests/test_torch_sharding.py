@@ -249,9 +249,11 @@ def test_dryrun_multichip_two_ranks(capsys):
     from cfd_with_cuda_tpu_torch.graft_entry import dryrun_multichip
 
     lines = dryrun_multichip(2, "cpu", deck_n=4)
-    assert len(lines) == 3 and "explicit fused sharded" in lines[0]
-    assert "implicit fused sharded" in lines[1] and "11(b)" in lines[2]
-    assert all("2 devices OK" in ln for ln in lines[:2])
+    assert len(lines) == 4 and lines[0].startswith("dryrun_multichip[explicit]:")
+    assert "explicit fused sharded" in lines[1] and "implicit fused sharded" in lines[2]
+    assert lines[3].startswith("dryrun_multichip[implicit]:") and "mom_iters=" in lines[3]
+    assert all("2 devices OK" in ln for ln in lines)
+    assert not any("not ported" in ln for ln in lines)
     assert lines[0] in capsys.readouterr().out
 
 
@@ -268,16 +270,20 @@ def test_dryrun_multichip_runs_on_the_card_by_default(monkeypatch):
 
 
 def test_off_the_kernel_layout():
-    """On the kernel path a mesh that takes the unstructured layout raises the
-    ValueError naming ROADMAP.md queue 1 item 11(b) (the JAX package places
-    that path by GSPMD); off the kernel path (F64) nothing changes, as the
-    JAX package's ``spmd_mesh`` is None there."""
+    """On the kernel path a mesh that takes the unstructured layout runs the
+    ELL step under ``spmd_devices`` as the JAX package does
+    (explicit_bch.py:996-1005: its fields whole on every rank until the
+    caller places them, the torch CG on the banded window); off the kernel
+    path (F64) nothing changes, as the JAX package's ``spmd_mesh`` is None
+    there."""
     from cfd_with_cuda_tpu_torch.mesh.generators import bfs_deck
 
     deck = bfs_deck(12, 4, 4, lengths=(6.0, 2.0, 2.0), step_frac=(0.25, 0.5),
                     viscosity=0.05, dt=0.002)
-    with pytest.raises(ValueError, match=r"item 11\(b\)"):
-        ExplicitBCHSolver(deck, SolverConfig(dtype_policy=DTypePolicy.F32, spmd_devices=1),
-                          device="cpu")
+    ell = ExplicitBCHSolver(deck, SolverConfig(dtype_policy=DTypePolicy.F32, spmd_devices=1),
+                            device="cpu")
+    assert ell.layout == "ell" and ell.spmd_mesh is not None and ell.block is None
+    state, stats = ell._time_step(ell.d, ell.initial_state())
+    assert torch.isfinite(state.un).all() and int(stats.cg_iters) > 0
     solver = ExplicitBCHSolver(cavity_deck(3), SolverConfig(spmd_devices=2), device="cpu")
     assert solver.spmd_mesh is None and solver.xla and solver.block is None
