@@ -81,6 +81,25 @@ def _safe_div(a, b):
     return torch.where(zero, torch.zeros_like(a), a / torch.where(zero, torch.ones_like(b), b))
 
 
+def _dots_of(dot_dtype, reduce):
+    """``dots(*pairs)``: the per-system inner products of the ``(a, b)``
+    pairs, as :func:`_make_dot`'s ``dot`` computes each; with ``reduce`` (a
+    sum over ranks of a ``(..., k)`` tensor, the sharded path's
+    ``all_reduce``) the local products of all pairs go through one call, and
+    the cast back to the state dtype follows the sum."""
+    if reduce is None:
+        dot, _ = _make_dot(dot_dtype)
+        return lambda *pairs: tuple(dot(a, b) for a, b in pairs)
+
+    def dots(*pairs):
+        dd = dot_dtype or pairs[0][0].dtype
+        acc = torch.cat([torch.sum(a.to(dd) * b.to(dd), dim=-1, keepdim=True)
+                         for a, b in pairs], dim=-1)
+        return tuple(t.to(pairs[0][0].dtype) for t in reduce(acc).split(1, dim=-1))
+
+    return dots
+
+
 def cg(
     matvec: Callable,
     b: torch.Tensor,
@@ -92,34 +111,37 @@ def cg(
     precond: Callable | None = None,
     dot_dtype=None,
     miniter: int = 0,
+    reduce: Callable | None = None,
 ) -> KrylovResult:
     """Preconditioned conjugate gradient (SPD systems), ``matvec`` once for
     r0 (also with ``x0=None``), then once per iteration; ||r|| is tested
-    on the host every iteration, as the JAX ``while_loop`` tests it."""
+    on the host every iteration, as the JAX ``while_loop`` tests it.
+    ``reduce`` as :func:`bicgstab`'s: one for the start and two an
+    iteration."""
     M = precond or (lambda r: r)
-    dot, norm = _make_dot(dot_dtype)
+    dots = _dots_of(dot_dtype, reduce)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = M(r)
     p = z
-    rz = dot(r, z)
-    bound = torch.clamp_min(tol * torch.max(norm(b)), atol)
+    rz, bb, rr = dots((r, z), (b, b), (r, r))
+    bound = torch.clamp_min(tol * torch.max(torch.sqrt(bb)), atol)
 
     k = 0
-    rn = torch.max(norm(r))
+    rn = torch.max(torch.sqrt(rr))
     # a NaN residual compares False and ends the loop, as lax.while_loop's
     while k < miniter or (k < maxiter and bool(rn > bound)):
         ap = matvec(p)
-        alpha = _safe_div(rz, dot(p, ap))
+        alpha = _safe_div(rz, dots((p, ap))[0])
         x = x + alpha * p
         r = r - alpha * ap
         z = M(r)
-        rz_new = dot(r, z)
+        rz_new, rr = dots((r, z), (r, r))
         beta = _safe_div(rz_new, rz)
         p = z + beta * p
         rz = rz_new
         k += 1
-        rn = torch.max(norm(r))
+        rn = torch.max(torch.sqrt(rr))
     return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rn)
 
 
@@ -134,11 +156,13 @@ def cr(
     precond: Callable | None = None,
     dot_dtype=None,
     miniter: int = 0,
+    reduce: Callable | None = None,
 ) -> KrylovResult:
     """Preconditioned conjugate residual (symmetric systems), ``matvec``
-    twice for the start (r0, A z0), then once per iteration."""
+    twice for the start (r0, A z0), then once per iteration.  ``reduce`` as
+    :func:`bicgstab`'s: one for the start and two an iteration."""
     M = precond or (lambda r: r)
-    dot, norm = _make_dot(dot_dtype)
+    dots = _dots_of(dot_dtype, reduce)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
     z = M(r)
@@ -147,25 +171,25 @@ def cr(
     ap = az
     # the PCR inner product is (z, Az), not (r, Az): the two coincide only
     # for M = I, and with Jacobi M the (r, Az) form diverges
-    zaz = dot(z, az)
-    bound = torch.clamp_min(tol * torch.max(norm(b)), atol)
+    zaz, bb, rr = dots((z, az), (b, b), (r, r))
+    bound = torch.clamp_min(tol * torch.max(torch.sqrt(bb)), atol)
 
     k = 0
-    rn = torch.max(norm(r))
+    rn = torch.max(torch.sqrt(rr))
     while k < miniter or (k < maxiter and bool(rn > bound)):
         map_ = M(ap)
-        alpha = _safe_div(zaz, dot(ap, map_))
+        alpha = _safe_div(zaz, dots((ap, map_))[0])
         x = x + alpha * p
         r = r - alpha * ap
         z = M(r)
         az = matvec(z)
-        zaz_new = dot(z, az)
+        zaz_new, rr = dots((z, az), (r, r))
         beta = _safe_div(zaz_new, zaz)
         p = z + beta * p
         ap = az + beta * ap
         zaz = zaz_new
         k += 1
-        rn = torch.max(norm(r))
+        rn = torch.max(torch.sqrt(rr))
     return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rn)
 
 
@@ -232,25 +256,6 @@ def bicg(
         k += 1
         rn = torch.max(norm(r))
     return KrylovResult(x, torch.tensor(k, dtype=torch.int32, device=b.device), rn)
-
-
-def _dots_of(dot_dtype, reduce):
-    """``dots(*pairs)``: the per-system inner products of the ``(a, b)``
-    pairs, as :func:`_make_dot`'s ``dot`` computes each; with ``reduce`` (a
-    sum over ranks of a ``(..., k)`` tensor, the sharded path's
-    ``all_reduce``) the local products of all pairs go through one call, and
-    the cast back to the state dtype follows the sum."""
-    if reduce is None:
-        dot, _ = _make_dot(dot_dtype)
-        return lambda *pairs: tuple(dot(a, b) for a, b in pairs)
-
-    def dots(*pairs):
-        dd = dot_dtype or pairs[0][0].dtype
-        acc = torch.cat([torch.sum(a.to(dd) * b.to(dd), dim=-1, keepdim=True)
-                         for a, b in pairs], dim=-1)
-        return tuple(t.to(pairs[0][0].dtype) for t in reduce(acc).split(1, dim=-1))
-
-    return dots
 
 
 def bicgstab(

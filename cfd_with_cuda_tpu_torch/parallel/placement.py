@@ -31,7 +31,7 @@ The collectives (``parallel/sharding.py``, counted by name in
 ``collective_counts``): a halo exchange per DIA / window apply and element
 slab field, an all-gather of a field where an elemental apply reads it
 (owner computes), an all-gather of the coarse rows after each G^T, the
-fine-axis norms, ``max_acc``, the monitor and the momentum BiCGStab's dots
+fine-axis norms, ``max_acc``, the monitor and the momentum solve's dots
 reduced over the ranks.
 """
 

@@ -60,7 +60,7 @@ from cfd_with_cuda_tpu_torch.utils import setup_cache as sc
 from cfd_with_cuda_tpu_torch.utils.config import SolverConfig
 
 __all__ = [
-    "StepStats", "ChunkedTimeLoop", "unpack_chunk_stats", "unsupported_config",
+    "StepStats", "ChunkedTimeLoop", "unpack_chunk_stats",
     "kernel_path", "compact_spmv_tables", "xla_g_tables", "xla_grad_div",
     "xla_attach_multigrid",
 ]
@@ -173,13 +173,6 @@ def xla_attach_multigrid(solver, d: dict, Z, box, dtype, wanted: bool) -> None:
     if wanted:
         inv_p = np.argsort(box.perm_p)          # flat grid id -> node id
         attach_hierarchy(solver, d, Z[inv_p][:, inv_p].tocsr(), box.coarse_dims, dtype)
-
-
-def unsupported_config(cfg) -> str | None:
-    """The ``ROADMAP.md`` item of the first ``SolverConfig`` choice that no
-    solver of the port runs on any mesh yet (None when there is none: every
-    choice runs)."""
-    return None
 
 
 # fine-grid tables a rank holds as its block of rows; tables it no longer
@@ -336,7 +329,6 @@ class ChunkedTimeLoop:
         (``parallel/placement.py::place``): every table whose last axis is
         ``s_pad`` cut to the block (``shard_params``), the rest whole.  The
         element tables are :meth:`_elem_tables` either way."""
-        self._split()
         self.ranks = mesh
         self.block = block_rows(self.s_pad, mesh)
         self.slab = None
@@ -371,10 +363,6 @@ class ChunkedTimeLoop:
     def _spmv_offsets(self):
         raise NotImplementedError
 
-    def _split(self) -> None:
-        """Check that the config runs on fields split over ranks (called by
-        :meth:`_place` before it splits them)."""
-
     def _field_norms(self, *vs) -> tuple:
         """The 2-norms of the node fields ``vs``: with the fields split over
         ranks (``ranks``) each rank's norms all-gathered (one call) and normed
@@ -391,7 +379,8 @@ class ChunkedTimeLoop:
         return m if self.ranks is None else all_reduce(m, self.ranks, "max", "reduce_max")
 
     def _momentum_reduce(self):
-        """The momentum BiCGStab's sum over ranks (None on one device)."""
+        """The momentum solve's sum of its dots over ranks (None on one
+        device)."""
         mesh = self.ranks
         return None if mesh is None else (lambda t: all_reduce(t, mesh, "sum", "reduce_dot"))
 
@@ -458,9 +447,6 @@ class ChunkedTimeLoop:
         self.config = config
         self.device = resolve_device(device)
         self.plain = plain
-        why = self._unsupported(config)
-        if why is not None:
-            raise NotImplementedError(f"not ported yet: {why}")
         # the sharded kernel path (spmd_devices >= 1 on the kernel path), as the
         # JAX package's spmd_mesh (base.py:50-68): a mesh of that many ranks,
         # which raises without a process group of that many; off the kernel
@@ -475,10 +461,6 @@ class ChunkedTimeLoop:
             # the einsums and matmuls that build A(u) stay in full f32
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-
-    @staticmethod
-    def _unsupported(config) -> str | None:
-        return unsupported_config(config)
 
     def _setup(self) -> None:
         raise NotImplementedError

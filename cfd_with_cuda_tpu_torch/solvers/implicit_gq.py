@@ -34,13 +34,13 @@ the window rows (27 strided index-adds).  Under ``spmd_devices >= 1`` (the
 sharded kernel path) each rank of a ``torch.distributed`` group holds its
 block of the fine axis and runs that step on it (``parallel/``): the LHS
 assembled from its element slab into its compact rows, A, M and G on its
-rows, G^T on its coarse rows then all-gathered, the BiCGStab's dots summed
-over the ranks, the pressure CG replicated.  On the ELL layout (any
-other mesh, or ``structured="never"``; the JAX package's
-``_time_step_ell``) a step is torch ops only, as it is XLA ops only in the
-JAX package: A(u^k) assembled into CSR values through a reverse-incidence
-table, scattered into slot-major ELL, the batched BiCGStab on the ELL
-SpMV and the torch CG on the ELL Z.
+rows, G^T on its coarse rows then all-gathered, the momentum solve's dots
+(BiCGStab, CR or CG) summed over the ranks, the pressure CG replicated.
+On the ELL layout (any other mesh, or ``structured="never"``; the JAX
+package's ``_time_step_ell``) a step is torch ops only, as it is XLA ops
+only in the JAX package: A(u^k) assembled into CSR values through a
+reverse-incidence table, scattered into slot-major ELL, the batched
+BiCGStab on the ELL SpMV and the torch CG on the ELL Z.
 
 Deliberate divergence (kept from the JAX package): the reference's steady
 check at :3347-3353 assigns ``maxAcc`` *signed* (a bug — its own explicit
@@ -85,7 +85,7 @@ from cfd_with_cuda_tpu_torch.ops import parity_stencil as pstl
 from cfd_with_cuda_tpu_torch.ops import spmv
 from cfd_with_cuda_tpu_torch.ops.fused_cg import fused_cg, fused_cg_plain, half_window
 from cfd_with_cuda_tpu_torch.ops.gradient import div_apply, grad_apply
-from cfd_with_cuda_tpu_torch.ops.krylov import cg, solver_by_name
+from cfd_with_cuda_tpu_torch.ops.krylov import bicg, cg, solver_by_name
 from cfd_with_cuda_tpu_torch.ops.multigrid import make_vcycle
 from cfd_with_cuda_tpu_torch.ops.stencil import (
     assemble_compact_values,
@@ -172,14 +172,6 @@ class ImplicitGQSolver(ChunkedTimeLoop):
         if config.momentum_solver.lower() == "gmres":
             raise ValueError(_GMRES_DEFECT)
         self._momentum_solver = solver_by_name(config.momentum_solver)
-
-    def _split(self) -> None:
-        """The fields are split over ranks from here on: the momentum solve
-        must sum its dots over them, which the BiCGStab does."""
-        if self.config.momentum_solver.lower() != "bicgstab":
-            raise ValueError("fields split over ranks: the momentum solve is the BiCGStab "
-                             "(its dots summed over the ranks), not "
-                             f"{self.config.momentum_solver!r}")
 
     # ------------------------------------------------------------------ setup
     def _setup(self) -> None:
@@ -698,10 +690,13 @@ class ImplicitGQSolver(ChunkedTimeLoop):
 
     def _momentum_solve(self, a_mul, r1, uk_prev, a_diag):
         """The batched 3-direction momentum solve of step1, Jacobi
-        preconditioned (on the sharded path its dots summed over the ranks)."""
+        preconditioned (with the fields split over ranks its dots summed
+        over them)."""
         cfg = self.config
         warm = bool(cfg.implicit_warm_start)
-        reduce = self._momentum_reduce()
+        # bicg takes no reduce: given no rmatvec here, it raises its own
+        # error at the first solve, on split fields as on one device
+        reduce = None if self._momentum_solver is bicg else self._momentum_reduce()
         return self._momentum_solver(
             a_mul,
             r1,

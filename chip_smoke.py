@@ -151,20 +151,26 @@ CG tol 1e-6 configuration and the default per-iteration CG.  It checks:
    ms/step beside phase 6's, the collectives a step and their bytes, 3 steps
    against the single-device path; (b) ``spmd_ranks`` at the end: 2 and 4
    ranks spawned on the one card over gloo (CUDA tensors staged through
-   pinned host buffers) at ``cavity_deck(8)``, held against one rank within
-   the JAX package's sharded tolerances, equal explicit CG counts;
+   pinned host buffers) at ``cavity_deck(8)``, the explicit, the implicit
+   and the implicit step with ``momentum_solver="cr"`` (its dots summed over
+   the ranks), held against one rank within the JAX package's sharded
+   tolerances, equal explicit CG counts, rank 0's launches against its
+   history by its momentum solver's A applies;
 14. the annotation-placed paths (``parallel/placement.py::place``, the JAX
    caller's ``shard_params`` + ``shard_state`` before GSPMD): (a)
    ``placed_xla_f64`` / ``placed_xla_f64_implicit`` inside phase 9 (the JAX
-   package's default ``SolverConfig()`` on its NE27000 tables) and
+   package's default ``SolverConfig()`` on its NE27000 tables; and
+   ``placed_xla_f64_implicit_cr`` with ``momentum_solver="cr"``, where bit
+   for bit is required) and
    ``placed_bfs`` / ``placed_bfs_implicit`` inside phase 8 (on its tables),
    each placed over a one-rank NCCL group against one device, 3 steps from
    rest in turns: bit for bit expected (the gap printed otherwise, beside
    the single-device path's own run-to-run gap), equal counts and launches,
    ms/step of both, the collectives a step; (b) ``placed_ranks`` at the end:
    2 and 4 ranks spawned on the one card over gloo on the five decks of
-   ``tests/test_sharding.py`` (F64, ``shard_pad=8``), against one device at
-   that file's tolerances.
+   ``tests/test_sharding.py`` (F64, ``shard_pad=8``) and its implicit box
+   with ``momentum_solver="cr"``, against one device at that file's
+   tolerances.
 
 Each phase prints one JSON line.  Any failure raises (non-zero exit, no
 result line).  The last lines are the ``kernels`` summary, the card's name
@@ -946,20 +952,29 @@ def phase_cg_modes(tag, cg, window_stencil, win, dinv, b, x0, dims, radius, tol,
 
 # ---------------------------------------------------------------- phase 5
 
-def _implicit_expect(hist, counts, layout="parity", k_name="parity_apply_k", **modes):
-    """Launch counts a run of the implicit solver implies, per its history
-    and layout; ``k_name`` counts the parity layout's M and MK + A applies
-    (``parity_apply_k_streamed`` where the rule streams the field)."""
+# the momentum solve's A applies: (for its start, per iteration); BiCGStab: A x0,
+# then 2; CR: A x0 and A z0, then 1; CG: A x0, then 1
+MOMENTUM_APPLIES = dict(bicgstab=(1, 2), cr=(2, 1), cg=(1, 1))
+
+
+def _implicit_expect(hist, counts, layout="parity", k_name="parity_apply_k",
+                     momentum="bicgstab", **modes):
+    """Launch counts a run of the implicit solver implies, per its history,
+    layout and momentum solver; ``k_name`` counts the parity layout's M and
+    MK + A applies (``parity_apply_k_streamed`` where the rule streams the
+    field)."""
     groups = sum(int(h["cg_iters"]) for h in hist) // UNROLL   # one cg_iter launch a group
     mom = sum(int(h["mom_iters"]) for h in hist)
     n = len(hist)
+    start, per = MOMENTUM_APPLIES[momentum]
+    a_applies = start * n + per * mom
     if layout == "parity":
         on_path = {"cg_init": n, "cg_iter": groups, "div_compact": n, "parity_apply_g": n,
-                   k_name: 2 * n + 2 * mom}                 # M u, A x0, 2 A per iteration
+                   k_name: n + a_applies}                   # M u^k, then the A applies
     else:
-        # M u^k once a step; A x0 once and A twice per BiCGStab iteration
+        # M u^k once a step, then the A applies
         on_path = dict(cg_init=n, cg_iter=groups, div_compact_interleaved=n, grad_window=n,
-                       window_spmv_m=n, window_spmv_mk_plus_a=n + 2 * mom)
+                       window_spmv_m=n, window_spmv_mk_plus_a=a_applies)
     for name, on in modes.items():
         if on:
             on_path[name] = n + groups                      # every cg_init and cg_iter launch
@@ -2652,6 +2667,11 @@ def xla_phases(args, setup, cavity_deck, cuda_lib, ExplicitBCHSolver, ImplicitGQ
     phase_placed_one_rank("placed_xla_f64_implicit", ImplicitGQSolver.from_tables(
         s.deck, default, s.d, s.static_attrs()), ImplicitGQSolver, cuda_lib,
         args.placed_steps, "implicit")
+    # and with the CR momentum solve, its dots reduced over the rank: one
+    # rank's sum is the whole sum, so bit for bit is required
+    phase_placed_one_rank("placed_xla_f64_implicit_cr", ImplicitGQSolver.from_tables(
+        s.deck, dataclasses.replace(default, momentum_solver="cr"), s.d, s.static_attrs()),
+        ImplicitGQSolver, cuda_lib, args.placed_steps, "implicit", bit_for_bit=True)
     del s
     torch.cuda.empty_cache()
     # (c) F32 through the multigrid V-cycle
@@ -4001,6 +4021,11 @@ SPMD_RANKS = (2, 4)
 # 180-189): (rtol, atol) of u and p, abs of u_mon; explicit CG counts equal
 SPMD_TOLS = dict(explicit=dict(u=(2e-5, 2e-6), p=(2e-5, 2e-5), mon=1e-6),
                  implicit=dict(u=(1e-4, 1e-5), p=(1e-4, 1e-4), mon=1e-5))
+# (b)'s runs: (name, solver kind, config fields); "implicit_cr" sums the CR
+# momentum solve's dots over the ranks as "implicit" sums the BiCGStab's
+SPMD_KINDS = (("explicit", "explicit", dict(pressure_warm_start=True)),
+              ("implicit", "implicit", {}),
+              ("implicit_cr", "implicit", dict(momentum_solver="cr")))
 # phase 13's seconds by part (its parts run inside phase 6 and at the end)
 _SPMD_SECONDS: dict = {}
 # sharded launch count -> the single-device name whose count the history implies
@@ -4330,11 +4355,12 @@ def phase_spmd_kernels(xs, isolver, window_stencil, stencil, kint) -> dict:
 
 
 def _spmd_rank_run(deck_n: int, n_steps: int, device) -> dict:
-    """One rank of phase 13 (b): ``n_steps`` explicit and implicit sharded
-    steps from rest on ``cavity_deck(deck_n, viscosity=0.1, dt=0.005)``
-    (the JAX package's sharded-step deck), the fields gathered, this rank's
-    launch and collective counts and ms/step (module-level: the spawned ranks
-    import it)."""
+    """One rank of phase 13 (b): ``n_steps`` explicit, implicit and implicit
+    CR (``momentum_solver="cr"``) sharded steps from rest on
+    ``cavity_deck(deck_n, viscosity=0.1, dt=0.005)`` (the JAX package's
+    sharded-step deck), the fields gathered, this rank's launch and
+    collective counts, ms/step and seconds with the setup (module-level: the
+    spawned ranks import it)."""
     import torch
 
     from cfd_with_cuda_tpu_torch.mesh.generators import cavity_deck
@@ -4346,8 +4372,9 @@ def _spmd_rank_run(deck_n: int, n_steps: int, device) -> dict:
 
     n = sharding.make_mesh().size
     out = {}
-    for kind, cls, extra in (("explicit", ExplicitBCHSolver, dict(pressure_warm_start=True)),
-                             ("implicit", ImplicitGQSolver, {})):
+    for kind, solver_kind, extra in SPMD_KINDS:
+        t_kind = time.time()
+        cls = ExplicitBCHSolver if solver_kind == "explicit" else ImplicitGQSolver
         cfg = SolverConfig(dtype_policy=DTypePolicy.F32, pressure_cg_tol=1e-6,
                            structured_layout="interleaved", spmd_devices=n,
                            steps_per_chunk=n_steps, **extra)
@@ -4362,7 +4389,8 @@ def _spmd_rank_run(deck_n: int, n_steps: int, device) -> dict:
         u, p = solver.fields(state)
         out[kind] = dict(u=u, p=p, hist=hist, ms_per_step=ms, layout=solver.layout,
                          block=tuple(solver.block), launches=dict(cuda_lib.launch_counts),
-                         collectives_per_step=_collectives_per_step(n_steps))
+                         collectives_per_step=_collectives_per_step(n_steps),
+                         seconds=time.time() - t_kind)
     return out
 
 
@@ -4380,17 +4408,18 @@ def phase_spmd_ranks(args, cuda_lib) -> dict:
     ref = _spmd_rank_run(args.spmd_deck_n, args.spmd_rank_steps, None)
     out = dict(phase="spmd_ranks", deck=f"cavity_deck({args.spmd_deck_n}, viscosity=0.1, "
                f"dt=0.005)", steps=args.spmd_rank_steps, backend="gloo", device="cuda:0",
-               one_rank=dict(ms_per_step={k: v["ms_per_step"] for k, v in ref.items()}),
+               one_rank=dict(ms_per_step={k: v["ms_per_step"] for k, v in ref.items()},
+                             seconds={k: v["seconds"] for k, v in ref.items()}),
                runs={})
     for n in SPMD_RANKS:
         t1 = time.time()
         ranks = run_ranks(_spmd_rank_run, n, (args.spmd_deck_n, args.spmd_rank_steps, "cuda:0"),
                           backend="gloo", device="cuda:0", threads=None)
         run = dict(seconds=time.time() - t1, blocks={}, launches={}, collectives_per_step={},
-                   ms_per_step={})
-        for kind in ("explicit", "implicit"):
+                   ms_per_step={}, seconds_by_kind={})
+        for kind, solver_kind, extra in SPMD_KINDS:
             r0, one = ranks[0][kind], ref[kind]
-            t = SPMD_TOLS[kind]
+            t = SPMD_TOLS[solver_kind]
             du = float(np.abs(r0["u"] - one["u"]).max())
             dp = float(np.abs(r0["p"] - one["p"]).max())
             dmon = max(abs(a["u_mon"] - b["u_mon"]) for a, b in zip(r0["hist"], one["hist"]))
@@ -4399,20 +4428,23 @@ def phase_spmd_ranks(args, cuda_lib) -> dict:
             ok_p = np.allclose(r0["p"], one["p"], rtol=t["p"][0], atol=t["p"][1])
             same = all(np.array_equal(x[kind]["u"], r0["u"]) for x in ranks)
             counts = r0["launches"]
-            if kind == "explicit":
+            if solver_kind == "explicit":
                 on_path, ok_l = _explicit_interleaved_expect(
                     r0["hist"], _as_single(counts, "spmd_ranks"), "auto")
             else:
-                on_path, expect = _implicit_expect(r0["hist"], _as_single(counts, "spmd_ranks"),
-                                                   "interleaved")
+                on_path, expect = _implicit_expect(
+                    r0["hist"], _as_single(counts, "spmd_ranks"), "interleaved",
+                    momentum=extra.get("momentum_solver", "bicgstab"))
                 ok_l = min(on_path.values()) > 0 and _as_single(counts, "spmd_ranks") == expect
             run[kind] = dict(du=du, dp=dp, dmon=dmon, cg_iters=cg, tols=t, ranks_agree=same)
             run["blocks"][kind] = [x[kind]["block"] for x in ranks]
             run["launches"][kind] = counts
             run["collectives_per_step"][kind] = r0["collectives_per_step"]
             run["ms_per_step"][kind] = r0["ms_per_step"]
+            run["seconds_by_kind"][kind] = r0["seconds"]
             if not (ok_u and ok_p and dmon <= t["mon"] and same and ok_l
-                    and np.isfinite(r0["u"]).all() and (kind == "implicit" or cg[0] == cg[1])):
+                    and np.isfinite(r0["u"]).all()
+                    and (solver_kind == "implicit" or cg[0] == cg[1])):
                 raise AssertionError(f"spmd_ranks {n} {kind}: {run[kind]}, launches {counts}, "
                                      f"expected {on_path}")
         out["runs"][str(n)] = run
@@ -4448,6 +4480,8 @@ PLACED_CASES = {
                      dict(pressure_cg_tol=1e-12), (1e-11, 1e-10, 1e-12)),
     "box_implicit": ("implicit", (4,), dict(viscosity=0.1, dt=0.005),
                      dict(pressure_cg_tol=1e-12), (1e-10, 1e-9, 1e-11)),
+    "box_implicit_cr": ("implicit", (4,), dict(viscosity=0.1, dt=0.005),
+                        dict(pressure_cg_tol=1e-12, momentum_solver="cr"), (1e-10, 1e-9, 1e-11)),
     "ell_explicit": ("explicit", (12, 4, 4), dict(dt=0.002),
                      dict(pressure_cg_tol=1e-12), (1e-11, 1e-10, 1e-12)),
     "ell_implicit": ("implicit", (12, 4, 4), dict(dt=0.01),
@@ -4459,13 +4493,15 @@ _PLACED_BFS = dict(lengths=(6.0, 2.0, 2.0), step_frac=(0.25, 0.5), viscosity=0.0
 _PLACED_SECONDS: dict = {}
 
 
-def phase_placed_one_rank(what, solver, cls, cuda_lib, n_steps, kind, tols=None) -> dict:
+def phase_placed_one_rank(what, solver, cls, cuda_lib, n_steps, kind, tols=None,
+                          bit_for_bit=False) -> dict:
     """Phase 14 (a): ``solver`` (set up whole) and its twin on the same tables
     placed over a one-rank NCCL group, ``n_steps`` from rest each, in turns
     (one device, placed, placed, one device): the placed fields against one
-    device's (bit for bit expected; the gap and the single-device path's own
-    run-to-run gap printed), equal counts, launch counts, ms/step of each and
-    the collectives a step (calls, bytes)."""
+    device's (bit for bit expected, and required with ``bit_for_bit``; the
+    gap and the single-device path's own run-to-run gap printed), equal
+    counts, launch counts, ms/step of each and the collectives a step
+    (calls, bytes)."""
     import numpy as np
     import torch
 
@@ -4521,7 +4557,8 @@ def phase_placed_one_rank(what, solver, cls, cuda_lib, n_steps, kind, tols=None)
     out["seconds"] = _PLACED_SECONDS[what] = time.time() - t0
     emit(out)
     if not (du <= tu and dp <= tp and out["counts"][0] == out["counts"][1]
-            and launches[0][1] == launches[1][1] and np.isfinite(u_p).all()):
+            and launches[0][1] == launches[1][1] and np.isfinite(u_p).all()
+            and (bit or not bit_for_bit)):
         raise AssertionError(f"{what}: placed against one device: {out}")
     return out
 
@@ -4535,7 +4572,8 @@ def _placed_case_solver(case: str, device):
     from cfd_with_cuda_tpu_torch.utils.config import DTypePolicy, SolverConfig
 
     kind, dims, deck_kw, cfg_kw, _ = PLACED_CASES[case]
-    make = dict(box_explicit=cavity_deck, box_implicit=cavity_deck, kovasznay=kovasznay_deck)
+    make = dict(box_explicit=cavity_deck, box_implicit=cavity_deck, box_implicit_cr=cavity_deck,
+                kovasznay=kovasznay_deck)
     deck = (bfs_deck(*dims, **deck_kw, **_PLACED_BFS) if case.startswith("ell")
             else make[case](*dims, **deck_kw))
     cls = ExplicitBCHSolver if kind == "explicit" else ImplicitGQSolver
@@ -4557,6 +4595,7 @@ def _placed_rank_run(n_steps: int, device) -> dict:
     mesh = sharding.make_mesh()
     out = {}
     for case in PLACED_CASES:
+        t_case = time.time()
         solver = _placed_case_solver(case, device)
         if mesh.group:
             place(solver, mesh)
@@ -4573,7 +4612,7 @@ def _placed_rank_run(n_steps: int, device) -> dict:
                          layout=solver.layout, xla=solver.xla,
                          block=None if solver.block is None else tuple(solver.block),
                          launches={k: v for k, v in cuda_lib.launch_counts.items() if v},
-                         collectives_per_step=coll)
+                         collectives_per_step=coll, seconds=time.time() - t_case)
     return out
 
 
@@ -4591,7 +4630,8 @@ def phase_placed_ranks(args) -> dict:
     ref = _placed_rank_run(args.placed_rank_steps, None)
     out = dict(phase="placed_ranks", steps=args.placed_rank_steps, backend="gloo",
                device="cuda:0", cases={c: dict(layout=r["layout"], xla=r["xla"],
-                                                ms_per_step_one_device=r["ms_per_step"])
+                                                ms_per_step_one_device=r["ms_per_step"],
+                                                seconds_one_device=r["seconds"])
                                        for c, r in ref.items()}, runs={})
     for n in PLACED_RANKS:
         t1 = time.time()
@@ -4608,7 +4648,8 @@ def phase_placed_ranks(args) -> dict:
                              bit_equal=bool(np.array_equal(r0["u"], one["u"])
                                             and np.array_equal(r0["p"], one["p"])),
                              ranks_agree=same, blocks=[x[case]["block"] for x in ranks],
-                             ms_per_step=r0["ms_per_step"], launches=r0["launches"],
+                             ms_per_step=r0["ms_per_step"], seconds=r0["seconds"],
+                             launches=r0["launches"],
                              collectives_per_step=r0["collectives_per_step"])
             if not (du <= tu and dp <= tp and dmon <= tmon and same and not r0["launches"]
                     and np.isfinite(r0["u"]).all()):

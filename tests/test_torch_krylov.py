@@ -1,6 +1,8 @@
 """PyTorch port: ``ops/krylov.py`` (BiCGStab and CG on batched systems, the MIXED
 policy's f64 reductions, the breakdown guard) against the JAX package's
-``ops/krylov.py`` on the same seeded systems.
+``ops/krylov.py`` on the same seeded systems; CG and CR with ``reduce=``
+(the sum over ranks of fields split by rows) against themselves without
+it, in one process and on 2 and 4 gloo ranks.
 
 The system is nonsymmetric and strictly diagonally dominant, (3, N) right-
 hand sides with one all-zero column (the v/w momentum columns of the first
@@ -174,6 +176,80 @@ def test_cg_miniter_and_atol():
         assert int(out.iters) == int(ref.iters) >= kw.get("miniter", 1), kw
         np.testing.assert_allclose(out.x.numpy(), np.asarray(ref.x), rtol=0, atol=1e-12)
         np.testing.assert_allclose(float(out.residual), float(ref.residual), rtol=0, atol=1e-11)
+
+
+@pytest.mark.parametrize("dtype,dot_dtype", [
+    (np.float32, None), (np.float32, torch.float64), (np.float64, None),
+], ids=["f32", "f32_f64_dot", "f64"])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("name", ["cg", "cr"])
+def test_cg_cr_identity_reduce_keeps_the_bits(name, dtype, dot_dtype, warm):
+    """``reduce`` batches the dots of a step into one call (one rank's sum
+    is the whole sum): with the identity it returns ``reduce=None``'s x,
+    residual and iteration count bit for bit, on the same matvecs."""
+    a, b, x0 = _spd_system(dtype)
+    at, diag = torch.from_numpy(a), torch.from_numpy(np.diag(a).copy())
+    tol = 1e-6 if dtype == np.float32 else 1e-12
+    outs, calls = [], []
+    for reduce in (None, lambda t: t):
+        calls.append(0)
+
+        def matvec(x):
+            calls[-1] += 1
+            return x @ at.T
+
+        outs.append(getattr(tk, name)(
+            matvec, torch.from_numpy(b), torch.from_numpy(x0) if warm else None, tol=tol,
+            maxiter=300, precond=lambda r: r / diag, dot_dtype=dot_dtype, reduce=reduce))
+    plain, reduced = outs
+    assert int(plain.iters) == int(reduced.iters) > 0 and calls[0] == calls[1]
+    assert torch.equal(plain.x, reduced.x) and torch.equal(plain.residual, reduced.residual)
+    assert reduced.x.dtype == torch.from_numpy(b).dtype
+
+
+def _rank_rows_solve() -> dict:
+    """CG and CR on the f64 SPD system of :func:`_spd_system`, this rank
+    holding its block of the rows: the matvec all-gathers x, ``reduce`` is
+    the sum over the ranks."""
+    from cfd_with_cuda_tpu_torch.parallel import sharding
+
+    mesh = sharding.make_mesh()
+    a, b, _ = _spd_system(np.float64)
+    rows = slice(mesh.rank * N // mesh.size, (mesh.rank + 1) * N // mesh.size)
+    a_rows = torch.from_numpy(a[rows])
+
+    def matvec(x):
+        full = torch.cat(tuple(sharding.all_gather(x, mesh)), dim=-1)
+        return full @ a_rows.T
+
+    diag = torch.from_numpy(np.diag(a)[rows].copy())
+    out = {}
+    for name in ("cg", "cr"):
+        res = getattr(tk, name)(matvec, torch.from_numpy(b[:, rows].copy()), tol=1e-12,
+                                maxiter=300, precond=lambda r: r / diag,
+                                reduce=lambda t: sharding.all_reduce(t, mesh))
+        out[name] = dict(x=res.x.numpy(), iters=int(res.iters), residual=float(res.residual))
+    return out
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cg_cr_by_rows_over_ranks_match_one_process(n, tmp_path):
+    """CG and CR solved by rows on n gloo ranks (``parallel/spawn.py``)
+    against the one-process solve: x within 1e-12, equal iterations, and
+    the same residual on every rank."""
+    from cfd_with_cuda_tpu_torch.parallel.spawn import run_ranks
+
+    a, b, _ = _spd_system(np.float64)
+    diag = torch.from_numpy(np.diag(a).copy())
+    by_rank = run_ranks(_rank_rows_solve, n, (), device="cpu", workdir=tmp_path)
+    for name in ("cg", "cr"):
+        ref = getattr(tk, name)(lambda x: x @ torch.from_numpy(a).T, torch.from_numpy(b),
+                                tol=1e-12, maxiter=300, precond=lambda r: r / diag)
+        res = [r[name] for r in by_rank]
+        assert all(r["iters"] == int(ref.iters) > 0 for r in res), name
+        assert len({r["residual"] for r in res}) == 1, name
+        np.testing.assert_allclose(np.concatenate([r["x"] for r in res], axis=-1),
+                                   ref.x.numpy(), rtol=0, atol=1e-12, err_msg=name)
 
 
 @pytest.mark.parametrize("name", ["cr", "bicg", "gmres"])

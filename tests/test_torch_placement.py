@@ -21,7 +21,7 @@ here the same decks, configs and ``shard_pad=8`` go through the port's
 * on 2, 4 and 8 ranks against the port's own single-device step: the
   explicit steps bit for bit (every placed apply sums each row as one device
   does, and the pressure solve is replicated), the implicit ones at the
-  same tolerances (the BiCGStab's dots are summed over the ranks);
+  same tolerances (the momentum solve's dots are summed over the ranks);
 * the ELL ``shard_pad`` repair on one device: ``s_pad``, the padded tables
   and the state shape against the JAX package's on ``bfs_deck(12, 4, 4)``
   with ``shard_pad=8``, both solvers, and the 2 steps within the F64 ELL
@@ -33,7 +33,9 @@ here the same decks, configs and ``shard_pad=8`` go through the port's
   the elemental convection of the elements that touch them) on 2 ranks
   against the JAX package's ``spmd_devices=2`` step and, bit for bit, the
   port's one device;
-* ``place`` refuses what it cannot place.
+* ``place`` refuses what it cannot place; the ``"bicg"`` momentum solver,
+  which the implicit step gives no ``rmatvec``, places and raises its own
+  error at the first step, as on one device.
 """
 
 from __future__ import annotations
@@ -380,7 +382,15 @@ def test_place_refuses_what_it_cannot_place():
     odd = ExplicitBCHSolver(cavity_deck(3), SolverConfig(), device="cpu")
     with pytest.raises(ValueError, match="shard_pad"):
         place(odd, mesh)
-    cr = ImplicitGQSolver(cavity_deck(3), SolverConfig(momentum_solver="cr", shard_pad=2),
-                          device="cpu")
-    with pytest.raises(ValueError, match="BiCGStab"):
-        place(cr, mesh)
+    # "bicg" places, and its first step raises its own error (the implicit
+    # step passes no rmatvec), placed as on one device
+    errors = []
+    for placed in (False, True):
+        bicg = ImplicitGQSolver(cavity_deck(3), SolverConfig(momentum_solver="bicg",
+                                                             shard_pad=2), device="cpu")
+        if placed:
+            place(bicg, sharding.make_mesh(1))
+        with pytest.raises(ValueError, match="rmatvec") as err:
+            bicg._time_step(bicg.d, bicg.initial_state())
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
